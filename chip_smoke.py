@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive heat_tpu_torch's main path once on one CUDA card, and check it.
+"""Drive heat_tpu_torch's main paths once on one CUDA card, and check them.
 
 Run from the repository root, with no arguments:
 
@@ -7,18 +7,30 @@ Run from the repository root, with no arguments:
 
 Phases, one JSON line each:
 
-1. card: ``nvidia-smi`` name and power limit, the TF32 switches (the port
-   never turns TF32 on).
-2. build: ``nvcc`` builds every kernel from ``heat_tpu_torch/csrc``.
-3. kernels: each CUDA kernel against its plain PyTorch version at the main
-   path's shapes, with its time (CUDA events, median of 10), the plain
+1. card: ``nvidia-smi`` name and power limit, the TF32 and reduced-precision
+   bf16 GEMM switches (the port never turns TF32 on).
+2. build: ``nvcc`` builds every kernel from ``heat_tpu_torch/csrc``; the
+   library runs the probe kernel once as it loads.
+3. probe: one launch of the probe kernel, held bitwise against ``x + 1``.
+4. kernels: each CUDA kernel against its plain PyTorch version at the main
+   paths' shapes, with its time (CUDA events around 10 back-to-back calls,
+   median of 10 such samples), the plain
    version's time, the bound the card allows, and one PyTorch call that
    computes the same function where there is one.
-4. main path: the README quick start at full size — 2^23 x 64 float32
+5. KMeans path: the README quick start at full size — 2^23 x 64 float32
    points, ``KMeans(n_clusters=8, init="kmeans++", max_iter=20, tol=-1)``,
    ``predict``, and the 40,000 x 18 ``cdist`` — with the launch counts of
    each kernel in that run, the result held against a plain Lloyd loop, and
    Lloyd iterations per second.
+6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
+   16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
+   ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
+   tokens, ``generate`` of 32 tokens after (8, 1000) prompts, and a
+   ``serve_transformer(..., decode=True, slots=8)`` engine answering 16
+   staggered requests — with the flash launch count of that run, every
+   chosen token held against a float32 copy of the model (the near-tie
+   rule, ``bf16_logit_tol``), prefill ms per bucket, time to first token,
+   decode tokens/s and peak memory.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -27,22 +39,38 @@ CUDA card is visible.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
+
 N_POINTS, N_FEATURES, K, ITERS = 2**23, 64, 8, 20
 CDIST_N, CDIST_D = 40_000, 18
 U32 = 2.0**-24  # float32 unit roundoff
+U_BF16 = 2.0**-8  # bfloat16 unit roundoff
+
+# the flagship model (bench.py:204-206, 222-223, transformer_train_metrics
+# defaults; README's combined-parallelism model without the experts)
+FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
+SLOTS, SEQ_CAP, N_REQ = 8, 2048, 16
+MAX_NEW_MIX = ([8, 12, 16, 24, 192], [0.30, 0.30, 0.15, 0.10, 0.15])  # bench.py:948-949
+# bf16 roundings one layer adds to the residual stream: the two norms, q,
+# k and v, the two RoPE casts, the attention output, the projection and
+# its residual add, the MLP up, GELU, down and its residual add
+ROUNDINGS_PER_LAYER = 12
+KAPPA = 6.0  # standard deviations of the rounding walk allowed per logit
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# memory bytes/s, fp32 and fp64 FLOP/s outside the tensor cores.
+# memory bytes/s, fp32 and fp64 FLOP/s outside the tensor cores, and the
+# bf16 tensor-core rate (the flash kernel redesign's target).
 _PEAKS = {
-    "H100 PCIe": (2.0e12, 51.2e12, 25.6e12),
-    "H100 NVL": (3.9e12, 60.0e12, 30.0e12),
-    "H200": (4.8e12, 67.0e12, 34.0e12),
-    "H100": (3.35e12, 67.0e12, 34.0e12),  # SXM
+    "H100 PCIe": (2.0e12, 51.2e12, 25.6e12, 756e12),
+    "H100 NVL": (3.9e12, 60.0e12, 30.0e12, 835e12),
+    "H200": (4.8e12, 67.0e12, 34.0e12, 989e12),
+    "H100": (3.35e12, 67.0e12, 34.0e12, 989e12),  # SXM
 }
 
 
@@ -57,8 +85,11 @@ def peaks(name):
     return "H100", _PEAKS["H100"]
 
 
-def time_ms(torch, fn, reps=10):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def time_ms(torch, fn, reps=10, inner=10):
+    """Median over ``reps`` samples of the CUDA-event time of ``inner``
+    back-to-back calls of ``fn``, per call, after one warm-up call. Queued
+    launches hide the host's per-call overhead behind the card's work, so a
+    short kernel's time is its own and not the launch latency."""
     fn()
     torch.cuda.synchronize()
     out = []
@@ -66,10 +97,11 @@ def time_ms(torch, fn, reps=10):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        out.append(start.elapsed_time(end))
+        out.append(start.elapsed_time(end) / inner)
     return statistics.median(out)
 
 
@@ -170,6 +202,259 @@ def check_kmeans_step(torch, x, c, mask, got, want):
                     "kernel's labels"}
 
 
+def flash_live_pairs(sq, sk, causal):
+    """(query, key) pairs a flash call must score: all of them, or with the
+    end-aligned causal mask those with col <= row + (sk - sq)."""
+    if not causal:
+        return sq * sk
+    rows = np.arange(sq, dtype=np.int64)
+    return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
+
+
+def flash_bound(b, h, sq, sk, d, causal, in_bytes, bw, rate):
+    """Q, K, V read once, O and the float32 lse written once; 4·D FLOPs per
+    live (query, key) pair (the two products)."""
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * in_bytes + b * h * sq * 4
+    return bound(nbytes, 4 * b * h * d * flash_live_pairs(sq, sk, causal), bw, rate)
+
+
+def check_flash(torch, tk, q, k, v, causal, out_step=0.0, got=None):
+    """The kernel's (out, lse) (``got``, else a new launch) against the
+    plain version on the same inputs, everywhere: NaN outputs and -inf lse
+    at identical positions; elsewhere |Δout| <= 1e-5·max|v| + 1e-5·|out|
+    (+ ``out_step``·|out| for one rounding of a half-precision output; both
+    sides round their float32 result once) and |Δlse| <= 1e-5·(1 + |lse|).
+    The float32 sums of the two versions run in other orders: each score is
+    within D·u·|q||k| of exact, far below 1e-5 at these sizes. Returns the
+    max abs error of out and the largest ratio of error to limit."""
+    if got is None:
+        got = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    out, lse = (t.float() for t in got)
+    w_out, w_lse = (t.float() for t in want)
+    assert out.shape == w_out.shape and lse.shape == w_lse.shape == q.shape[:3]
+    assert got[0].dtype == q.dtype and got[1].dtype == torch.float32
+    nan = torch.isnan(w_out)
+    assert torch.equal(torch.isnan(out), nan), "flash_attention: NaN rows differ"
+    inf = torch.isneginf(w_lse)
+    assert torch.equal(torch.isneginf(lse), inf), "flash_attention: -inf lse rows differ"
+    vmax = float(v.float().abs().max())
+    err = torch.where(nan, torch.zeros_like(out), (out - w_out).abs())
+    lim = 1e-5 * vmax + (1e-5 + out_step) * torch.where(nan, torch.zeros_like(out), w_out.abs())
+    bad = int((err > lim).sum())
+    assert bad == 0, f"flash_attention: {bad} output elements beyond their tolerance"
+    lse_err = torch.where(inf, torch.zeros_like(lse), (lse - w_lse).abs())
+    lse_lim = 1e-5 * (1 + torch.where(inf, torch.zeros_like(lse), w_lse.abs()))
+    bad = int((lse_err > lse_lim).sum())
+    assert bad == 0, f"flash_attention: {bad} lse values beyond their tolerance"
+    return float(err.max()), max(float((err / lim).max()), float((lse_err / lse_lim).max()))
+
+
+def bf16_logit_tol(sigma, mag, n_layers):
+    """How far one logit of the bf16 model may lie from the float32 model's,
+    fixed before any run: each layer adds ROUNDINGS_PER_LAYER roundings of
+    relative size u = 2^-8 to the residual stream; they walk like a random
+    sum, so the normalised final hidden state is off by about
+    u·sqrt(12·L) of its norm, and a logit z = ĥ·w by that much of the
+    logits' standard deviation ``sigma`` (ĥ and w independent). KAPPA = 6
+    such deviations, plus one rounding of the bf16 logit itself (u·max|z|,
+    ``mag``)."""
+    return KAPPA * U_BF16 * math.sqrt(ROUNDINGS_PER_LAYER * n_layers) * sigma + U_BF16 * mag
+
+
+def near_tie_check(torch, logits32, chosen, n_layers):
+    """Every chosen token of the bf16 model (``chosen``, (T,)) against the
+    float32 model's logits at the positions that chose them (``logits32``,
+    (T, vocab)): the chosen token's float32 logit must lie within twice
+    :func:`bf16_logit_tol` of the largest (the bf16 model picks the larger
+    of its two rounded logits, each within the tolerance). Returns the
+    number of tokens that differ from the float32 argmax and the largest
+    gap over its limit."""
+    sigma = logits32.std(dim=-1)
+    mag = logits32.abs().amax(dim=-1)
+    top = logits32.amax(dim=-1)
+    picked = logits32.gather(1, chosen.long()[:, None])[:, 0]
+    gap = top - picked
+    limit = 2 * bf16_logit_tol(sigma, mag, n_layers)
+    bad = int((gap > limit).sum())
+    assert bad == 0, (f"{bad} chosen tokens lie beyond the near-tie tolerance of the float32 "
+                      f"argmax (largest gap {float(gap.max())}, limit {float(limit.min())})")
+    return int((chosen.long() != logits32.argmax(dim=-1)).sum()), float((gap / limit).max())
+
+
+def device_share(torch, fn, n):
+    """Host ms per call of ``fn`` (ending in a synchronize) over ``n`` calls,
+    then the card's time per call in a torch.profiler window of ``n`` more
+    calls (kernels, copies and sets; one stream, so they do not overlap),
+    the device activities per call, and the busy share: device time over
+    the unprofiled host time. Device figures are None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, acts, by_name = 0.0, 0, {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = e.time_range.elapsed_us()
+            dev_us += us
+            acts += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    if dev_us == 0:
+        return {"host_ms_per_call": wall_ms, "device_ms_per_call": None,
+                "device_activities_per_call": None, "device_busy_share": None}
+    dev_ms = dev_us / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"host_ms_per_call": wall_ms, "device_ms_per_call": dev_ms,
+            "device_activities_per_call": acts / n, "device_busy_share": dev_ms / wall_ms,
+            "top_device_ms_per_call": {name[:80]: us / 1e3 / n for name, us in top}}
+
+
+def serving_path(torch, ht, tk, dev, smi):
+    """The serving main path at the flagship width, through the entry points
+    a user calls; returns the figures and the path's launch counts."""
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+
+    L, V = FLAGSHIP["n_layers"], FLAGSHIP["vocab"]
+    rng = np.random.default_rng(7)
+    lens = rng.integers(100, 1001, N_REQ)
+    max_new = rng.choice(MAX_NEW_MIX[0], size=N_REQ, p=MAX_NEW_MIX[1])
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32) for n in lens]
+    gaps = rng.exponential(0.02, N_REQ)  # staggered arrivals, 20 ms apart on average
+    i_eos = int(np.nonzero(max_new >= 12)[0][0])
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, compute_dtype=torch.bfloat16))
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # set-up: request i_eos stops at its third greedy token
+    eos = int(model.generate(params, prompts[i_eos][None], 3)[0, -1])
+
+    tk.reset_launches()
+    toks = torch.randint(0, V, (8, 1024), device=dev, generator=g)
+    t0 = time.perf_counter()
+    logits = model.logits_fn()(params, toks)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    assert logits.shape == (8, 1024, V) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    gp = torch.randint(0, V, (8, 1000), device=dev, generator=g)
+    t0 = time.perf_counter()
+    out_gen = model.generate(params, gp, 32)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    assert out_gen.shape == (8, 1032) and torch.equal(out_gen[:, :1000].long(), gp)
+    assert int(out_gen.min()) >= 0 and int(out_gen.max()) < V
+
+    eng = ht.serve.serve_transformer(model, params, SEQ_CAP, decode=True, slots=SLOTS)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        n_warm = int(math.log2(eng.S_cap // model.PROMPT_BUCKET_MIN))
+        t0 = time.perf_counter()
+        futs = []
+        for i in range(N_REQ):
+            time.sleep(float(gaps[i]))
+            futs.append(eng.submit(prompts[i], int(max_new[i]),
+                                   eos_id=eos if i == i_eos else None))
+        outs = [f.result(600) for f in futs]
+        serve_s = time.perf_counter() - t0
+        stats = eng.stats()
+        launches = dict(tk.launches)
+        buckets = sorted({model.prompt_bucket(int(n)) for n in lens})
+        prefill_ms = {}
+        for sp in buckets:
+            times = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                eng._dispatch_prefill(np.zeros(sp, np.int32), 0, record=False)
+                times.append((time.perf_counter() - t1) * 1e3)
+            prefill_ms[str(sp)] = statistics.median(times)
+        dead = np.zeros(SLOTS, bool)  # all slots dead: full compute, no position moves
+        eng._live_dev = None
+        shares = {"decode_step": device_share(
+                      torch, lambda: eng._dispatch_step(dead, record=False), 20),
+                  "prefill_1024": device_share(
+                      torch, lambda: eng._dispatch_prefill(np.zeros(1000, np.int32), 0,
+                                                           record=False), 5)}
+    finally:
+        eng.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_gen = []
+    for i, out in enumerate(outs):
+        s0 = prompts[i].size
+        assert out.dtype == np.int32 and np.array_equal(out[:s0], prompts[i])
+        new = out[s0:]
+        assert 1 <= new.size <= max_new[i] and int(new.min()) >= 0 and int(new.max()) < V
+        if i == i_eos:
+            assert eos not in new[:-1] and (new.size == max_new[i] or new[-1] == eos)
+        else:
+            assert new.size == max_new[i], (i, new.size, max_new[i])
+        n_gen.append(int(new.size))
+    requested = int(max_new.sum())
+    eos_cut = int(max_new[i_eos]) - n_gen[i_eos]
+    assert stats["tokens_out"] == sum(n_gen) == requested - eos_cut, (stats, n_gen)
+    assert stats["decode_steps"] > 0 and stats["prefills"] == N_REQ, stats
+    want_flash = L * (n_warm + stats["prefills"] + 1 + 1)
+    assert launches["flash_attention"] == want_flash, (launches, want_flash)
+    assert launches["probe"] == 1 and launches["cdist_tile"] == launches["kmeans_step"] == 0
+
+    # the near-tie rule against a float32 copy of the model from the same init(0)
+    del logits
+    torch.cuda.empty_cache()
+    model32 = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP))
+    params32 = model32.init(0)
+    fwd32 = model32.logits_fn()
+    ref = fwd32(params32, toks[:1, :128])[0]
+    got = model.logits_fn()(params, toks[:1, :128])[0]
+    fwd_tol = bf16_logit_tol(ref.std(dim=-1, keepdim=True), ref.abs().amax(dim=-1, keepdim=True),
+                             L)
+    fwd_ratio = float(((got - ref).abs() / fwd_tol).max())
+    assert fwd_ratio <= 1.0, f"bf16 logits beyond bf16_logit_tol of float32: {fwd_ratio}"
+    ties = {}
+    picks = sorted(range(N_REQ), key=lambda i: -n_gen[i])[:4]
+    for i in picks:
+        s0, seq = prompts[i].size, torch.from_numpy(outs[i].astype(np.int64)).to(dev)
+        z = fwd32(params32, seq[None, :-1])[0, s0 - 1:]
+        ties[f"request_{i}"] = near_tie_check(torch, z, seq[s0:], L)
+    z = fwd32(params32, out_gen[:1, :-1].long())[0, 999:]
+    ties["generate_row_0"] = near_tie_check(torch, z, out_gen[0, 1000:], L)
+    del model32, params32, z, ref, got
+    torch.cuda.empty_cache()
+
+    ttft = stats["ttft_ms"]
+    emit({"phase": "serving_path", "card": smi, "config": FLAGSHIP, "compute_dtype": "bfloat16",
+          "launches": launches, "flash_launches_expected": want_flash,
+          "warmup_prefills": n_warm, "init_s": init_s, "logits_forward_s": fwd_s,
+          "generate_8x1000_plus_32_s": gen_s, "warmup_s": warm_s, "serve_wall_s": serve_s,
+          "requests": N_REQ, "tokens_requested": requested, "eos_cut_tokens": eos_cut,
+          "decode_tokens_per_s": stats["tokens_out"] / serve_s,
+          "ttft_ms_p50": ttft["p50"], "ttft_ms_max": ttft["max"],
+          "prefill_ms_per_bucket": prefill_ms, "profiled": shares,
+          "peak_memory_gb": peak_gb, "stats": stats,
+          "logits_forward_vs_f32_max_err_over_tol": fwd_ratio,
+          "near_tie": {k: {"tokens_differing_from_f32_argmax": v[0], "max_gap_over_limit": v[1]}
+                       for k, v in ties.items()},
+          "near_tie_rule": "f32 logit of each chosen token >= f32 max - 2*bf16_logit_tol"})
+    return launches
+
+
 def main():
     import torch
 
@@ -186,11 +471,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peak_name, (bw, f32, _f64) = peaks(kind)
+    peak_name, (bw, f32, _f64, bf16_tc) = peaks(kind)
     emit({"phase": "card", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "peaks_of": peak_name,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "matmul_allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must stay off"
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -202,11 +489,25 @@ def main():
     spills = [ln.strip() for ln in info["log"].splitlines()
               if "bytes stack frame" in ln and ln.strip() != clean]
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
-          "library": info["path"], "ptxas_nonzero_stack_or_spill": spills})
+          "library": info["path"], "ptxas_nonzero_stack_or_spill": spills,
+          "probe_launches_at_load": tk.launches["probe"]})
+    assert tk.launches["probe"] == 1, tk.launches
 
-    # 3. kernels against their plain versions, at the main path's shapes -- #
+    # 3. probe ---------------------------------------------------------- #
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    xp = torch.randn(8, 128, device=dev, generator=gen)
+    got_p = tk.probe(xp)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, tk.probe_plain(xp)), "probe differs from x + 1"
+    ms_probe = time_ms(torch, lambda: tk.probe(xp))
+    plain_probe = time_ms(torch, lambda: tk.probe_plain(xp))
+    lib_probe = time_ms(torch, lambda: torch.add(xp, 1.0))
+    b_probe = bound(2 * xp.numel() * 4, xp.numel(), bw, f32)
+    emit({"phase": "probe", "card": smi, "bitwise_equal": True, "ms": ms_probe,
+          "plain_ms": plain_probe, "torch.add_ms": lib_probe, "bound_ms": b_probe[0]})
+
+    # 4. kernels against their plain versions, at the main paths' shapes - #
     x = torch.rand(N_POINTS, N_FEATURES, device=dev, generator=gen)
     c = x[torch.randint(0, N_POINTS, (K,), device=dev, generator=gen)].clone()
     y = torch.rand(CDIST_N, CDIST_D, device=dev, generator=gen)
@@ -264,7 +565,48 @@ def main():
     del mask, got, again, want, c
     torch.cuda.empty_cache()
 
-    # 4. the main path, through the entry points a user calls ------------ #
+    # flash attention at the serving path's shapes (prefill: one request of
+    # 1024 rows, 16 heads of 64; the logits forward: 8 of them), a float32
+    # length that is no multiple of any tile, and causal Sq > Sk, whose
+    # first 100 rows see no key
+    H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    fl_checks = {}
+    for name, b, h, sq, sk, dt in (("prefill_1x16x1024x64_bf16", 1, H, 1024, 1024, torch.bfloat16),
+                                   ("logits_8x16x1024x64_bf16", 8, H, 1024, 1024, torch.bfloat16),
+                                   ("1x16x1000x64_f32", 1, H, 1000, 1000, torch.float32),
+                                   ("1x4x300x64_vs_200_f32", 1, 4, 300, 200, torch.float32)):
+        q = torch.randn(b, h, sq, DH, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+        step = 2.0**-7 if dt == torch.bfloat16 else 0.0
+        err, ratio = check_flash(torch, tk, q, k, v, causal=True, out_step=step)
+        fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step}
+        if sq > sk:
+            out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+            assert bool(torch.isnan(out[:, :, :sq - sk]).all())
+            assert bool(torch.isneginf(lse[:, :, :sq - sk]).all())
+            assert not bool(torch.isnan(out[:, :, sq - sk:]).any())
+            fl_checks[name]["empty_rows"] = sq - sk
+        del q, k, v
+        torch.cuda.empty_cache()
+    fl_times = {}
+    for name, b in (("prefill_1x16x1024x64_bf16", 1), ("logits_8x16x1024x64_bf16", 8)):
+        q, k, v = (torch.randn(b, H, 1024, DH, device=dev, generator=gen).bfloat16()
+                   for _ in range(3))
+        fb = flash_bound(b, H, 1024, 1024, DH, True, 2, bw, f32)
+        fl_times[name] = {
+            "kernel": time_ms(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
+            "plain": time_ms(torch, lambda: tk.flash_attention_plain(q, k, v, causal=True)),
+            "sdpa": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)),
+            "bound": fb[0], "bound_by": fb[1],
+            "bound_bf16_tensor_core": flash_bound(b, H, 1024, 1024, DH, True, 2, bw,
+                                                  bf16_tc)[0]}
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times})
+
+    # 5. the KMeans path, through the entry points a user calls ---------- #
     del x, y
     torch.cuda.empty_cache()
     comm = ht.get_comm()
@@ -331,7 +673,7 @@ def main():
     end.record()
     end.synchronize()
     lloyd_ms = start.elapsed_time(end)
-    emit({"phase": "main_path", "card": smi, "wall_s": wall, "launches": launches,
+    emit({"phase": "kmeans_path", "card": smi, "wall_s": wall, "launches": launches,
           "packed_all_reduce": packed, "n_iter": km.n_iter_, "inertia": km.inertia_,
           "max_abs_err_centers_vs_plain_lloyd": d_centers,
           "predict_rows_differing_from_plain": n_differ,
@@ -339,6 +681,12 @@ def main():
           "cdist_max_abs_err": err_d, "cdist_max_err_over_limit": ratio_d,
           "lloyd_ms_20_steps": lloyd_ms,
           "kmeans_lloyd_iterations_per_second": ITERS / (lloyd_ms / 1e3)})
+    del X, Y, xl, lab, labels, km, seeded, lloyd, step, c0, cp, centers
+    torch.cuda.empty_cache()
+
+    # 6. the serving path, through the entry points a user calls -------- #
+    serve_launches = serving_path(torch, ht, tk, dev, smi)
+    fp, fl = fl_times["prefill_1x16x1024x64_bf16"], fl_times["logits_8x16x1024x64_bf16"]
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
@@ -351,7 +699,24 @@ def main():
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:858", "launches": launches["kmeans_step"],
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
-         "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8"}]})
+         "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8"},
+        {"name": "flash_attention", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "heat_tpu/core/pallas_kernels.py:348",
+         "launches": serve_launches["flash_attention"],
+         "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
+         "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
+         "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
+         "shape": "1x16x1024x64 bf16, causal (prefill)",
+         "bound_bf16_tensor_core_ms": fp["bound_bf16_tensor_core"],
+         "variants": [{"shape": "8x16x1024x64 bf16, causal (logits forward)",
+                       "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
+                       "ms": fl["kernel"], "plain_ms": fl["plain"], "bound_ms": fl["bound"],
+                       "bound_by": fl["bound_by"], "library_ms": fl["sdpa"],
+                       "bound_bf16_tensor_core_ms": fl["bound_bf16_tensor_core"]}]},
+        {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
+         "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],
+         "max_abs_err": 0.0, "ms": ms_probe, "plain_ms": plain_probe, "bound_ms": b_probe[0],
+         "bound_by": b_probe[1], "library_ms": lib_probe, "shape": "8x128 f32"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

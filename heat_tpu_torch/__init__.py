@@ -2,9 +2,11 @@
 
 A port of ``heat_tpu`` (the JAX/TPU package, which stays the reference) to
 PyTorch on NVIDIA Hopper: a NumPy-like ``DNDarray`` split along one axis
-across processes (one per card, ``torch.distributed``), with hand-written
-CUDA kernels on the hot path. Arrays live on the card unless the caller asks
-for the CPU (``device="cpu"`` or ``use_device("cpu")``).
+across processes (one per card, ``torch.distributed``), KMeans and cdist,
+and the flagship transformer LM's serving path (``nn``, ``serve``), with
+hand-written CUDA kernels on the hot paths. Arrays and models live on the
+card unless the caller asks for the CPU (``device="cpu"`` or
+``use_device("cpu")``).
 
 Usage matches heat_tpu: ``import heat_tpu_torch as ht``.
 """
@@ -13,6 +15,8 @@ from .core import *  # noqa: F401,F403
 from . import core
 from .core import communication, devices, factories, kernels, random, types
 from . import cluster
+from . import nn
+from . import serve
 from . import spatial
 from . import utils
 

@@ -3,7 +3,8 @@
 from .constants import *  # noqa: F401,F403
 from .types import *  # noqa: F401,F403
 from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
-from .communication import TorchCommunication, get_comm, sanitize_comm, use_comm
+from .communication import (MeshGrid, TorchCommunication, get_comm, sanitize_comm,
+                            use_comm)
 from .dndarray import DNDarray
 from .factories import arange, array, empty, ones, zeros
 from . import random

@@ -5,7 +5,9 @@ for ``sm_90a`` and links them into one shared library with a plain C
 interface, loaded with ``ctypes``. The library lands in
 ``heat_tpu_torch/_build/``, named by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads at once. A missing
-``nvcc`` raises: no kernel is replaced by anything else.
+``nvcc`` raises: no kernel is replaced by anything else. Once loaded, the
+library runs the probe kernel (``csrc/probe.cu``) on the current card, so a
+build that cannot launch there fails at first use with the CUDA error.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # the load-time probe re-enters library()
 _lib: Optional[ctypes.CDLL] = None
 _info: dict = {}
 
@@ -85,6 +87,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_step.restype = i
     lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.heat_kmeans_step_plan.restype = i
+    lib.heat_flash_fwd.argtypes = [p, p, p, p, p, i64, i, i, i, i, ctypes.c_float, i, p]
+    lib.heat_flash_fwd.restype = i
+    lib.heat_probe.argtypes = [p, p, i64, p]
+    lib.heat_probe.restype = i
     lib.heat_cuda_error_string.argtypes = [i]
     lib.heat_cuda_error_string.restype = ctypes.c_char_p
 
@@ -109,10 +115,30 @@ def library() -> ctypes.CDLL:
             log_file.read_text() if log_file.exists() else "")
         lib = ctypes.CDLL(str(so))
         _declare(lib)
+        _lib = lib
+        try:
+            _probe_card()
+        except BaseException:
+            _lib = None
+            raise
         _info.update(path=str(so), built=built, seconds=time.perf_counter() - start,
                      log=log)
-        _lib = lib
         return lib
+
+
+def _probe_card() -> None:
+    """One launch of the probe kernel on the current card, held bitwise
+    against its plain version."""
+    import torch
+
+    from . import kernels
+
+    x = torch.zeros((8, 128), dtype=torch.float32,
+                    device=torch.device("cuda", torch.cuda.current_device()))
+    out = kernels.probe(x)
+    torch.cuda.synchronize(x.device)
+    if not torch.equal(out, kernels.probe_plain(x)):
+        raise RuntimeError("the probe kernel ran on the card but returned wrong values")
 
 
 def build_info() -> dict:

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["TorchCommunication", "get_comm", "use_comm", "sanitize_comm"]
+__all__ = ["TorchCommunication", "MeshAxisComm", "MeshGrid", "get_comm", "use_comm",
+           "sanitize_comm"]
 
 _REDUCE_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
@@ -191,6 +192,78 @@ class TorchCommunication:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
+
+
+class MeshAxisComm(TorchCommunication):
+    """The communicator view of one :class:`MeshGrid` axis (heat_tpu
+    ``communication.py:399``). Every axis has size 1 in this slice, so its
+    collectives are the identity and emit nothing."""
+
+    def __init__(self, grid: "MeshGrid", axis_name: str):
+        super().__init__()
+        self.grid = grid
+        self.axis_name = axis_name
+
+    @property
+    def size(self) -> int:
+        return self.grid.sizes[self.axis_name]
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    def __repr__(self) -> str:
+        return f"MeshAxisComm(axis={self.axis_name!r}, size={self.size}, grid={self.grid.sizes})"
+
+
+class MeshGrid:
+    """A named N-D process grid for combined parallelism (heat_tpu
+    ``communication.py:440``), e.g. ``MeshGrid((1, 1, 1, 1), ("dp", "pp",
+    "tp", "sp"))`` for the transformer.
+
+    The product of ``shape`` must equal the world size. This slice runs on
+    one card: every axis must be 1, and a larger grid raises
+    :class:`NotImplementedError` (multi-card dp x tp serving is a later
+    slice, see ROADMAP). ``device`` is where the grid's work runs: the card
+    by default, ``"cpu"`` on request; it is resolved once, here, so threads
+    that use the grid later see the same card.
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str] = ("dp", "sp"),
+                 device=None):
+        from .devices import sanitize_device
+
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axis_names {axis_names} length mismatch")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"axis names must differ, got {axis_names}")
+        want = int(np.prod(shape))
+        world = get_comm().size
+        if want != world:
+            raise ValueError(f"grid shape {shape} needs {want} processes, the world has {world}")
+        if any(s != 1 for s in shape):
+            raise NotImplementedError(
+                f"MeshGrid {shape}: grids with an axis larger than 1 (multi-card dp x tp "
+                "serving) are a later slice of the port")
+        self.shape = shape
+        self.axis_names = axis_names
+        self.device = sanitize_device(device)
+        self.torch_device = self.device.torch_device
+        self._axes = {name: MeshAxisComm(self, name) for name in axis_names}
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        """Axis name -> size (heat_tpu's ``grid.mesh.shape``)."""
+        return dict(zip(self.axis_names, self.shape))
+
+    def axis(self, name: str) -> MeshAxisComm:
+        """The communicator view of one grid axis."""
+        return self._axes[name]
+
+    def __repr__(self) -> str:
+        return f"MeshGrid({self.sizes})"
 
 
 _default_comm: Optional[TorchCommunication] = None

@@ -1,13 +1,18 @@
 """The port's hand-written CUDA kernels (heat_tpu ``core/pallas_kernels.py``).
 
-Two kernels carry the main path, each beside a plain PyTorch version of the
-same function:
+Each kernel sits beside a plain PyTorch version of the same function:
 
 * :func:`cdist_tile` (``csrc/cdist_tile.cu``) for heat_tpu's ``cdist_tile``
   (``pallas_kernels.py:189``), and :func:`cdist_tile_plain`;
 * :func:`kmeans_step` (``csrc/kmeans_step.cu``) for heat_tpu's
   ``kmeans_step_tile`` (``pallas_kernels.py:858``), and
-  :func:`kmeans_step_plain`.
+  :func:`kmeans_step_plain`;
+* :func:`flash_attention` (``csrc/flash_fwd.cu``) for heat_tpu's
+  ``flash_attention`` forward (``_flash_impl``, ``pallas_kernels.py:348``),
+  and :func:`flash_attention_plain`;
+* :func:`probe` (``csrc/probe.cu``) for heat_tpu's Mosaic probe
+  (``_mosaic_available._probe``, ``pallas_kernels.py:85``), and
+  :func:`probe_plain`.
 
 A wrapper takes the plain version only for tensors that lie on the CPU. A
 CUDA tensor launches the kernel, or the call raises: there is no fallback
@@ -19,6 +24,7 @@ comparisons do, launches no kernel and counts nothing.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,15 +32,22 @@ import torch
 from . import types
 
 __all__ = ["cdist_tile", "cdist_tile_plain", "kmeans_step", "kmeans_step_plain",
+           "flash_attention", "flash_attention_plain", "probe", "probe_plain",
            "launches", "reset_launches"]
 
-launches = {"cdist_tile": 0, "kmeans_step": 0}
+launches = {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "probe": 0}
 
 # dtype codes of the C interface (csrc/common.cuh)
 _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
 _KERNEL_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_GRID_Y = 65535
 _CDIST_TILE_N = 64  # output columns per block of the wide cdist tile (n > 8)
+_FLASH_TILE = 64    # query rows per block of the flash kernel
+_FLASH_MAX_D = 128
+_NEG_BIG = -1e30    # heat_tpu's masked score (pallas_kernels.py:55)
+_NO_BACKWARD = ("flash_attention's backward on the card lands with the training slice "
+                "(heat_tpu's _flash_bwd_impl kernels); call it without inputs that require "
+                "grad, or under torch.no_grad()")
 
 
 def reset_launches() -> None:
@@ -221,3 +234,173 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
     launches["kmeans_step"] += 1
     res = (out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k])
     return res + (labels,) if return_labels else res
+
+
+# --------------------------------------------------------------------------- #
+# flash attention forward                                                     #
+# --------------------------------------------------------------------------- #
+
+
+def _check_attention(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_attention needs 4-D (B, H, S, D) inputs, got {q.ndim}-D, "
+                         f"{k.ndim}-D and {v.ndim}-D")
+    if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} needs k and v of shape "
+                         f"(B, H, Sk, D) alike, got {tuple(k.shape)} and {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or not q.dtype.is_floating_point:
+        raise ValueError(f"flash_attention needs q, k and v of one floating dtype, got "
+                         f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if q.shape[3] == 0:
+        raise ValueError("flash_attention needs a head dim of at least 1")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None, causal: bool = False,
+                          return_lse: bool = False, block_q: int = 256, block_k: int = 256):
+    """Plain PyTorch version of :func:`flash_attention`: the same masks,
+    scale and empty-row rule, computed densely (``block_q``/``block_k`` are
+    accepted and ignored)."""
+    _check_attention(q, k, v)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dev = q.device
+    if Sk == 0:  # no key: every row is empty
+        out = torch.full((B, H, Sq, D), float("nan"), dtype=q.dtype, device=dev)
+        lse = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=dev)
+        return (out, lse) if return_lse else out
+    s = (q.to(acc) * scale) @ k.to(acc).transpose(-1, -2)
+    if causal:
+        row = torch.arange(Sq, device=dev)[:, None]
+        col = torch.arange(Sk, device=dev)[None, :]
+        mask = col <= row + (Sk - Sq)
+        s = torch.where(mask, s, torch.full((), _NEG_BIG, dtype=acc, device=dev))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), torch.zeros((), dtype=acc, device=dev))
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    empty = l == 0
+    l_safe = torch.where(empty, torch.ones((), dtype=acc, device=dev), l)
+    out = torch.where(empty, torch.full((), float("nan"), dtype=acc, device=dev),
+                      (p @ v.to(acc)) / l_safe).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(empty, torch.full((), float("-inf"), dtype=acc, device=dev),
+                      m + torch.log(l_safe))[..., 0].to(torch.float32)
+    return out, lse
+
+
+def _flash_launch(q, k, v, scale: float, causal: bool):
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    from ._build import library
+
+    lib = library()
+    with torch.cuda.device(q.device):  # the C side launches on the current device
+        err = lib.heat_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 lse.data_ptr(), B * H, Sq, Sk, D, _CODES[q.dtype],
+                                 float(scale), int(bool(causal)), _stream(q.device))
+    _raise_on(err, lib, "flash_attention")
+    launches["flash_attention"] += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The card's forward. Its backward (heat_tpu's ``_flash_bwd_impl``
+    kernels #4 and #5) is not written yet: :func:`flash_attention` refuses
+    inputs that require grad, and the backward raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        return _flash_launch(q, k, v, scale, causal)
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        raise NotImplementedError(_NO_BACKWARD)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None, causal: bool = False,
+                    return_lse: bool = False, block_q: int = 256, block_k: int = 256):
+    """Blockwise attention with online softmax (heat_tpu
+    ``pallas_kernels.flash_attention``).
+
+    ``q``: ``(B, H, Sq, D)``; ``k``/``v``: ``(B, H, Sk, D)``, one floating
+    dtype. Returns ``softmax((q * scale) kᵀ) v`` in ``q``'s dtype (``scale``
+    defaults to ``1/sqrt(D)``), plus the per-row log-sum-exp ``(B, H, Sq)``
+    in float32 when ``return_lse``. ``causal`` masks with the end-aligned
+    diagonal: key ``j`` is visible to query ``i`` iff ``j <= i + Sk - Sq``;
+    a row with no visible key gives NaN and an lse of ``-inf``. Accumulation
+    is float32 (float64 for float64 input on the CPU).
+
+    On the card the kernel takes float32, bfloat16 and float16, contiguous
+    inputs and head dims up to 128; float64 raises (ROADMAP). The card uses
+    its own 64 x 64 tiles and ignores ``block_q``/``block_k``, which stay
+    for heat_tpu's signature: results do not depend on tile sizes. Inputs
+    that require grad raise :class:`NotImplementedError` on the card (the
+    backward kernels come with the training slice).
+    """
+    _check_attention(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale, causal, return_lse)
+    _on_card(q, k, v)
+    if q.dtype not in _KERNEL_INPUTS:
+        raise ValueError(f"flash_attention on the card takes float32, bfloat16 or float16, "
+                         f"got {q.dtype}")
+    if q.shape[3] > _FLASH_MAX_D:
+        raise ValueError(f"flash_attention on the card takes head dims up to {_FLASH_MAX_D}, "
+                         f"got {q.shape[3]}")
+    if -(-q.shape[2] // _FLASH_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention takes at most {_MAX_GRID_Y * _FLASH_TILE} query "
+                         f"rows, got {q.shape[2]}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention needs contiguous inputs")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(_NO_BACKWARD)
+    out, lse = _FlashAttention.apply(q, k, v, float(scale), bool(causal))
+    return (out, lse) if return_lse else out
+
+
+# --------------------------------------------------------------------------- #
+# toolchain probe                                                             #
+# --------------------------------------------------------------------------- #
+
+
+def probe_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`probe`."""
+    return x + 1.0
+
+
+def probe(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` over a float32 tensor (heat_tpu probes with zeros of shape
+    (8, 128)) in one launch of the probe kernel. The library runs it once
+    when it loads; a serving engine runs it on its own card. It gates
+    nothing: a card that cannot run the kernels fails here with the CUDA
+    error."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"probe takes float32, got {x.dtype}")
+    if _on_cpu(x):
+        return probe_plain(x)
+    dev = _on_card(x)
+    if not x.is_contiguous() or x.numel() == 0:
+        raise ValueError("probe needs a contiguous, non-empty tensor")
+    out = torch.empty_like(x)
+    from ._build import library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.heat_probe(x.data_ptr(), out.data_ptr(), x.numel(), _stream(dev))
+    _raise_on(err, lib, "probe")
+    launches["probe"] += 1
+    return out

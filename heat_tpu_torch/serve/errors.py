@@ -1,0 +1,30 @@
+"""Typed serving errors (heat_tpu ``serve/errors.py``).
+
+Every failure a caller can act on has its own type: ``except
+ServeOverloaded`` retries elsewhere, a deadline is told apart from a
+shutdown without string matching. All inherit :class:`ServeError`;
+:class:`ServeDeadlineExceeded` is also a ``TimeoutError``.
+"""
+
+from __future__ import annotations
+
+__all__ = ["ServeError", "ServeOverloaded", "ServeDeadlineExceeded", "ServeClosed"]
+
+
+class ServeError(RuntimeError):
+    """Base class for serving-path errors."""
+
+
+class ServeOverloaded(ServeError):
+    """The bounded request queue is full: the request was shed at admission
+    and nothing was enqueued. Retry with backoff or route elsewhere."""
+
+
+class ServeDeadlineExceeded(ServeError, TimeoutError):
+    """The request's deadline expired while it was still queued: it was
+    dropped without running."""
+
+
+class ServeClosed(ServeError):
+    """The engine is closed (or closing): no new requests are accepted, and
+    on a non-draining close pending requests fail with this."""

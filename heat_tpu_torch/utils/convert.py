@@ -1,22 +1,28 @@
-"""State carried across from numpy: array contents and fitted estimators.
+"""State carried across from numpy: array contents, fitted estimators and
+model weights.
 
-Heat's "weights" are array contents and fitted estimator state. Another
-framework (heat_tpu, numpy, sklearn) hands them over as numpy arrays, e.g.
-``np.asarray(km.cluster_centers_.numpy())``; nothing of that framework is
+Heat's "weights" are array contents, fitted estimator state and the
+transformer's parameters. Another framework (heat_tpu, numpy, sklearn) hands
+them over as numpy arrays, e.g. ``np.asarray(km.cluster_centers_.numpy())``
+or ``jax.tree.map(np.asarray, params)``; nothing of that framework is
 imported here.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from ..cluster.kmeans import KMeans
 from ..core import factories
+from ..core.devices import sanitize_device
 from ..core.dndarray import DNDarray
 
-__all__ = ["dndarray_from_numpy", "kmeans_from_numpy_state"]
+__all__ = ["dndarray_from_numpy", "kmeans_from_numpy_state", "transformer_params_from_numpy"]
+
+_LAYER_KEYS = ("ln1", "wqkv", "wproj", "ln2", "w_up", "w_down")
 
 
 def dndarray_from_numpy(arr: np.ndarray, split: Optional[int] = None, dtype=None,
@@ -40,3 +46,52 @@ def kmeans_from_numpy_state(state: Mapping, device=None, comm=None) -> KMeans:
     km._inertia = state.get("inertia_")
     km._n_iter = state.get("n_iter_")
     return km
+
+
+def transformer_params_from_numpy(tree: Mapping, config, device=None) -> Dict[str, Any]:
+    """The port's transformer parameters from heat_tpu's parameter tree, as
+    numpy arrays: ``embed (V, D)``, ``final_ln (D,)``, ``unembed (D, V)``
+    and ``stages`` with a leading ``(pp, Ls)`` on ``wqkv (D, 3, H, Dh)``,
+    ``wproj (H, Dh, D)``, ``ln1``/``ln2 (D,)``, ``w_up (D, F)`` and
+    ``w_down (F, D)``.
+
+    Returns ``{"embed", "final_ln", "unembed", "layers": [one dict per
+    layer with the stage keys]}``, every tensor on ``device`` (the card by
+    default) in ``config.compute_dtype``; the layers run in stage order.
+    """
+    if isinstance(device, torch.device):
+        dev = device
+    else:
+        dev = sanitize_device(device).torch_device
+    c = config
+    H, Dh, D, Fd, V = c.n_heads, c.head_dim, c.d_model, c.d_ff, c.vocab
+    if "router" in tree["stages"]:
+        raise NotImplementedError("the port runs the dense MLP only; MoE weights are a "
+                                  "later slice")
+    want = {"embed": (V, D), "final_ln": (D,), "unembed": (D, V)}
+    layer_shapes = {"ln1": (D,), "wqkv": (D, 3, H, Dh), "wproj": (H, Dh, D), "ln2": (D,),
+                    "w_up": (D, Fd), "w_down": (Fd, D)}
+
+    def put(a, shape, name):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(a.shape)}")
+        a = np.require(a, requirements=["C", "W"])  # copies only read-only or strided input
+        return torch.from_numpy(a).to(device=dev, dtype=c.compute_dtype)
+
+    out = {name: put(tree[name], shape, name) for name, shape in want.items()}
+    stacked = {}
+    for name in _LAYER_KEYS:
+        a = np.asarray(tree["stages"][name])
+        if a.ndim != len(layer_shapes[name]) + 2:
+            raise ValueError(f"stages/{name}: expected a leading (pp, Ls) on "
+                             f"{layer_shapes[name]}, got {tuple(a.shape)}")
+        n_layers = a.shape[0] * a.shape[1]
+        if n_layers != c.n_layers:
+            raise ValueError(f"stages/{name} holds {n_layers} layers, the config "
+                             f"{c.n_layers}")
+        stacked[name] = put(a.reshape((n_layers,) + a.shape[2:]),
+                            (n_layers,) + layer_shapes[name], f"stages/{name}")
+    out["layers"] = [{name: stacked[name][l] for name in _LAYER_KEYS}
+                     for l in range(c.n_layers)]
+    return out

@@ -184,7 +184,7 @@ def test_wrappers_take_plain_only_on_cpu():
     x = torch.ones(5, 3)
     tk.cdist_tile(x, x)
     tk.kmeans_step(x, x[:2])
-    assert tk.launches == {"cdist_tile": 0, "kmeans_step": 0}
+    assert tk.launches == {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "probe": 0}
     meta = torch.empty(5, 3, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tk.cdist_tile(meta, meta)
@@ -279,3 +279,101 @@ def test_column_slice_runs_on_card(card):
     assert torch.equal(d_got.larray, ht.spatial.cdist(ref, quadratic_expansion=True).larray)
     assert tk.launches["kmeans_step"] > before["kmeans_step"]
     assert tk.launches["cdist_tile"] > before["cdist_tile"]
+
+
+def _smoke_module():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_smoke_flash_and_near_tie_checks_reject_wrong_results():
+    # chip_smoke.py's flash check passes the plain version and refuses
+    # operands rounded to TF32, a missing causal mask and NaN rows filled
+    # in; its near-tie rule passes the float32 argmax and refuses a
+    # token far below it
+    cs = _smoke_module()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 70, 64, generator=g) for _ in range(3))
+    assert cs.check_flash(torch, tk, q, k, v, causal=True)[1] <= 1.0
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        cs.check_flash(torch, tk, q, k, v, causal=True, got=tk.flash_attention_plain(
+            _tf32(q), _tf32(k), _tf32(v), causal=True, return_lse=True))
+    unmasked = tk.flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        cs.check_flash(torch, tk, q, k, v, causal=True, got=unmasked)
+    qs = torch.randn(1, 2, 80, 64, generator=g)
+    out, lse = tk.flash_attention_plain(qs, k, v, causal=True, return_lse=True)
+    with pytest.raises(AssertionError, match="NaN rows"):
+        cs.check_flash(torch, tk, qs, k, v, causal=True, got=(torch.nan_to_num(out), lse))
+    z = torch.randn(50, 1000, generator=g) * 0.64
+    assert cs.near_tie_check(torch, z, z.argmax(dim=1), 8)[0] == 0
+    wrong = z.argmax(dim=1).clone()
+    wrong[7] = int(z[7].argmin())
+    with pytest.raises(AssertionError, match="near-tie"):
+        cs.near_tie_check(torch, z, wrong, 8)
+    assert cs.flash_live_pairs(300, 200, True) == sum(range(1, 201))
+    assert cs.flash_live_pairs(4, 4, True) == 10 and cs.flash_live_pairs(3, 5, False) == 15
+
+
+def _flash_case(card, b, h, sq, sk, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, h, s, d, generator=g).to(card, dtype) for s in (sq, sk, sk))
+
+
+# head dims 8 and 16 pad to 32 columns in shared memory, 64 and 128 fill
+# theirs; Sq, Sk ragged against the 64-row tiles, Sq > Sk (empty rows),
+# Sq = 1 (one query), Sk < Sq without causal
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (77, 130, True), (77, 130, False), (150, 70, True), (1, 200, True), (64, 64, True),
+    (100, 37, False)])
+def test_flash_kernel_matches_plain_on_card(card, d, dtype, sq, sk, causal):
+    cs = _smoke_module()
+    q, k, v = _flash_case(card, 2, 3, sq, sk, d, dtype, seed=d + sq)
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dtype, 0.0)
+    before = tk.launches["flash_attention"]
+    cs.check_flash(torch, tk, q, k, v, causal=causal, out_step=step)
+    assert tk.launches["flash_attention"] == before + 1
+    out = tk.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(tk.flash_attention(q, k, v, causal=causal, block_q=100,
+                                                  block_k=32), out, rtol=0, atol=0,
+                               equal_nan=True)
+    if causal and sq > sk:
+        assert bool(torch.isnan(out[:, :, :sq - sk]).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refusals_on_card(card):
+    q, k, v = _flash_case(card, 1, 2, 10, 10, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tk.flash_attention(q.double(), k.double(), v.double())
+    big = _flash_case(card, 1, 2, 10, 10, 160, torch.float32, seed=2)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        tk.flash_attention(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tk.flash_attention(qg, k, v)
+    with torch.no_grad():
+        assert torch.equal(tk.flash_attention(qg, k, v), tk.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_probe_on_card(card):
+    x = torch.randn(8, 128, device=card)
+    before = tk.launches["probe"]
+    assert torch.equal(tk.probe(x), tk.probe_plain(x))
+    assert torch.equal(tk.probe(torch.zeros(8, 128, device=card)),
+                       torch.ones(8, 128, device=card))
+    assert tk.launches["probe"] == before + 2
+    with pytest.raises(ValueError, match="float32"):
+        tk.probe(x.double())
