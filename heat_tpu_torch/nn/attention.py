@@ -2,9 +2,10 @@
 
 The single-card pieces of heat_tpu's attention: :func:`local_attention`
 (the dense tile, or the flash kernel for 4-D inputs), :func:`_block_attn`
-and :func:`_fold` (the mergeable ``(out, lse)`` form and its merge), and
+and :func:`_fold` (the mergeable ``(out, lse)`` form and its merge, which
+the multi-card ring folds; held against heat_tpu's now), and
 :func:`_ring_body`, the per-device causal ring, here at a communicator of
-size 1, where the ring is one flash call folded once. The kernel is
+size 1, where the ring is one flash call. The kernel is
 :func:`heat_tpu_torch.core.kernels.flash_attention` (``csrc/flash_fwd.cu``).
 ``ring_attention``, ``ulysses_attention`` and the zigzag schedule come with
 the multi-card slices (ROADMAP).
@@ -64,15 +65,13 @@ def _ring_body(q_blk, k_blk, v_blk, comm, scale: float, causal: bool = False):
     ``attention.py:56``, its flash branch ``:75-100``): one flash call per
     ring step on the resident K/V block, folded by ``(out, lse)``. Only a
     communicator of size 1 is ported, where the ring is its one step on the
-    device's own, diagonal block."""
+    device's own, diagonal block: folding one piece into the empty state
+    returns the piece, so the flash output is the result."""
     if comm.size != 1:
         raise NotImplementedError(
             "ring attention across several cards is a later slice of the port")
-    B, Sq, H, D = q_blk.shape
-    q_heads = q_blk.transpose(1, 2)
-    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q_blk.device)
-    lse = torch.full((B, H, Sq), float("-inf"), dtype=torch.float32, device=q_blk.device)
-    out_i, lse_i = _block_attn(q_heads, k_blk.transpose(1, 2), v_blk.transpose(1, 2),
-                               scale, causal)
-    acc, lse = _fold(acc, lse, out_i, lse_i)
-    return acc.transpose(1, 2).to(q_blk.dtype)
+    out = kernels.flash_attention(q_blk.transpose(1, 2).contiguous(),
+                                  k_blk.transpose(1, 2).contiguous(),
+                                  v_blk.transpose(1, 2).contiguous(),
+                                  scale=float(scale), causal=causal)
+    return out.transpose(1, 2)

@@ -38,7 +38,9 @@ __all__ = ["TransformerLM", "TransformerLMConfig", "rope_apply"]
 @dataclass
 class TransformerLMConfig:
     """heat_tpu's ``TransformerLMConfig`` (``transformer.py:58``), with
-    ``compute_dtype`` a torch dtype."""
+    ``compute_dtype`` a torch dtype. Only the serving fields are ported:
+    ``capacity_factor``, ``n_micro``, ``attn_schedule`` and ``remat`` come
+    with the slices that run MoE, pipelines, multi-card rings and training."""
 
     vocab: int = 256
     d_model: int = 64
@@ -46,24 +48,16 @@ class TransformerLMConfig:
     n_layers: int = 2
     d_ff: Optional[int] = None          # default 4 * d_model
     moe_experts: int = 0                # 0 = dense MLP (the only kind ported)
-    capacity_factor: float = 1.25
-    n_micro: int = 1                    # microbatches of the forward
     compute_dtype: Any = torch.float32  # bfloat16 for serving on the card
     init_scale: float = 0.02
-    attn_schedule: str = "ring"         # "ring" | "zigzag" | "ulysses"; one at sp = 1
     rope: bool = True
     rope_theta: float = 10000.0
-    remat: bool = False                 # a training knob; serving ignores it
 
     def __post_init__(self):
         if self.d_ff is None:
             self.d_ff = 4 * self.d_model
         if self.d_model % self.n_heads:
             raise ValueError("d_model must be divisible by n_heads")
-        if self.attn_schedule not in ("ring", "zigzag", "ulysses"):
-            raise ValueError(
-                f"attn_schedule must be 'ring', 'zigzag' or 'ulysses', got "
-                f"{self.attn_schedule!r}")
         if self.rope and self.head_dim % 2:
             raise ValueError(f"rope needs an even head_dim, got {self.head_dim}")
         if not (isinstance(self.compute_dtype, torch.dtype)
@@ -108,20 +102,12 @@ class TransformerLM(torch.nn.Module):
 
     def __init__(self, grid, config: TransformerLMConfig):
         super().__init__()
-        names = tuple(grid.axis_names)
-        if names == self.AXES:
-            self._has_dcn = False
-        elif names == ("dcn",) + self.AXES:
-            self._has_dcn = True
-        else:
-            raise ValueError(
-                f"grid axes must be {self.AXES} (optionally with a leading 'dcn' tier "
-                f"axis), got {grid.axis_names}")
+        if tuple(grid.axis_names) != self.AXES:
+            raise ValueError(f"grid axes must be {self.AXES}, got {grid.axis_names}")
         self.grid = grid
         self.cfg = config
         c = config
         sizes = grid.sizes
-        self.dcn = sizes["dcn"] if self._has_dcn else 1
         self.dp, self.pp, self.tp, self.sp = (sizes[a] for a in self.AXES)
         if c.n_layers % self.pp:
             raise ValueError(f"n_layers ({c.n_layers}) must divide over pp ({self.pp})")
@@ -135,7 +121,7 @@ class TransformerLM(torch.nn.Module):
 
     @property
     def dp_world(self) -> int:
-        return self.dcn * self.dp
+        return self.dp
 
     @property
     def device(self) -> torch.device:
@@ -222,25 +208,15 @@ class TransformerLM(torch.nn.Module):
 
     def _forward_device(self, params, toks):
         """``toks (B, S) -> (B, S, vocab)`` float32 logits (heat_tpu
-        ``transformer.py:374``); the pipeline is trivial at pp = 1, so each
-        microbatch runs the layers in turn."""
-        c = self.cfg
+        ``transformer.py:374``); the pipeline is trivial at pp = 1, so the
+        layers run in turn."""
         toks = self._tokens(toks)
-        B, S = toks.shape
-        if B % c.n_micro:
-            raise ValueError(f"local batch ({B}) must divide into n_micro ({c.n_micro})")
-        mb = B // c.n_micro
         sp_comm = self.grid.axis("sp")
         x = params["embed"][toks]
-        pos = torch.arange(S, device=x.device)
-        outs = []
-        for m in range(c.n_micro):
-            xm = x[m * mb:(m + 1) * mb]
-            for p_l in params["layers"]:
-                xm = self._block(p_l, xm, sp_comm, pos)
-            outs.append(xm)
-        h = outs[0] if len(outs) == 1 else torch.cat(outs)
-        return self._head(params, h)
+        pos = torch.arange(toks.shape[1], device=x.device)
+        for p_l in params["layers"]:
+            x = self._block(p_l, x, sp_comm, pos)
+        return self._head(params, x)
 
     def forward(self, params, toks):
         return self._forward_device(params, toks)
@@ -264,13 +240,12 @@ class TransformerLM(torch.nn.Module):
         return max(cls.PROMPT_BUCKET_MIN, 1 << (s0 - 1).bit_length())
 
     def check_decode_grid(self) -> None:
-        """Decode is token-recurrent: pp = sp = 1 and a dense MLP."""
+        """Decode is token-recurrent: pp = sp = 1 (the model refuses MoE at
+        construction already)."""
         if self.pp != 1 or self.sp != 1:
             raise ValueError(
                 "generate requires a pp=1, sp=1 grid (token-recurrent decode); use "
                 "dp x tp for inference")
-        if self.cfg.moe_experts:
-            raise NotImplementedError("generate supports the dense MLP only")
 
     def _attn_from_cache(self, q, ck, cv, upto):
         """``q (Bl, 1, H, Dh)`` against the cached rows ``< upto`` (a scalar,

@@ -36,7 +36,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import Future, InvalidStateError, wait
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -204,15 +204,6 @@ class DecodeEngine:
     # lifecycle / introspection                                          #
     # ------------------------------------------------------------------ #
     @property
-    def live_slots(self) -> int:
-        return int(self._live.sum())
-
-    @property
-    def queue_depth(self) -> int:
-        with self._cv_lock:
-            return len(self._q) + self.live_slots
-
-    @property
     def worker_alive(self) -> bool:
         return self._worker.is_alive()
 
@@ -228,15 +219,14 @@ class DecodeEngine:
             self._cv_lock.notify_all()
 
     def flush(self, timeout: Optional[float] = None) -> bool:
-        """Block until everything queued or live at call time is answered."""
-        deadline = None if timeout is None else time.monotonic() + timeout
+        """Block until everything queued or holding a slot at call time is
+        answered; False if ``timeout`` seconds pass first. It waits on the
+        requests' futures: a request moves from the queue to its slot under
+        the lock, so none is missed between the two."""
         with self._cv_lock:
-            while self._q or self._live.any():
-                rem = None if deadline is None else deadline - time.monotonic()
-                if rem is not None and rem <= 0:
-                    return False
-                self._cv_lock.wait(rem if rem is not None else 0.1)
-        return True
+            futs = [r.future for r in self._q]
+            futs += [r.future for r in self._slot_req if r is not None]
+        return not wait(futs, timeout).not_done
 
     def close(self, drain: bool = True, timeout: Optional[float] = None) -> None:
         """Stop admission; drain (finish queued and live sequences) or abort
@@ -272,10 +262,6 @@ class DecodeEngine:
         if threading.current_thread() is not self._worker:
             self._worker.join(timeout)
 
-    @property
-    def closed(self) -> bool:
-        return self._closed
-
     def __enter__(self) -> "DecodeEngine":
         return self
 
@@ -290,7 +276,7 @@ class DecodeEngine:
         ttft = sorted(self._ttft)
         return {
             "slots": self.slots,
-            "live": self.live_slots,
+            "live": int(self._live.sum()),
             "queue_depth": len(self._q),
             "seq_bucket": self.S_cap,
             "occupancy": (sum(occ) / len(occ)) if occ else 0.0,
@@ -303,29 +289,20 @@ class DecodeEngine:
                         "max": ttft[-1] * 1e3 if ttft else None},
         }
 
-    def warmup(self, prompt_lens=None) -> dict:
-        """One throwaway prefill per prompt bucket (into slot 0, never
-        marked live; the next real prefill overwrites it) and one all-dead
-        decode step, so the first requests pay no first-use costs (the
-        kernel build, library handles, allocations). Must run before
-        traffic. Returns :meth:`stats`."""
+    def warmup(self) -> dict:
+        """One throwaway prefill per prompt bucket below ``S_cap`` (into
+        slot 0, never marked live; the next real prefill overwrites it) and
+        one all-dead decode step, so the first requests pay no first-use
+        costs (the kernel build, library handles, allocations). Must run
+        before traffic. Returns :meth:`stats`."""
         with self._cv_lock:
             if self._q or self._live.any():
                 raise RuntimeError("warmup() must run before traffic (its throwaway "
                                    "prefill writes slot 0)")
-        if prompt_lens is None:
-            rungs, r = [], self.model.PROMPT_BUCKET_MIN
-            while r < self.S_cap:
-                rungs.append(r)
-                r <<= 1
-            prompt_lens = rungs
-        seen = set()
-        for s0 in prompt_lens:
-            sp = self.model.prompt_bucket(int(s0))
-            if sp in seen or sp >= self.S_cap:
-                continue
-            seen.add(sp)
-            self._dispatch_prefill(np.zeros(int(s0), np.int32), 0, record=False)
+        sp = self.model.PROMPT_BUCKET_MIN
+        while sp < self.S_cap:
+            self._dispatch_prefill(np.zeros(sp, np.int32), 0, record=False)
+            sp <<= 1
         self._dispatch_step(np.zeros(self.slots, bool), record=False)
         return self.stats()
 

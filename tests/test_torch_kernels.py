@@ -321,6 +321,23 @@ def test_smoke_flash_and_near_tie_checks_reject_wrong_results():
     assert cs.flash_live_pairs(4, 4, True) == 10 and cs.flash_live_pairs(3, 5, False) == 15
 
 
+def test_smoke_flash_bound_counts_tensor_core_passes():
+    # the prefill shape on an H100 SXM: 8.45 MB at 3.35 TB/s is 2.5 µs; one
+    # bf16 pass for q·kᵀ and three for P·V over 16·1024·1025/2 live pairs
+    # at 989 TFLOP/s is 4.3 µs, so the operations bound it
+    cs = _smoke_module()
+    live = 16 * 1024 * 1025 // 2
+    ms, by = cs.flash_bound(1, 16, 1024, 1024, 64, True, 3.35e12, 989e12)
+    assert by == "operations" and ms == pytest.approx(4 * 2 * 64 * live / 989e12 * 1e3)
+    ms_nc, by_nc = cs.flash_bound(1, 16, 1024, 1024, 64, False, 3.35e12, 989e12)
+    assert by_nc == "operations" and ms_nc > 1.99 * ms
+    nbytes = 4 * 16 * 1024 * 64 * 2 + 16 * 1024 * 4
+    assert cs.flash_bound(1, 16, 1024, 1024, 64, True, 1e12, 989e12) == (
+        pytest.approx(nbytes / 1e12 * 1e3), "bytes")
+    assert cs.flash_fma_floor(1, 16, 1024, 1024, 64, True, 67e12) == pytest.approx(
+        4 * 64 * live / 67e12 * 1e3)
+
+
 def _flash_case(card, b, h, sq, sk, d, dtype, seed):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(b, h, s, d, generator=g).to(card, dtype) for s in (sq, sk, sk))

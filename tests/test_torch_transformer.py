@@ -206,7 +206,8 @@ def test_decode_engine_matches_generate():
         fetched.clear()
         futs = [eng.submit(p, mn, eos_id=eos if i == ie else None)
                 for i, (p, mn) in enumerate(reqs)]
-        outs = [f.result(60) for f in futs]
+        assert eng.flush(60) and all(f.done() for f in futs)
+        outs = [f.result(0) for f in futs]
         stats = eng.stats()
     finally:
         eng.close()
@@ -239,6 +240,7 @@ def test_decode_engine_queue_bound_close_and_refusals():
     held = [eng.submit(prompt, 3), eng.submit(prompt, 3)]
     with pytest.raises(ServeOverloaded):
         eng.submit(prompt, 3)
+    assert not eng.flush(0.05)  # the paused worker answers nothing
     with pytest.raises(ValueError, match="cache rows"):
         eng.submit(prompt, 40)
     with pytest.raises(NotImplementedError):
