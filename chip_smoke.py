@@ -34,6 +34,19 @@ Phases, one JSON line each:
    tokens/s with the mean slot occupancy, time to first token under that
    load (queueing included), the busy share of a decode step and a
    prefill, and peak memory.
+7. training path: the same flagship model with float32 master weights from
+   ``init(0)``, bf16 compute, ``make_train_step(ht.optim.Adam(1e-3))`` on
+   the bench's fixed (8, 1024) batch (``bench.py:204-250``): 2 warm-up and
+   10 timed steps, with the launches of the flash forward and both backward
+   kernels per step, the loss at each step, step ms, training tokens/s, the
+   bench's approximate MFU against the card's bf16 peak, the busy share of
+   a step and peak memory; before it, one ``loss_and_grad_fn`` call held
+   against a float32 copy of the model (``bf16_loss_tol``,
+   ``bf16_grad_tol``).
+
+Phase 4 holds the flash backward kernels (dK/dV and dQ) against their
+plain versions too (``check_flash_bwd``), at the training path's shape and
+two others, with their times, bounds and the aten flash backward's time.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -62,6 +75,8 @@ FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
 # tokens from its mix, arrival gaps U(0, 2 ms) with a sleep only for gaps
 # above 1 ms; prompts of 100-1000 tokens (buckets 128-1024) at this width
 SLOTS, SEQ_CAP = 8, 2048
+# the training bench's batch and step count (bench.py:204-250)
+TRAIN_BATCH, TRAIN_STEPS = (8, 1024), 10
 N_REQ = 10 * SLOTS
 MAX_NEW_MIX = ([8, 12, 16, 24, 192], [0.30, 0.30, 0.15, 0.10, 0.15])  # bench.py:948-949
 GAP_MAX_S, GAP_SLEEP_S = 2e-3, 1e-3  # bench.py:953, :984
@@ -239,6 +254,75 @@ def flash_fma_floor(b, h, sq, sk, d, causal, f32):
     return 4 * d * b * h * flash_live_pairs(sq, sk, causal) / f32 * 1e3
 
 
+def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate):
+    """The least times of the two bf16 flash backward kernels at float32
+    accuracy, by :func:`flash_bound`'s rule (a product of two bf16 operands
+    takes one tensor-core pass, one with a float32 operand three split-bf16
+    passes), per live pair: dK/dV recomputes q·kᵀ (1) and dO·vᵀ (1) and
+    forms Pᵀ·dO (3) and dSᵀ·q (3), 16·D FLOPs; dQ recomputes the same two
+    (1 + 1) and forms dS·k (3), 10·D. Bytes: q, k, v and dO (bf16) read
+    once, lse and dmb (float32) once, dK and dV, or dQ, (bf16) written once.
+    Returns ((ms, by) for dK/dV, (ms, by) for dQ)."""
+    pairs = b * h * flash_live_pairs(sq, sk, causal)
+    inputs = (2 * b * h * sq * d + 2 * b * h * sk * d) * 2 + 2 * b * h * sq * 4
+    dkv = bound(inputs + 2 * b * h * sk * d * 2, (1 + 1 + 3 + 3) * 2 * d * pairs, bw, tc_rate)
+    dq = bound(inputs + b * h * sq * d * 2, (1 + 1 + 3) * 2 * d * pairs, bw, tc_rate)
+    return dkv, dq
+
+
+def flash_bwd_fma_floors(b, h, sq, sk, d, causal, f32):
+    """The floors of the backward kernels' own design, fp32 FMA on the CUDA
+    cores: 4 dot products of length D per live pair for dK/dV, 3 for dQ, at
+    the float32 rate (not bounds of the card)."""
+    pairs = b * h * flash_live_pairs(sq, sk, causal)
+    return 8 * d * pairs / f32 * 1e3, 6 * d * pairs / f32 * 1e3
+
+
+def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, got=None):
+    """The backward kernels' (dq, dk, dv) (``got``, else new launches)
+    against the plain versions on the same inputs, everywhere: NaN at
+    identical positions; elsewhere |Δg| <= 1e-4·A + (1e-5 + ``out_step``)·|g|,
+    where A sums the absolute sizes of the terms that make up g: Pᵀ|dO| for
+    dV, and with W = P·(|dO·vᵀ| + |dmb|), scale·Wᵀ|q| for dK and scale·W|k|
+    for dQ; below the output type's smallest normal number its fixed
+    subnormal spacing takes the place of ``out_step``·|g|. Both versions recompute each score in float32 from the same
+    inputs, to within D·u·scale·|q||k| of exact (6e-5 for D = 64 and
+    unit-variance inputs, |q|, |k| ≈ 8), so each probability agrees to about
+    that relative size, and each dO·vᵀ to D·u·|dO||v|; a float32 sum of n
+    terms is within n·u of its absolute sum. These worst cases add up to
+    about 1e-4 of A; the errors of real sums grow as their square roots.
+    ``out_step`` adds one rounding of a half-precision output. Returns
+    {name: (max abs err, largest ratio of error to limit)}."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if got is None:
+        dk, dv = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+        got = (tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal), dk, dv)
+    want_dk, want_dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+    want = (tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal), want_dk, want_dv)
+    qf, kf, of, p, ds = tk._bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
+    del ds
+    w_abs = p * ((of @ v.float().transpose(-1, -2)).abs() + dmb.float().abs()[..., None])
+    terms = ((w_abs @ kf.abs()) * scale, (w_abs.transpose(-1, -2) @ qf.abs()) * scale,
+             p.transpose(-1, -2) @ of.abs())
+    del qf, kf, of, p, w_abs
+    res = {}
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, terms):
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, g.dtype, g.shape)
+        tiny = torch.finfo(g.dtype).tiny
+        g, w = g.float(), w.float()
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan), f"flash backward {name}: NaN positions differ"
+        zero = torch.zeros((), device=g.device)
+        err = torch.where(nan, zero, (g - w).abs())
+        one_rounding = out_step * w.abs().clamp_min(tiny)
+        lim = torch.where(nan, zero, 1e-4 * a + 1e-5 * w.abs() + one_rounding)
+        bad = int((err > lim).sum())
+        assert bad == 0, f"flash backward {name}: {bad} elements beyond their tolerance"
+        res[name] = (float(err.max()), float((err / lim.clamp_min(1e-30)).max()))
+        del g, w, a, err, lim
+    return res
+
+
 def check_flash(torch, tk, q, k, v, causal, out_step=0.0, got=None):
     """The kernel's (out, lse) (``got``, else a new launch) against the
     plain version on the same inputs, everywhere: NaN outputs and -inf lse
@@ -283,6 +367,29 @@ def bf16_logit_tol(sigma, mag, n_layers):
     return KAPPA * U_BF16 * math.sqrt(ROUNDINGS_PER_LAYER * n_layers) * sigma + U_BF16 * mag
 
 
+def bf16_loss_tol(torch, logits32, n_layers):
+    """How far the bf16 model's mean next-token NLL may lie from the float32
+    model's, fixed before any run: one NLL, logsumexp(z) − z_target, moves
+    by at most twice the largest move of a logit, and every logit keeps
+    within :func:`bf16_logit_tol` of the float32 model's at its position
+    (``logits32``, (..., vocab)); so the mean moves by at most twice the
+    mean of that limit."""
+    sigma = logits32.std(dim=-1)
+    mag = logits32.abs().amax(dim=-1)
+    return float(2 * bf16_logit_tol(sigma, mag, n_layers).mean())
+
+
+def bf16_grad_tol(n_layers):
+    """How far, in relative norm, a gradient leaf of the bf16 model may lie
+    from the float32 model's, fixed before any run: the forward rounds
+    ROUNDINGS_PER_LAYER times per layer and the backward as often (it
+    casts the same activations back), each rounding relative u = 2^-8;
+    they walk like a random sum, u·sqrt(2·12·L) of the leaf's norm. Twice
+    that is allowed (a norm sums many elements, so no tail of KAPPA
+    deviations is needed)."""
+    return 2 * U_BF16 * math.sqrt(2 * ROUNDINGS_PER_LAYER * n_layers)
+
+
 def near_tie_check(torch, logits32, chosen, n_layers):
     """Every chosen token of the bf16 model (``chosen``, (T,)) against the
     float32 model's logits at the positions that chose them (``logits32``,
@@ -303,13 +410,15 @@ def near_tie_check(torch, logits32, chosen, n_layers):
     return int((chosen.long() != logits32.argmax(dim=-1)).sum()), float((gap / limit).max())
 
 
-def device_share(torch, fn, n):
+def device_share(torch, fn, n, kinds=None):
     """Host ms per call of ``fn`` (ending in a synchronize) over ``n`` calls,
     then the card's time per call in a torch.profiler window of ``n`` more
     calls (kernels, copies and sets; one stream, so they do not overlap),
     the device activities per call, and the busy share: device time over
-    the unprofiled host time. Device figures are None where the profiler
-    records no device time."""
+    the unprofiled host time. ``kinds`` ({label: lower-case name parts})
+    sums the device time per call by kind, the first matching label taking
+    an activity and "other" the rest. Device figures are None where the
+    profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -335,9 +444,18 @@ def device_share(torch, fn, n):
                 "device_activities_per_call": None, "device_busy_share": None}
     dev_ms = dev_us / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"host_ms_per_call": wall_ms, "device_ms_per_call": dev_ms,
-            "device_activities_per_call": acts / n, "device_busy_share": dev_ms / wall_ms,
-            "top_device_ms_per_call": {name[:80]: us / 1e3 / n for name, us in top}}
+    res = {"host_ms_per_call": wall_ms, "device_ms_per_call": dev_ms,
+           "device_activities_per_call": acts / n, "device_busy_share": dev_ms / wall_ms,
+           "top_device_ms_per_call": {name[:80]: us / 1e3 / n for name, us in top}}
+    if kinds:
+        by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+        for name, us in by_name.items():
+            low = name.lower()
+            label = next((k for k, parts in kinds.items() if any(x in low for x in parts)),
+                         "other")
+            by_kind[label] += us / 1e3 / n
+        res["device_ms_per_call_by_kind"] = by_kind
+    return res
 
 
 def serving_path(torch, ht, tk, dev, smi):
@@ -479,6 +597,179 @@ def serving_path(torch, ht, tk, dev, smi):
           "near_tie": {k: {"tokens_differing_from_f32_argmax": v[0], "max_gap_over_limit": v[1]}
                        for k, v in ties.items()},
           "near_tie_rule": "f32 logit of each chosen token >= f32 max - 2*bf16_logit_tol"})
+    return launches
+
+
+BWD_PATH_CASE = "train_8x16x1024x64_bf16_causal"
+# kernel kinds of a training step, by parts of their names
+TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
+               "gemm": ("nvjet", "gemm", "xmma", "cutlass", "gemv"),
+               "log_softmax": ("softmax",), "adam": ("adam",)}
+
+
+def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
+    """Phase 4, the flash backward: both kernels against their plain
+    versions (``check_flash_bwd``) at the training path's shape (bf16,
+    causal, no lse cotangent), at float32 lengths that are no multiple of
+    any tile with Sq < Sk, causal and a nonzero lse cotangent, and without
+    the causal mask; then the times at the path's shape."""
+    H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    cases = ((BWD_PATH_CASE, 8, 1024, 1024, torch.bfloat16, True, False),
+             ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, 1000, 1090, torch.float32, True, True),
+             ("2x16x1024x64_bf16_noncausal_dlse", 2, 1024, 1024, torch.bfloat16, False, True))
+    checks = {}
+    for name, b, sq, sk, dt, causal, with_dlse in cases:
+        q = torch.randn(b, H, sq, DH, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, H, sk, DH, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, H, sk, DH, device=dev, generator=gen).to(dt)
+        out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+        dout = torch.randn(q.shape, device=dev, generator=gen).to(dt)
+        dlse = torch.randn(lse.shape, device=dev, generator=gen) if with_dlse else None
+        dmb = tk._dmb(out, dout, dlse)
+        step = 2.0**-7 if dt == torch.bfloat16 else 0.0
+        before = dict(tk.launches)
+        res = check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=step)
+        assert tk.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+        assert tk.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        dk1, dv1 = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+        dk2, dv2 = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+        repeatable = (torch.equal(dk1, dk2) and torch.equal(dv1, dv2) and torch.equal(
+            tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal),
+            tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal)))
+        assert repeatable, f"{name}: the backward kernels are not bitwise repeatable"
+        checks[name] = {"dq_max_abs_err": res["dq"][0],
+                        "dk_dv_max_abs_err": max(res["dk"][0], res["dv"][0]),
+                        "max_err_over_limit": {g: r for g, (_, r) in res.items()},
+                        "out_step": step, "dlse": with_dlse, "bitwise_repeatable": True}
+        del q, k, v, out, lse, dout, dlse, dmb, dk1, dv1, dk2, dv2
+        torch.cuda.empty_cache()
+
+    b, s = 8, 1024
+    q, k, v, dout = (torch.randn(b, H, s, DH, device=dev, generator=gen).bfloat16()
+                     for _ in range(4))
+    out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    dmb = tk._dmb(out, dout, None)
+    (b_dkv, by_dkv), (b_dq, by_dq) = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc)
+    floor_dkv, floor_dq = flash_bwd_fma_floors(b, H, s, s, DH, True, f32)
+    times = {
+        "dkv": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dkv(q, k, v, dout, lse, dmb,
+                                                                  causal=True)),
+                "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb,
+                                                                       causal=True)),
+                "bound": b_dkv, "bound_by": by_dkv, "fp32_fma_design_floor": floor_dkv},
+        "dq": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb,
+                                                                causal=True)),
+               "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb,
+                                                                     causal=True)),
+               "bound": b_dq, "bound_by": by_dq, "fp32_fma_design_floor": floor_dq}}
+    # the yardstick: PyTorch's flash-attention backward (behind SDPA), fed
+    # by its own forward's outputs; one call computes dq, dk and dv
+    scale = 1.0 / math.sqrt(DH)
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False,
+                                                             scale=scale)
+    o_a, lse_a, cq, ck, mq, mk, seed, offset = fwd[:8]
+    times["aten_flash_backward_dq_dk_dv"] = time_ms(
+        torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dout, q, k, v, o_a, lse_a, cq, ck, mq, mk, 0.0, True, seed, offset, scale=scale))
+    del q, k, v, dout, out, lse, dmb, fwd, o_a, lse_a
+    torch.cuda.empty_cache()
+    res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
+           "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
+                   "NaN at the same places (check_flash_bwd)"}
+    emit(res)
+    return res
+
+
+def training_path(torch, ht, tk, smi, bf16_tc):
+    """The training main path at the flagship width, through the entry
+    points a user calls; returns the launch counts of its timed steps."""
+    from heat_tpu_torch.core.tree import tree_flatten
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+    from heat_tpu_torch.utils.convert import transformer_tree_to_numpy
+
+    L, V, D = FLAGSHIP["n_layers"], FLAGSHIP["vocab"], FLAGSHIP["d_model"]
+    B, S = TRAIN_BATCH
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, compute_dtype=torch.bfloat16))
+    # the bench's fixed batch (bench.py:231-232)
+    toks = model.shard_batch(np.random.default_rng(0).integers(0, V, (B, S)).astype(np.int32))
+
+    # the end-to-end check: one loss_and_grad_fn of the bf16 model against a
+    # float32 copy, both from the same init(0) masters
+    model32 = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP))
+    params = model.init(0, dtype=torch.float32)
+    loss16, g16 = model.loss_and_grad_fn()(params, toks)
+    loss32, g32 = model32.loss_and_grad_fn()(params, toks)
+    logits32 = model32.logits_fn()(params, toks)
+    loss_tol = bf16_loss_tol(torch, logits32, L)
+    del logits32
+    loss_ratio = abs(float(loss16) - float(loss32)) / loss_tol
+    assert loss_ratio <= 1.0, f"bf16 loss beyond bf16_loss_tol of float32: {loss_ratio}"
+    grad_tol = bf16_grad_tol(L)
+    h16, h32 = transformer_tree_to_numpy(g16), transformer_tree_to_numpy(g32)
+    leaves = [("embed", h16["embed"], h32["embed"]), ("final_ln", h16["final_ln"], h32["final_ln"]),
+              ("unembed", h16["unembed"], h32["unembed"])]
+    leaves += [(f"stages/{n}", h16["stages"][n], h32["stages"][n]) for n in h16["stages"]]
+    grad_ratios = {}
+    for name, a, b in leaves:
+        assert np.isfinite(a).all(), f"bf16 gradient {name} is not finite"
+        grad_ratios[name] = float(np.linalg.norm(a - b) / np.linalg.norm(b)) / grad_tol
+    assert max(grad_ratios.values()) <= 1.0, f"bf16 gradients beyond bf16_grad_tol: {grad_ratios}"
+    del g16, g32, h16, h32, leaves, model32
+    torch.cuda.empty_cache()
+
+    # the train step: float32 masters through the converter, Adam(1e-3)
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    tx = ht.optim.Adam(1e-3)
+    opt_state = tx.init(params)
+    step = model.make_train_step(tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(2):  # warm-up
+        params, opt_state, loss = step(params, opt_state, toks)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, loss = step(params, opt_state, toks)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    launches = dict(tk.launches)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    per_step = {name: n / TRAIN_STEPS for name, n in launches.items()}
+    for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert launches[name] == L * TRAIN_STEPS, (name, launches)
+    assert launches["cdist_tile"] == launches["kmeans_step"] == launches["probe"] == 0
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), losses
+    # near-uniform predictions at init (ln V plus half the logits' variance,
+    # ~0.2 here), then the fixed batch is being learnt
+    assert abs(losses[0] - math.log(V)) < 1.0, losses[0]
+    assert losses[-1] < losses[0] - 0.1, losses
+
+    def profiled_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, toks)
+        torch.cuda.synchronize()
+
+    share = device_share(torch, profiled_step, 3, kinds=TRAIN_KINDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = B * S
+    flops = (6.0 * n_params + 12.0 * L * S * D) * tokens  # bench.py:245
+    emit({"phase": "training_path", "card": smi, "config": FLAGSHIP, "compute_dtype": "bfloat16",
+          "master_dtype": "float32", "optimizer": "Adam(1e-3)", "batch": [B, S],
+          "n_params": n_params, "launches": launches, "launches_per_step": per_step,
+          "step_ms": step_ms, "training_tokens_per_s": tokens / (step_ms / 1e3),
+          "bench_flops_per_step": flops,
+          "approx_mfu_vs_bf16_peak": flops / (step_ms / 1e3) / bf16_tc,
+          "losses_per_step": losses, "profiled": share, "peak_memory_gb": peak_gb,
+          "bf16_vs_f32": {"loss_bf16": float(loss16), "loss_f32": float(loss32),
+                          "loss_err_over_tol": loss_ratio, "loss_tol": loss_tol,
+                          "grad_relnorm_over_tol": grad_ratios, "grad_tol": grad_tol}})
     return launches
 
 
@@ -631,6 +922,7 @@ def main():
         del q, k, v
         torch.cuda.empty_cache()
     emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times})
+    bwd = flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
 
     # 5. the KMeans path, through the entry points a user calls ---------- #
     del x, y
@@ -713,6 +1005,11 @@ def main():
     # 6. the serving path, through the entry points a user calls -------- #
     serve_launches = serving_path(torch, ht, tk, dev, smi)
     fp, fl = fl_times["prefill_1x16x1024x64_bf16"], fl_times["logits_8x16x1024x64_bf16"]
+    torch.cuda.empty_cache()
+
+    # 7. the training path, through the entry points a user calls ------- #
+    train_launches = training_path(torch, ht, tk, smi, bf16_tc)
+    bt = bwd["timings_ms"]
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
@@ -733,10 +1030,27 @@ def main():
          "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
          "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
          "shape": "1x16x1024x64 bf16, causal (prefill)",
+         "training_launches": train_launches["flash_attention"],
          "variants": [{"shape": "8x16x1024x64 bf16, causal (logits forward)",
                        "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
                        "ms": fl["kernel"], "plain_ms": fl["plain"], "bound_ms": fl["bound"],
                        "bound_by": fl["bound_by"], "library_ms": fl["sdpa"]}]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "heat_tpu/core/pallas_kernels.py:412",
+         "launches": train_launches["flash_bwd_dkv"],
+         "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
+         "ms": bt["dkv"]["kernel"], "plain_ms": bt["dkv"]["plain"], "bound_ms": bt["dkv"]["bound"],
+         "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
+         "library_covers": "dq, dk and dv together",
+         "shape": "8x16x1024x64 bf16, causal (training step)"},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "heat_tpu/core/pallas_kernels.py:488",
+         "launches": train_launches["flash_bwd_dq"],
+         "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
+         "ms": bt["dq"]["kernel"], "plain_ms": bt["dq"]["plain"], "bound_ms": bt["dq"]["bound"],
+         "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
+         "library_covers": "dq, dk and dv together",
+         "shape": "8x16x1024x64 bf16, causal (training step)"},
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],
          "max_abs_err": 0.0, "ms": ms_probe, "plain_ms": plain_probe, "bound_ms": b_probe[0],

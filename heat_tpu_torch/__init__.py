@@ -3,8 +3,8 @@
 A port of ``heat_tpu`` (the JAX/TPU package, which stays the reference) to
 PyTorch on NVIDIA Hopper: a NumPy-like ``DNDarray`` split along one axis
 across processes (one per card, ``torch.distributed``), KMeans and cdist,
-and the flagship transformer LM's serving path (``nn``, ``serve``), with
-hand-written CUDA kernels on the hot paths. Arrays and models live on the
+and the flagship transformer LM's training and serving paths (``nn``,
+``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
 ``use_device("cpu")``).
 
@@ -16,6 +16,7 @@ from . import core
 from .core import communication, devices, factories, kernels, random, types
 from . import cluster
 from . import nn
+from . import optim
 from . import serve
 from . import spatial
 from . import utils

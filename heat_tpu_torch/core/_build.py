@@ -89,6 +89,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_step_plan.restype = i
     lib.heat_flash_fwd.argtypes = [p, p, p, p, p, i64, i, i, i, i, ctypes.c_float, i, p]
     lib.heat_flash_fwd.restype = i
+    lib.heat_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, i, i, ctypes.c_float,
+                                       i, p]
+    lib.heat_flash_bwd_dkv.restype = i
+    lib.heat_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, i, ctypes.c_float, i, p]
+    lib.heat_flash_bwd_dq.restype = i
     lib.heat_probe.argtypes = [p, p, i64, p]
     lib.heat_probe.restype = i
     lib.heat_cuda_error_string.argtypes = [i]

@@ -10,6 +10,13 @@ Each kernel sits beside a plain PyTorch version of the same function:
 * :func:`flash_attention` (``csrc/flash_fwd.cu``) for heat_tpu's
   ``flash_attention`` forward (``_flash_impl``, ``pallas_kernels.py:348``),
   and :func:`flash_attention_plain`;
+* :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` (``csrc/flash_bwd.cu``) for
+  heat_tpu's ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
+  (``pallas_kernels.py:412``, ``:488``, launched by ``_flash_bwd_impl``
+  ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`;
+  :func:`flash_attention`'s backward runs both, and
+  :func:`flash_attention_bwd_plain` is the whole backward's plain version
+  (heat_tpu's dense fallback, ``:668-686``);
 * :func:`probe` (``csrc/probe.cu``) for heat_tpu's Mosaic probe
   (``_mosaic_available._probe``, ``pallas_kernels.py:85``), and
   :func:`probe_plain`.
@@ -32,10 +39,12 @@ import torch
 from . import types
 
 __all__ = ["cdist_tile", "cdist_tile_plain", "kmeans_step", "kmeans_step_plain",
-           "flash_attention", "flash_attention_plain", "probe", "probe_plain",
-           "launches", "reset_launches"]
+           "flash_attention", "flash_attention_plain", "flash_bwd_dkv", "flash_bwd_dkv_plain",
+           "flash_bwd_dq", "flash_bwd_dq_plain", "flash_attention_bwd_plain", "probe",
+           "probe_plain", "launches", "reset_launches"]
 
-launches = {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "probe": 0}
+launches = {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0, "probe": 0}
 
 # dtype codes of the C interface (csrc/common.cuh)
 _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
@@ -45,9 +54,6 @@ _CDIST_TILE_N = 64  # output columns per block of the wide cdist tile (n > 8)
 _FLASH_TILE = 64    # query rows per block of the flash kernel
 _FLASH_MAX_D = 128
 _NEG_BIG = -1e30    # heat_tpu's masked score (pallas_kernels.py:55)
-_NO_BACKWARD = ("flash_attention's backward on the card lands with the training slice "
-                "(heat_tpu's _flash_bwd_impl kernels); call it without inputs that require "
-                "grad, or under torch.no_grad()")
 
 
 def reset_launches() -> None:
@@ -295,6 +301,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _check_card_attention(q, k, v) -> None:
+    """What the flash kernels take on the card, beyond :func:`_check_attention`."""
+    _on_card(q, k, v)
+    if q.dtype not in _KERNEL_INPUTS:
+        raise ValueError(f"flash_attention on the card takes float32, bfloat16 or float16, "
+                         f"got {q.dtype}")
+    if q.shape[3] > _FLASH_MAX_D:
+        raise ValueError(f"flash_attention on the card takes head dims up to {_FLASH_MAX_D}, "
+                         f"got {q.shape[3]}")
+    if -(-q.shape[2] // _FLASH_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention takes at most {_MAX_GRID_Y * _FLASH_TILE} query "
+                         f"rows, got {q.shape[2]}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention needs contiguous inputs")
+
+
 def _flash_launch(q, k, v, scale: float, causal: bool):
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -315,17 +337,38 @@ def _flash_launch(q, k, v, scale: float, causal: bool):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The card's forward. Its backward (heat_tpu's ``_flash_bwd_impl``
-    kernels #4 and #5) is not written yet: :func:`flash_attention` refuses
-    inputs that require grad, and the backward raises."""
+    """heat_tpu's ``_flash_diff`` (``pallas_kernels.py:643-689``): the
+    forward saves ``q, k, v, out, lse``; the backward recomputes the
+    probabilities from the lse. On the card the forward is the flash kernel
+    and the backward launches :func:`flash_bwd_dkv`, then
+    :func:`flash_bwd_dq`; on the CPU the forward is
+    :func:`flash_attention_plain` and the backward
+    :func:`flash_attention_bwd_plain`."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        return _flash_launch(q, k, v, scale, causal)
+        if _on_cpu(q, k, v):
+            out, lse = flash_attention_plain(q, k, v, scale, causal, return_lse=True)
+        else:
+            out, lse = _flash_launch(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, dout, dlse):
-        raise NotImplementedError(_NO_BACKWARD)
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        if _on_cpu(q, k, v):
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse, ctx.scale,
+                                              ctx.causal)
+            return grads + (None, None)
+        dmb = _dmb(out, dout, dlse)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal)
+        dq = flash_bwd_dq(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -342,34 +385,183 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a row with no visible key gives NaN and an lse of ``-inf``. Accumulation
     is float32 (float64 for float64 input on the CPU).
 
-    On the card the kernel takes float32, bfloat16 and float16, contiguous
+    Differentiable in ``q``, ``k`` and ``v``, through the output and the
+    lse: the backward recomputes the probabilities from the saved lse (the
+    flash backward kernels on the card, :func:`flash_attention_bwd_plain` on
+    the CPU), so no ``(Sq, Sk)`` matrix is kept between the passes.
+
+    On the card the kernels take float32, bfloat16 and float16, contiguous
     inputs and head dims up to 128; float64 raises (ROADMAP). The card uses
     its own 64 x 64 tiles and ignores ``block_q``/``block_k``, which stay
-    for heat_tpu's signature: results do not depend on tile sizes. Inputs
-    that require grad raise :class:`NotImplementedError` on the card (the
-    backward kernels come with the training slice).
+    for heat_tpu's signature: results do not depend on tile sizes.
     """
     _check_attention(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale, causal, return_lse)
-    _on_card(q, k, v)
-    if q.dtype not in _KERNEL_INPUTS:
-        raise ValueError(f"flash_attention on the card takes float32, bfloat16 or float16, "
-                         f"got {q.dtype}")
-    if q.shape[3] > _FLASH_MAX_D:
-        raise ValueError(f"flash_attention on the card takes head dims up to {_FLASH_MAX_D}, "
-                         f"got {q.shape[3]}")
-    if -(-q.shape[2] // _FLASH_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention takes at most {_MAX_GRID_Y * _FLASH_TILE} query "
-                         f"rows, got {q.shape[2]}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous inputs")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(_NO_BACKWARD)
+    if not _on_cpu(q, k, v):
+        _check_card_attention(q, k, v)
     out, lse = _FlashAttention.apply(q, k, v, float(scale), bool(causal))
     return (out, lse) if return_lse else out
+
+
+# --------------------------------------------------------------------------- #
+# flash attention backward                                                    #
+# --------------------------------------------------------------------------- #
+
+
+def _dmb(out, dout, dlse):
+    """``dlse - rowsum(dout * out)`` in the accumulation dtype (heat_tpu
+    ``pallas_kernels.py:571-573``); a missing ``dlse`` is zero."""
+    acc = torch.float64 if out.dtype == torch.float64 else torch.float32
+    delta = (dout.to(acc) * out.to(acc)).sum(dim=-1)
+    return -delta if dlse is None else dlse.to(acc) - delta
+
+
+def _check_backward(q, k, v, dout, lse, dmb) -> None:
+    _check_attention(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"flash backward: dout must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    for name, t in (("lse", lse), ("dmb", dmb)):
+        if tuple(t.shape) != tuple(q.shape[:3]) or not t.dtype.is_floating_point:
+            raise ValueError(f"flash backward: {name} must be a floating (B, H, Sq) tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _bwd_dense(q, k, v, dout, lse, dmb, scale: float, causal: bool):
+    """The dense backward's tiles, in the accumulation dtype: ``q`` and
+    ``dout`` upcast, the probabilities ``p`` recomputed from the lse (zero
+    where the pair is masked or the lse is not finite) and the score
+    cotangent ``ds = p * (dout vᵀ + dmb)``."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    dev = q.device
+    Sq, Sk = q.shape[2], k.shape[2]
+    qf, kf, vf, of = (t.to(acc) for t in (q, k, v, dout))
+    s = (qf * scale) @ kf.transpose(-1, -2)
+    lse_c = lse.to(acc)[..., None]
+    ok = torch.isfinite(lse_c)
+    if causal:
+        row = torch.arange(Sq, device=dev)[:, None]
+        col = torch.arange(Sk, device=dev)[None, :]
+        ok = ok & (col <= row + (Sk - Sq))
+    p = torch.where(ok, torch.exp(s - lse_c), torch.zeros((), dtype=acc, device=dev))
+    ds = p * (of @ vf.transpose(-1, -2) + dmb.to(acc)[..., None])
+    return qf, kf, of, p, ds
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
+                        causal: bool = False):
+    """Plain PyTorch version of :func:`flash_bwd_dkv`."""
+    _check_backward(q, k, v, dout, lse, dmb)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    qf, _, of, p, ds = _bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p.transpose(-1, -2) @ of
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
+                       causal: bool = False):
+    """Plain PyTorch version of :func:`flash_bwd_dq`."""
+    _check_backward(q, k, v, dout, lse, dmb)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    _, kf, _, _, ds = _bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
+    return ((ds @ kf) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse=None, scale: Optional[float] = None,
+                              causal: bool = False):
+    """The whole flash backward in plain PyTorch (heat_tpu's dense fallback,
+    ``pallas_kernels.py:668-686``, accumulated in float64 for float64 input):
+    ``(dq, dk, dv)`` in the inputs' dtypes for the cotangents ``dout`` of
+    the output and ``dlse`` of the lse (``None`` is zero)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    dmb = _dmb(out, dout, dlse)
+    _check_backward(q, k, v, dout, lse, dmb)
+    qf, kf, of, p, ds = _bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p.transpose(-1, -2) @ of
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_card_backward(q, k, v, dout, lse, dmb) -> None:
+    _check_card_attention(q, k, v)
+    _on_card(q, k, v, dout, lse, dmb)
+    if lse.dtype != torch.float32 or dmb.dtype != torch.float32:
+        raise ValueError(f"flash backward on the card takes float32 lse and dmb, got "
+                         f"{lse.dtype} and {dmb.dtype}")
+    if not all(t.is_contiguous() for t in (dout, lse, dmb)):
+        raise ValueError("flash backward needs contiguous dout, lse and dmb")
+    if -(-k.shape[2] // _FLASH_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"flash backward takes at most {_MAX_GRID_Y * _FLASH_TILE} keys, got "
+                         f"{k.shape[2]}")
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
+                  causal: bool = False):
+    """dK and dV of attention (heat_tpu ``_flash_bwd_dkv_kernel``): for the
+    forward's ``q, k, v`` and lse, the output cotangent ``dout`` and
+    ``dmb = dlse - rowsum(dout * out)`` (``(B, H, Sq)``), with the
+    probabilities ``p`` recomputed from the lse (zero where masked or where
+    the lse is not finite) and ``ds = p * (dout vᵀ + dmb)``, returns
+    ``dk = scale * dsᵀ q`` and ``dv = pᵀ dout`` in k's and v's dtypes."""
+    _check_backward(q, k, v, dout, lse, dmb)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if _on_cpu(q, k, v, dout, lse, dmb):
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, scale, causal)
+    _check_card_backward(q, k, v, dout, lse, dmb)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if Sq == 0:  # no query: nothing reaches k or v
+        return torch.zeros_like(k), torch.zeros_like(v)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    from ._build import library
+
+    lib = library()
+    with torch.cuda.device(q.device):  # the C side launches on the current device
+        err = lib.heat_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                     lse.data_ptr(), dmb.data_ptr(), dk.data_ptr(),
+                                     dv.data_ptr(), B * H, Sq, Sk, D, _CODES[q.dtype],
+                                     float(scale), int(bool(causal)), _stream(q.device))
+    _raise_on(err, lib, "flash_bwd_dkv")
+    launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, dmb, scale: Optional[float] = None, causal: bool = False):
+    """dQ of attention (heat_tpu ``_flash_bwd_dq_kernel``): the inputs of
+    :func:`flash_bwd_dkv`; returns ``dq = scale * ds k`` in q's dtype."""
+    _check_backward(q, k, v, dout, lse, dmb)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if _on_cpu(q, k, v, dout, lse, dmb):
+        return flash_bwd_dq_plain(q, k, v, dout, lse, dmb, scale, causal)
+    _check_card_backward(q, k, v, dout, lse, dmb)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if Sk == 0:  # no key: every score cotangent is empty
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    from ._build import library
+
+    lib = library()
+    with torch.cuda.device(q.device):
+        err = lib.heat_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                    lse.data_ptr(), dmb.data_ptr(), dq.data_ptr(), B * H, Sq, Sk,
+                                    D, _CODES[q.dtype], float(scale), int(bool(causal)),
+                                    _stream(q.device))
+    _raise_on(err, lib, "flash_bwd_dq")
+    launches["flash_bwd_dq"] += 1
+    return dq
 
 
 # --------------------------------------------------------------------------- #

@@ -35,7 +35,7 @@
 // the P.V product. Head dims are padded to DP in {32, 64, 128} with zeros in
 // shared memory; nothing is padded in device memory. Rows and keys past the
 // ends are masked in the kernel.
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -44,59 +44,10 @@ constexpr int BK = 64;         // keys per tile
 constexpr int NT = 128;        // threads: 16 row groups x 8 lanes
 constexpr int LP = BK + 2;     // row stride of the P tile (conflict-free writes and reads)
 constexpr float kNegBig = -1e30f;  // the TPU kernel's _NEG_BIG (pallas_kernels.py:55)
-static_assert(BQ == BK, "load_tile stages tiles of BQ rows for Q, K and V alike");
 
 template <int DP>
 constexpr size_t smem_bytes() {
   return static_cast<size_t>(BQ * (DP + 4) + 2 * BK * (DP + 4) + BQ * LP) * sizeof(float);
-}
-
-// Stage `rows` rows of a (rows, d) tile of T into shared memory as fp32
-// times `mul`, each row padded with zeros to DP columns and the rows past
-// `rows` zero-filled. `vec`: d == DP and 16-byte aligned rows, so each
-// thread moves 16 bytes at a time.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          int rows, int d, int vec, float mul) {
-  constexpr int LD = DP + 4;
-  if (vec) {
-    constexpr int VE = 16 / static_cast<int>(sizeof(T));
-    constexpr int PER_ROW = DP / VE;
-    for (int e = threadIdx.x; e < BQ * PER_ROW; e += NT) {
-      const int r = e / PER_ROW;
-      const int c = (e % PER_ROW) * VE;
-      alignas(16) T buf[VE];
-      if (r < rows) {
-        *reinterpret_cast<uint4*>(buf) =
-            *reinterpret_cast<const uint4*>(src + static_cast<int64_t>(r) * DP + c);
-      }
-      float f[VE];
-#pragma unroll
-      for (int i = 0; i < VE; ++i) f[i] = r < rows ? to_acc<float>(buf[i]) * mul : 0.f;
-#pragma unroll
-      for (int i = 0; i < VE; i += 4)
-        *reinterpret_cast<float4*>(dst + r * LD + c + i) = make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BQ * DP; e += NT) {
-      const int r = e / DP;
-      const int c = e % DP;
-      dst[r * LD + c] =
-          (r < rows && c < d) ? to_acc<float>(src[static_cast<int64_t>(r) * d + c]) * mul : 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ float row_max8(float x) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 template <typename T, int DP>
@@ -122,7 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + bh * sk * d;
   const T* vb = v + bh * sk * d;
 
-  load_tile<T, DP>(qs, qb + static_cast<int64_t>(q0) * d, min(BQ, sq - q0), d, vec, scale);
+  load_tile<T, DP, BQ, NT>(qs, qb + static_cast<int64_t>(q0) * d, min(BQ, sq - q0), d, vec, scale);
 
   float m[4], l[4], acc[4][NG * 4];
 #pragma unroll
@@ -139,8 +90,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = 0; kt < ntiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done with ks, vs and ps
-    load_tile<T, DP>(ks, kb + static_cast<int64_t>(k0) * d, min(BK, sk - k0), d, vec, 1.f);
-    load_tile<T, DP>(vs, vb + static_cast<int64_t>(k0) * d, min(BK, sk - k0), d, vec, 1.f);
+    load_tile<T, DP, BK, NT>(ks, kb + static_cast<int64_t>(k0) * d, min(BK, sk - k0), d, vec, 1.f);
+    load_tile<T, DP, BK, NT>(vs, vb + static_cast<int64_t>(k0) * d, min(BK, sk - k0), d, vec, 1.f);
     __syncthreads();
 
     float s[4][8];

@@ -1,5 +1,5 @@
 """Neural network layer (heat_tpu ``nn/``): local attention on the flash
-kernel and the transformer LM's serving path."""
+kernels and the transformer LM's training and serving paths."""
 
 from . import attention
 from . import transformer

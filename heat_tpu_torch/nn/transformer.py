@@ -1,23 +1,28 @@
 """The flagship transformer LM on one card (heat_tpu ``nn/transformer.py``).
 
-The serving half of heat_tpu's ``TransformerLM``: its configuration, the
-layer math (``_rmsnorm``, ``rope_apply``, ``_qkv``, the residual blocks and
-the head), the logits forward (``logits_fn``) and KV-cached decode
-(``generate``, plus the prefill and cached-step bodies that the
-continuous-batching :class:`~heat_tpu_torch.serve.DecodeEngine` shares).
-Every attention over a prompt or a sequence runs the flash kernel
-(``csrc/flash_fwd.cu``); the cached decode attention stays dense PyTorch,
-as it is dense ``jnp`` in heat_tpu.
+heat_tpu's ``TransformerLM`` on a ``(1, 1, 1, 1)`` grid: its configuration,
+the layer math (``_rmsnorm``, ``rope_apply``, ``_qkv``, the residual blocks
+and the head), training (``loss_and_grad_fn``, ``make_train_step``), the
+logits forward (``logits_fn``) and KV-cached decode (``generate``, plus the
+prefill and cached-step bodies that the continuous-batching
+:class:`~heat_tpu_torch.serve.DecodeEngine` shares). Every attention over a
+prompt or a sequence runs the flash kernel (``csrc/flash_fwd.cu``), and a
+training step its backward kernels (``csrc/flash_bwd.cu``); the cached
+decode attention stays dense PyTorch, as it is dense ``jnp`` in heat_tpu.
 
 Parameters are a plain dictionary (see
-:func:`heat_tpu_torch.utils.convert.transformer_params_from_numpy`), cast
-once to ``compute_dtype`` when they are made: serving keeps no float32
-master copy. ``params = model.init(seed)`` draws the same numpy values as
-heat_tpu's ``init``, so both packages start from identical weights.
+:func:`heat_tpu_torch.utils.convert.transformer_params_from_numpy`).
+Every use casts them to ``compute_dtype``, as heat_tpu's ``_cast_params``
+does, inside autograd: training keeps float32 masters
+(``model.init(seed, dtype=torch.float32)``) and their gradients reach the
+float32 leaves, while serving parameters are made in ``compute_dtype``
+already (``model.init(seed)``), where the cast returns the tensor itself.
+``init`` draws the same numpy values as heat_tpu's ``init``, so both
+packages start from identical weights.
 
-This slice runs on a ``(1, 1, 1, 1)`` grid (one card). Training
-(``make_train_step``, ``loss_and_grad_fn``, remat), MoE and grids with
-pp, tp or sp above 1 come with later slices (ROADMAP).
+At world size 1 heat_tpu's packed gradient all-reduce has no axis to reduce
+over, and none runs here either. MoE, remat and grids with dp, pp, tp or sp
+above 1 come with later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.tree import tree_flatten
 from .attention import _ring_body, local_attention
 
 __all__ = ["TransformerLM", "TransformerLMConfig", "rope_apply"]
@@ -38,9 +44,10 @@ __all__ = ["TransformerLM", "TransformerLMConfig", "rope_apply"]
 @dataclass
 class TransformerLMConfig:
     """heat_tpu's ``TransformerLMConfig`` (``transformer.py:58``), with
-    ``compute_dtype`` a torch dtype. Only the serving fields are ported:
-    ``capacity_factor``, ``n_micro``, ``attn_schedule`` and ``remat`` come
-    with the slices that run MoE, pipelines, multi-card rings and training."""
+    ``compute_dtype`` a torch dtype. The fields of the dense single-card
+    model are ported: ``capacity_factor``, ``n_micro``, ``attn_schedule``
+    and ``remat`` come with the slices that run MoE, pipelines, multi-card
+    rings and rematerialisation."""
 
     vocab: int = 256
     d_model: int = 64
@@ -48,7 +55,7 @@ class TransformerLMConfig:
     n_layers: int = 2
     d_ff: Optional[int] = None          # default 4 * d_model
     moe_experts: int = 0                # 0 = dense MLP (the only kind ported)
-    compute_dtype: Any = torch.float32  # bfloat16 for serving on the card
+    compute_dtype: Any = torch.float32  # bfloat16 on the card
     init_scale: float = 0.02
     rope: bool = True
     rope_theta: float = 10000.0
@@ -153,18 +160,32 @@ class TransformerLM(torch.nn.Module):
         return {"embed": norm(V, D), "final_ln": np.ones((D,), np.float32),
                 "unembed": norm(D, V), "stages": stages}
 
-    def init(self, seed: int = 0) -> Dict[str, Any]:
-        """The parameters on the grid's device, in ``compute_dtype``."""
+    def init(self, seed: int = 0, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+        """The parameters on the grid's device, in ``dtype``: ``compute_dtype``
+        by default (serving), ``torch.float32`` for training masters."""
         from ..utils.convert import transformer_params_from_numpy
 
         return transformer_params_from_numpy(self.host_init(seed), self.cfg,
-                                             device=self.device)
+                                             device=self.device, dtype=dtype)
 
     # ------------------------------------------------------------- #
-    # layer math, shared by the forward, the prefill and decode     #
-    # (the parameters are in compute_dtype already: heat_tpu's      #
-    # per-use _cast_params is the cast made once at load)           #
+    # layer math, shared by training, the prefill and decode        #
     # ------------------------------------------------------------- #
+
+    def _cast_params(self, p):
+        """Mixed precision (heat_tpu ``transformer.py:305``): one layer's
+        parameters in ``compute_dtype``, cast per use inside autograd, so
+        float32 masters get float32 gradients; parameters in
+        ``compute_dtype`` already come back as they are, dictionary and
+        all (serving calls this per layer and step)."""
+        cd = self.cfg.compute_dtype
+        if all(a.dtype == cd for a in p.values()):
+            return p
+        return {name: a.to(cd) for name, a in p.items()}
+
+    def _embed(self, params, toks):
+        """The token embedding: gather, then cast (heat_tpu ``:386``)."""
+        return params["embed"][toks].to(self.cfg.compute_dtype)
 
     def _qkv(self, p, x, pos):
         """Pre-norm qkv projection with rotary rotation by positions ``pos``."""
@@ -191,11 +212,13 @@ class TransformerLM(torch.nn.Module):
 
     def _head(self, params, h):
         """Final norm + unembed; logits upcast to float32 after the GEMM."""
-        h = _rmsnorm(h, params["final_ln"])
-        return (h @ params["unembed"]).float()
+        cd = self.cfg.compute_dtype
+        h = _rmsnorm(h, params["final_ln"].to(cd))
+        return (h @ params["unembed"].to(cd)).float()
 
     def _block(self, p, x, sp_comm, pos):
         """One layer on a local microbatch ``(mb, S, D)``."""
+        p = self._cast_params(p)
         q, k, v = self._qkv(p, x, pos)
         attn = _ring_body(q, k, v, comm=sp_comm, scale=1.0 / math.sqrt(self.cfg.head_dim),
                           causal=True)
@@ -212,7 +235,7 @@ class TransformerLM(torch.nn.Module):
         layers run in turn."""
         toks = self._tokens(toks)
         sp_comm = self.grid.axis("sp")
-        x = params["embed"][toks]
+        x = self._embed(params, toks)
         pos = torch.arange(toks.shape[1], device=x.device)
         for p_l in params["layers"]:
             x = self._block(p_l, x, sp_comm, pos)
@@ -221,10 +244,84 @@ class TransformerLM(torch.nn.Module):
     def forward(self, params, toks):
         return self._forward_device(params, toks)
 
+    @torch.no_grad()
+    def _serving_forward(self, params, toks):
+        return self._forward_device(params, toks)
+
     def logits_fn(self):
         """``(params, toks) -> (B, S, vocab)`` float32 logits, the serving
-        forward (heat_tpu ``transformer.py:616``)."""
-        return self._forward_device
+        forward (heat_tpu ``transformer.py:616``); it records no autograd
+        graph, whatever ``params`` require."""
+        return self._serving_forward
+
+    # ------------------------------------------------------------- #
+    # training                                                      #
+    # ------------------------------------------------------------- #
+
+    def _local_loss_device(self, params, toks):
+        """The next-token NLL (heat_tpu ``transformer.py:433``): float32
+        log-softmax over the logits, the global last position masked, summed
+        and divided by the static count ``B * dp_world * (S * sp - 1)``. At
+        sp = 1 the targets shift left and wrap the first column onto the
+        last position, which the mask drops. At world size 1 this share is
+        the global loss (heat_tpu's ``_loss_device``, ``:475``, sums the
+        shares over the data axes)."""
+        B, S = toks.shape
+        logits = self._forward_device(params, toks)
+        targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
+        logp = F.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        mask = (torch.arange(S, device=nll.device) < S - 1).to(nll.dtype)
+        count = B * self.dp_world * (S * self.sp - 1)
+        return (nll * mask).sum() / count
+
+    def shard_batch(self, toks) -> torch.Tensor:
+        """A ``(B, S)`` int token batch on the model's device (heat_tpu
+        ``transformer.py:491``; one card holds the whole batch)."""
+        return self._tokens(toks)
+
+    @property
+    def packed_step_supported(self) -> bool:
+        """Whether heat_tpu's packed-collective train step applies: pp = tp
+        = 1 and a dense MLP (heat_tpu ``transformer.py:498``)."""
+        return self.pp == 1 and self.tp == 1 and not self.cfg.moe_experts
+
+    def loss_and_grad_fn(self):
+        """``(params, toks) -> (loss, grads)`` (heat_tpu
+        ``transformer.py:551``): the 0-d loss on the model's device and the
+        gradients as a dictionary shaped like ``params``, in the parameters'
+        dtypes (float32 for float32 masters). ``params`` need not require
+        grad: the gradients are taken through aliases of its tensors, which
+        stay untouched. At world size 1 no collective runs."""
+
+        def fn(params, toks):
+            toks = self._tokens(toks)
+            leaves, unflatten = tree_flatten(params)
+            with torch.enable_grad():
+                live = [t.detach().requires_grad_(True) for t in leaves]
+                loss = self._local_loss_device(unflatten(live), toks)
+                grads = torch.autograd.grad(loss, live)
+            return loss.detach(), unflatten(list(grads))
+
+        return fn
+
+    def make_train_step(self, tx):
+        """``(params, opt_state, toks) -> (params, opt_state, loss)``
+        (heat_tpu ``transformer.py:636``) with a transform ``tx`` of
+        :mod:`heat_tpu_torch.optim` and ``opt_state = tx.init(params)``.
+
+        The parameters and the optimizer state are updated in place (the
+        counterpart of heat_tpu's donation) and come back as the same
+        objects; the loss is a 0-d tensor on the model's device, so a step
+        makes no host sync."""
+        lg = self.loss_and_grad_fn()
+
+        def step(params, opt_state, toks):
+            loss, grads = lg(params, toks)
+            tx.update(grads, opt_state, params)
+            return params, opt_state, loss
+
+        return step
 
     # ------------------------------------------------------------- #
     # generation (KV-cached autoregressive decode)                  #
@@ -265,6 +362,7 @@ class TransformerLM(torch.nn.Module):
         to the rows ``< pos + 1``. Rows the caller does not advance (dead
         slots) overwrite the same masked row."""
         Bl = x.shape[0]
+        p_l = self._cast_params(p_l)
         q, k, v = self._qkv(p_l, x, pos[:, None])
         rows = torch.arange(Bl, device=x.device)
         ck[rows, pos] = k[:, 0].to(ck.dtype)
@@ -282,11 +380,12 @@ class TransformerLM(torch.nn.Module):
         rows hold values the caller keeps masked until decode overwrites
         them."""
         Sp = toks.shape[1]
-        x = params["embed"][toks]
+        x = self._embed(params, toks)
         pos0 = torch.arange(Sp, device=x.device)
         ks: List[torch.Tensor] = []
         vs: List[torch.Tensor] = []
         for p_l in params["layers"]:
+            p_l = self._cast_params(p_l)
             q, k, v = self._qkv(p_l, x, pos0)
             ks.append(k)
             vs.append(v)
@@ -348,7 +447,7 @@ class TransformerLM(torch.nn.Module):
         tok = self._sample(logits0, temperature, gen)
         out = [tok]
         for t in range(S0, S0 + max_new_tokens - 1):
-            x = params["embed"][tok][:, None, :]
+            x = self._embed(params, tok)[:, None, :]
             pos = torch.full((B,), t, dtype=torch.long, device=dev)
             for l, p_l in enumerate(params["layers"]):
                 x, _, _ = self._cache_layer_step(p_l, x, ck[l], cv[l], pos)

@@ -346,7 +346,7 @@ class DecodeEngine:
         m = self.model
         if self._live_dev is None:
             self._live_dev = torch.from_numpy(live.copy()).to(self.device)
-        x = self.params["embed"][self._toks.long()][:, None, :]
+        x = m._embed(self.params, self._toks.long())[:, None, :]
         pos = self._pos.long()
         for l, p_l in enumerate(self.params["layers"]):
             x, _, _ = m._cache_layer_step(p_l, x, self._ck[l], self._cv[l], pos)

@@ -20,7 +20,8 @@ from ..core import factories
 from ..core.devices import sanitize_device
 from ..core.dndarray import DNDarray
 
-__all__ = ["dndarray_from_numpy", "kmeans_from_numpy_state", "transformer_params_from_numpy"]
+__all__ = ["dndarray_from_numpy", "kmeans_from_numpy_state", "transformer_params_from_numpy",
+           "transformer_tree_to_numpy"]
 
 _LAYER_KEYS = ("ln1", "wqkv", "wproj", "ln2", "w_up", "w_down")
 
@@ -48,7 +49,8 @@ def kmeans_from_numpy_state(state: Mapping, device=None, comm=None) -> KMeans:
     return km
 
 
-def transformer_params_from_numpy(tree: Mapping, config, device=None) -> Dict[str, Any]:
+def transformer_params_from_numpy(tree: Mapping, config, device=None,
+                                  dtype=None) -> Dict[str, Any]:
     """The port's transformer parameters from heat_tpu's parameter tree, as
     numpy arrays: ``embed (V, D)``, ``final_ln (D,)``, ``unembed (D, V)``
     and ``stages`` with a leading ``(pp, Ls)`` on ``wqkv (D, 3, H, Dh)``,
@@ -57,13 +59,18 @@ def transformer_params_from_numpy(tree: Mapping, config, device=None) -> Dict[st
 
     Returns ``{"embed", "final_ln", "unembed", "layers": [one dict per
     layer with the stage keys]}``, every tensor on ``device`` (the card by
-    default) in ``config.compute_dtype``; the layers run in stage order.
+    default) in ``dtype``: ``config.compute_dtype`` by default, for serving,
+    or ``torch.float32`` for training masters. Every tensor has a storage of
+    its own (no layer is a view of a stacked array), so each can be a leaf
+    of autograd and be updated in place by an optimizer. The layers run in
+    stage order.
     """
     if isinstance(device, torch.device):
         dev = device
     else:
         dev = sanitize_device(device).torch_device
     c = config
+    dtype = c.compute_dtype if dtype is None else dtype
     H, Dh, D, Fd, V = c.n_heads, c.head_dim, c.d_model, c.d_ff, c.vocab
     if "router" in tree["stages"]:
         raise NotImplementedError("the port runs the dense MLP only; MoE weights are a "
@@ -72,14 +79,17 @@ def transformer_params_from_numpy(tree: Mapping, config, device=None) -> Dict[st
     layer_shapes = {"ln1": (D,), "wqkv": (D, 3, H, Dh), "wproj": (H, Dh, D), "ln2": (D,),
                     "w_up": (D, Fd), "w_down": (Fd, D)}
 
-    def put(a, shape, name):
+    def check(a, shape, name):
         a = np.asarray(a)
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(a.shape)}")
-        a = np.require(a, requirements=["C", "W"])  # copies only read-only or strided input
-        return torch.from_numpy(a).to(device=dev, dtype=c.compute_dtype)
+        return a
 
-    out = {name: put(tree[name], shape, name) for name, shape in want.items()}
+    def put(a):
+        a = np.require(a, requirements=["C", "W"])  # copies only read-only or strided input
+        return torch.from_numpy(a).to(device=dev, dtype=dtype, copy=True)
+
+    out = {name: put(check(tree[name], shape, name)) for name, shape in want.items()}
     stacked = {}
     for name in _LAYER_KEYS:
         a = np.asarray(tree["stages"][name])
@@ -90,8 +100,28 @@ def transformer_params_from_numpy(tree: Mapping, config, device=None) -> Dict[st
         if n_layers != c.n_layers:
             raise ValueError(f"stages/{name} holds {n_layers} layers, the config "
                              f"{c.n_layers}")
-        stacked[name] = put(a.reshape((n_layers,) + a.shape[2:]),
-                            (n_layers,) + layer_shapes[name], f"stages/{name}")
-    out["layers"] = [{name: stacked[name][l] for name in _LAYER_KEYS}
+        stacked[name] = check(a.reshape((n_layers,) + a.shape[2:]),
+                              (n_layers,) + layer_shapes[name], f"stages/{name}")
+    out["layers"] = [{name: put(stacked[name][l]) for name in _LAYER_KEYS}
                      for l in range(c.n_layers)]
+    return out
+
+
+def transformer_tree_to_numpy(params: Mapping) -> Dict[str, Any]:
+    """heat_tpu's parameter tree from the port's parameters (or gradients,
+    which share their layout): ``embed``, ``final_ln``, ``unembed`` and
+    ``stages``, each stage key stacked over the layers with a leading
+    ``(pp, Ls) = (1, n_layers)``, as numpy arrays on the host (float32 for
+    bfloat16 and float16 tensors, whose dtypes numpy lacks)."""
+
+    def host(t):
+        t = t.detach()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        return t.cpu().numpy()
+
+    layers = params["layers"]
+    stages = {name: np.stack([host(p[name]) for p in layers])[None] for name in _LAYER_KEYS}
+    out = {name: host(params[name]) for name in ("embed", "final_ln", "unembed")}
+    out["stages"] = stages
     return out

@@ -12,6 +12,17 @@ combination of V's rows, so max|v| is its scale) and on ``1 + |lse|`` for
 the log-sum-exp; bfloat16 outputs may differ by one bf16 rounding (2^-7 of
 |out|) on top, since both sides round their float32 result once. The lse is
 float32 for every input dtype, as in heat_tpu.
+
+The backward: ``flash_attention_bwd_plain`` and the per-kernel plain
+versions ``flash_bwd_dkv_plain``/``flash_bwd_dq_plain`` against heat_tpu's
+Pallas ``_flash_bwd_impl`` (interpret mode) and its dense fallback
+(``_flash_diff_bwd``), with a nonzero lse cotangent, at rtol = atol = 2e-4
+as heat_tpu's own kernel-vs-dense test (``test_pallas.py:379-392``): the
+probabilities are recomputed from a float32 lse on both sides, and the
+gradients sum O(S) such terms; a bfloat16 case within one bf16 rounding of
+|g| plus 1e-5 of max|g|; the NaN positions of empty rows at Sq > Sk; and
+``torch.autograd.grad`` through ``flash_attention(return_lse=True)`` against
+``jax.grad`` of heat_tpu's ``_flash_diff``.
 """
 
 import math
@@ -168,3 +179,127 @@ def test_ring_body_at_size_one_matches_jax(pallas):
                            tgrid.axis("sp"), scale=1 / math.sqrt(8), causal=True)
     assert got.shape == (2, 33, 4, 8)
     _close_attention(got.numpy(), None, want, None, np.abs(v).max(), RTOL[np.float32])
+
+
+# --------------------------------------------------------------------------- #
+# the backward                                                                #
+# --------------------------------------------------------------------------- #
+
+BWD_TOL = 2e-4
+
+
+def _bwd_case(sq, sk, causal, dtype=np.float32, seed=0, d=16):
+    """Forward residuals from heat_tpu's flash forward and numpy cotangents:
+    (q, k, v, out, lse, dout, dlse) as numpy arrays."""
+    q, k, v = _qkv((1, 2, sq, d), sk, np.float32, seed=seed)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    out, lse = pk.flash_attention(jq, jk, jv, causal=causal, return_lse=True)
+    rng = np.random.default_rng(seed + 100)
+    dout = rng.standard_normal(out.shape).astype(np.float32)
+    dlse = rng.standard_normal(lse.shape).astype(np.float32)
+    return jq, jk, jv, out, lse, jnp.asarray(dout, dtype), jnp.asarray(dlse)
+
+
+def _t(a):
+    a = np.asarray(a.astype(jnp.float32)) if a.dtype == jnp.bfloat16 else np.asarray(a)
+    return torch.from_numpy(np.array(a))
+
+
+def _jax_bwd(case, causal, pallas):
+    q, k, v, out, lse, dout, dlse = case
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if pallas:
+        return pk._flash_bwd_impl(q, k, v, out, lse, dout, dlse, scale, causal, 128, 128)
+    pk.set_pallas(False)
+    try:
+        return pk._flash_diff_bwd(scale, causal, 128, 128, (q, k, v, out, lse), (dout, dlse))
+    finally:
+        pk.set_pallas(None)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(192, 192), (100, 260)])
+def test_flash_bwd_plain_matches_pallas_and_dense(sq, sk, causal):
+    case = _bwd_case(sq, sk, causal)
+    q, k, v, out, lse, dout, dlse = (_t(a) for a in case)
+    scale = 1.0 / math.sqrt(16)
+    got = tk.flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse, scale, causal)
+    pallas = _jax_bwd(case, causal, pallas=True)
+    dense = _jax_bwd(case, causal, pallas=False)
+    for g, w_p, w_d in zip(got, pallas, dense):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_p), rtol=BWD_TOL, atol=BWD_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_d), rtol=BWD_TOL, atol=BWD_TOL)
+    # each kernel's plain version, fed dmb = dlse - rowsum(dout * out) as the
+    # kernels are, against the Pallas kernel of the same output
+    dmb = dlse - (dout * out).sum(-1)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, scale, causal)
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, scale, causal)
+    for g, w in zip((dq, dk, dv), pallas):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=BWD_TOL, atol=BWD_TOL)
+    # the wrappers take the plain versions for CPU tensors and launch nothing
+    tk.reset_launches()
+    wk, wv = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, scale, causal)
+    assert torch.equal(wk, dk) and torch.equal(wv, dv)
+    assert torch.equal(tk.flash_bwd_dq(q, k, v, dout, lse, dmb, scale, causal), dq)
+    assert tk.launches["flash_bwd_dkv"] == tk.launches["flash_bwd_dq"] == 0
+
+
+def test_flash_bwd_plain_matches_jax_bf16():
+    case = _bwd_case(128, 128, True, dtype=jnp.bfloat16, seed=1, d=32)
+    q, k, v, out, lse, dout, dlse = (_t(a).bfloat16() if a.dtype == jnp.bfloat16 else _t(a)
+                                     for a in case)
+    got = tk.flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse, causal=True)
+    want = _jax_bwd(case, True, pallas=False)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        lim = BF16_STEP * np.abs(w) + RTOL[np.float32] * np.abs(w).max()
+        assert (np.abs(g - w) <= lim).all(), float((np.abs(g - w) / lim).max())
+
+
+def test_flash_bwd_empty_rows_nan_where_jax_is():
+    # causal Sq > Sk: the first 40 rows see no key, their output is NaN, so
+    # their dmb is NaN and the dense math spreads it to every dK
+    case = _bwd_case(100, 60, True, seed=2)
+    q, k, v, out, lse, dout, dlse = (_t(a) for a in case)
+    got = tk.flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse, causal=True)
+    for want in (_jax_bwd(case, True, pallas=True), _jax_bwd(case, True, pallas=False)):
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            np.testing.assert_array_equal(np.isnan(g.numpy()), np.isnan(w))
+            np.testing.assert_allclose(g.numpy(), w, rtol=BWD_TOL, atol=BWD_TOL)
+    dq, dk, dv = (g.numpy() for g in got)
+    assert np.isnan(dq[:, :, :40]).all() and not np.isnan(dq[:, :, 40:]).any()
+    assert np.isnan(dk).all() and not np.isnan(dv).any()
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_flash_autograd_matches_jax_grad(pallas):
+    q, k, v = _qkv((1, 2, 77, 16), 130, seed=6)
+    w = np.random.default_rng(7).standard_normal((1, 2, 77)).astype(np.float32)
+    scale = 1.0 / math.sqrt(16)
+
+    def f(q, k, v):
+        out, lse = pk._flash_diff(q, k, v, scale, True, 128, 128)
+        return (out ** 2).sum() + (lse * jnp.asarray(w)).sum()
+
+    pk.set_pallas(pallas)
+    try:
+        want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    finally:
+        pk.set_pallas(None)
+    tq, tk_, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out, lse = tk.flash_attention(tq, tk_, tv, scale=scale, causal=True, return_lse=True)
+    loss = (out ** 2).sum() + (lse * torch.from_numpy(w)).sum()
+    got = torch.autograd.grad(loss, (tq, tk_, tv))
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=BWD_TOL, atol=BWD_TOL)
+    # the output alone (no lse cotangent) takes the same backward
+    out = tk.flash_attention(tq, tk_, tv, scale=scale, causal=True)
+    g_out = torch.autograd.grad((out ** 2).sum(), tq)[0]
+    lse_d = tk.flash_attention_plain(*(t.detach() for t in (tq, tk_, tv)), scale, True,
+                                     return_lse=True)
+    want_q = tk.flash_attention_bwd_plain(tq.detach(), tk_.detach(), tv.detach(), lse_d[0],
+                                          lse_d[1], 2 * lse_d[0], None, scale, True)[0]
+    assert torch.equal(g_out, want_q)

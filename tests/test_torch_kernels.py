@@ -184,7 +184,8 @@ def test_wrappers_take_plain_only_on_cpu():
     x = torch.ones(5, 3)
     tk.cdist_tile(x, x)
     tk.kmeans_step(x, x[:2])
-    assert tk.launches == {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "probe": 0}
+    assert tk.launches == {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0,
+                           "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "probe": 0}
     meta = torch.empty(5, 3, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tk.cdist_tile(meta, meta)
@@ -377,11 +378,25 @@ def test_flash_kernel_refusals_on_card(card):
         tk.flash_attention(*big)
     with pytest.raises(ValueError, match="contiguous"):
         tk.flash_attention(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3))
-    qg = q.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tk.flash_attention(qg, k, v)
+    # inputs that require grad train through both backward kernels
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = dict(tk.launches)
+    out, lse = tk.flash_attention(qg, kg, vg, causal=True, return_lse=True)
+    w = torch.randn(lse.shape, device=card)
+    grads = torch.autograd.grad((out ** 2).sum() + (lse * w).sum(), (qg, kg, vg))
+    for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert tk.launches[name] == before[name] + 1, name
+    want = tk.flash_attention_bwd_plain(q, k, v, out.detach(), lse.detach(), 2 * out.detach(),
+                                        w, causal=True)
+    for g, wt in zip(grads, want):
+        torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         assert torch.equal(tk.flash_attention(qg, k, v), tk.flash_attention(q, k, v))
+    dmb = torch.zeros(lse.shape, device=card)
+    with pytest.raises(ValueError, match="float32 lse and dmb"):
+        tk.flash_bwd_dq(q, k, v, q, lse, dmb.double())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tk.flash_bwd_dkv(q.double(), k.double(), v.double(), q.double(), lse, dmb)
 
 
 @pytest.mark.cuda
@@ -394,3 +409,102 @@ def test_probe_on_card(card):
     assert tk.launches["probe"] == before + 2
     with pytest.raises(ValueError, match="float32"):
         tk.probe(x.double())
+
+
+def test_smoke_flash_bwd_check_rejects_wrong_results():
+    # chip_smoke.py's backward check passes the plain versions and refuses
+    # operands rounded to TF32, a dropped dmb term, a missing causal mask and
+    # NaN rows filled in
+    cs = _smoke_module()
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(1, 2, s, 64, generator=g) for s in (70, 90, 90))
+    out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    dout = torch.randn(out.shape, generator=g)
+    dmb = tk._dmb(out, dout, torch.randn(lse.shape, generator=g))
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal=True)
+    assert set(res) == {"dq", "dk", "dv"} and all(r <= 1.0 for _, r in res.values())
+
+    def plain(*args, causal=True):
+        dk, dv = tk.flash_bwd_dkv_plain(*args, causal=causal)
+        return tk.flash_bwd_dq_plain(*args, causal=causal), dk, dv
+
+    for wrong in (plain(_tf32(q), _tf32(k), _tf32(v), _tf32(dout), lse, dmb),
+                  plain(q, k, v, dout, lse, torch.zeros_like(dmb)),
+                  plain(q, k, v, dout, lse, dmb, causal=False)):
+        with pytest.raises(AssertionError, match="beyond their tolerance"):
+            cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal=True, got=wrong)
+    qs = torch.randn(1, 2, 120, 64, generator=g)  # 30 empty rows
+    out, lse = tk.flash_attention(qs, k, v, causal=True, return_lse=True)
+    dout = torch.randn(out.shape, generator=g)
+    dmb = tk._dmb(out, dout, None)
+    filled = tuple(torch.nan_to_num(t) for t in plain(qs, k, v, dout, lse, dmb))
+    with pytest.raises(AssertionError, match="NaN positions"):
+        cs.check_flash_bwd(torch, tk, qs, k, v, dout, lse, dmb, causal=True, got=filled)
+
+
+def test_smoke_flash_bwd_bounds_at_the_training_shape():
+    # (8, 16, 1024, 64) bf16 causal on an H100 SXM: 67,174,400 live pairs;
+    # dK/dV takes 16·D FLOPs per pair on the tensor cores (68.8 GFLOP,
+    # 0.070 ms) against ~102 MB (0.030 ms), dQ 10·D (43.0 GFLOP, 0.043 ms)
+    # against ~85 MB (0.025 ms); the fp32-FMA floors are 8·D and 6·D per
+    # pair at 67 TFLOP/s
+    cs = _smoke_module()
+    pairs = 8 * 16 * 1024 * 1025 // 2
+    assert pairs == 67_174_400
+    (dkv, by_dkv), (dq, by_dq) = cs.flash_bwd_bounds(8, 16, 1024, 1024, 64, True,
+                                                     3.35e12, 989e12)
+    assert by_dkv == by_dq == "operations"
+    assert dkv == pytest.approx(16 * 64 * pairs / 989e12 * 1e3)
+    assert dq == pytest.approx(10 * 64 * pairs / 989e12 * 1e3)
+    assert 0.069 < dkv < 0.070 and 0.043 < dq < 0.044
+    n = 8 * 16 * 1024 * 64 * 2
+    (b_dkv, _), (b_dq, _) = cs.flash_bwd_bounds(8, 16, 1024, 1024, 64, True, 1e9, 989e12)
+    assert b_dkv == pytest.approx((6 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+    assert b_dq == pytest.approx((5 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+    f_dkv, f_dq = cs.flash_bwd_fma_floors(8, 16, 1024, 1024, 64, True, 67e12)
+    assert f_dkv == pytest.approx(0.513, abs=1e-3) and f_dq == pytest.approx(0.385, abs=1e-3)
+
+
+def test_smoke_bf16_training_rules():
+    # the loss rule is twice the mean per-position logit limit; the gradient
+    # rule 2·u·sqrt(24·L) in relative norm (0.108 at the flagship's 8 layers)
+    cs = _smoke_module()
+    z = torch.randn(4, 7, 50, generator=torch.Generator().manual_seed(2)) * 0.64
+    want = 2 * cs.bf16_logit_tol(z.std(dim=-1), z.abs().amax(dim=-1), 8).mean()
+    assert cs.bf16_loss_tol(torch, z, 8) == pytest.approx(float(want))
+    assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
+
+
+# head dims 8 and 16 pad to 32 columns in shared memory, 64 and 128 fill
+# theirs; lengths ragged against the 64-row tiles; Sq > Sk (empty rows: with
+# 300 vs 100 whole query tiles are skipped, and their NaN dmb reaches dK);
+# Sq < Sk; Sq = 1; non-causal with Sk < Sq; every case with a nonzero lse
+# cotangent
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (77, 130, True), (77, 130, False), (150, 70, True), (300, 100, True), (1, 200, True),
+    (64, 64, True), (100, 37, False)])
+def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
+    cs = _smoke_module()
+    q, k, v = _flash_case(card, 2, 3, sq, sk, d, dtype, seed=d + sq + 1)
+    out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator().manual_seed(sq + sk)
+    dout = torch.randn(q.shape, generator=g).to(card, dtype)
+    dlse = torch.randn(lse.shape, generator=g).to(card)
+    dmb = tk._dmb(out, dout, dlse)
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dtype, 0.0)
+    before = dict(tk.launches)
+    cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=step)
+    assert tk.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert tk.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    dk, dv = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+    dq = tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal)
+    again = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal) + (
+        tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal),)
+    for a, b in zip((dk, dv, dq), again):  # no atomics: bitwise repeatable
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    if causal and sq > sk:
+        assert bool(torch.isnan(dq[:, :, :sq - sk]).all()) and bool(torch.isnan(dk).all())
+        assert not bool(torch.isnan(dv).any())
