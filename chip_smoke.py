@@ -44,9 +44,16 @@ Phases, one JSON line each:
    against a float32 copy of the model (``bf16_loss_tol``,
    ``bf16_grad_tol``).
 
-Phase 4 holds the flash backward kernels (dK/dV and dQ) against their
-plain versions too (``check_flash_bwd``), at the training path's shape and
-two others, with their times, bounds and the aten flash backward's time.
+Phase 4 holds the flash forward (bf16 on the tensor cores,
+``csrc/flash_fwd_sm90.cu``; float32 on fp32 FMA, ``csrc/flash_fwd.cu``)
+and the flash backward kernels (dK/dV, bf16 ``csrc/flash_bwd_dkv_sm90.cu``
+and float32 ``csrc/flash_bwd.cu``; dQ, ``csrc/flash_bwd.cu``) against their
+plain versions (``check_flash``, ``check_flash_bwd``) at the serving and
+training paths' shapes in both dtypes, at ragged lengths, empty rows and
+300 queries against 4096 keys, with their times, bounds, the FMA kernels'
+float32 times, SDPA's, the aten flash backward's (bf16) and the aten
+memory-efficient backward's (float32). At the prefill shape the forward's
+wrapper host time per call is measured apart from the kernel's device time.
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -56,6 +63,7 @@ CUDA card is visible.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -254,6 +262,17 @@ def flash_fma_floor(b, h, sq, sk, d, causal, f32):
     return 4 * d * b * h * flash_live_pairs(sq, sk, causal) / f32 * 1e3
 
 
+def flash_bound_f32(b, h, sq, sk, d, causal, bw, tc_rate):
+    """The least time of a float32 flash forward at float32 accuracy: Q, K,
+    V read and O written once as float32, the lse once; per live pair, by
+    :func:`flash_bound`'s rule on the bf16 tensor cores, q·kᵀ and P·V each
+    with two float32 operands, each split exactly into three bf16 terms
+    (nine passes of 2·D FLOPs a product)."""
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * 4 + b * h * sq * 4
+    flops = (9 + 9) * 2 * d * b * h * flash_live_pairs(sq, sk, causal)
+    return bound(nbytes, flops, bw, tc_rate)
+
+
 def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate):
     """The least times of the two bf16 flash backward kernels at float32
     accuracy, by :func:`flash_bound`'s rule (a product of two bf16 operands
@@ -267,6 +286,20 @@ def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate):
     inputs = (2 * b * h * sq * d + 2 * b * h * sk * d) * 2 + 2 * b * h * sq * 4
     dkv = bound(inputs + 2 * b * h * sk * d * 2, (1 + 1 + 3 + 3) * 2 * d * pairs, bw, tc_rate)
     dq = bound(inputs + b * h * sq * d * 2, (1 + 1 + 3) * 2 * d * pairs, bw, tc_rate)
+    return dkv, dq
+
+
+def flash_bwd_bounds_f32(b, h, sq, sk, d, causal, bw, tc_rate):
+    """The least times of the two float32 flash backward kernels at float32
+    accuracy, by :func:`flash_bound_f32`'s rule (nine split-bf16 passes for
+    each product of two float32 operands): dK/dV's four products per live
+    pair (q·kᵀ, dO·vᵀ, Pᵀ·dO, dSᵀ·q), dQ's three (q·kᵀ, dO·vᵀ, dS·k). Bytes
+    as :func:`flash_bwd_bounds` counts them, every tensor float32. Returns
+    ((ms, by) for dK/dV, (ms, by) for dQ)."""
+    pairs = b * h * flash_live_pairs(sq, sk, causal)
+    inputs = (2 * b * h * sq * d + 2 * b * h * sk * d) * 4 + 2 * b * h * sq * 4
+    dkv = bound(inputs + 2 * b * h * sk * d * 4, 4 * 9 * 2 * d * pairs, bw, tc_rate)
+    dq = bound(inputs + b * h * sq * d * 4, 3 * 9 * 2 * d * pairs, bw, tc_rate)
     return dkv, dq
 
 
@@ -609,19 +642,27 @@ TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_attention_bwd": ("f
 
 def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     """Phase 4, the flash backward: both kernels against their plain
-    versions (``check_flash_bwd``) at the training path's shape (bf16,
-    causal, no lse cotangent), at float32 lengths that are no multiple of
-    any tile with Sq < Sk, causal and a nonzero lse cotangent, and without
-    the causal mask; then the times at the path's shape."""
+    versions (``check_flash_bwd``), dK/dV in bf16 on the tensor cores
+    (csrc/flash_bwd_dkv_sm90.cu) and in float32 on the fp32-FMA kernel
+    (csrc/flash_bwd.cu), dQ on the FMA kernel for both: at the training
+    path's shape (causal, no lse cotangent) in bf16 and float32, at lengths
+    that are no multiple of any tile with Sq < Sk, causal and a nonzero lse
+    cotangent, without the causal mask, and (bf16) at Sk = 4096 with 300
+    queries, causal and not; then the times at the path's shape."""
     H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    cases = ((BWD_PATH_CASE, 8, 1024, 1024, torch.bfloat16, True, False),
-             ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, 1000, 1090, torch.float32, True, True),
-             ("2x16x1024x64_bf16_noncausal_dlse", 2, 1024, 1024, torch.bfloat16, False, True))
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = ((BWD_PATH_CASE, 8, H, 1024, 1024, bf16, True, False),
+             ("train_8x16x1024x64_f32_causal", 8, H, 1024, 1024, fp32, True, False),
+             ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, H, 1000, 1090, fp32, True, True),
+             ("1x16x1000_vs_1090x64_bf16_causal_dlse", 1, H, 1000, 1090, bf16, True, True),
+             ("2x16x1024x64_bf16_noncausal_dlse", 2, H, 1024, 1024, bf16, False, True),
+             ("1x4x300_vs_4096x64_bf16_causal_dlse", 1, 4, 300, 4096, bf16, True, True),
+             ("1x4x300_vs_4096x64_bf16_noncausal_dlse", 1, 4, 300, 4096, bf16, False, True))
     checks = {}
-    for name, b, sq, sk, dt, causal, with_dlse in cases:
-        q = torch.randn(b, H, sq, DH, device=dev, generator=gen).to(dt)
-        k = torch.randn(b, H, sk, DH, device=dev, generator=gen).to(dt)
-        v = torch.randn(b, H, sk, DH, device=dev, generator=gen).to(dt)
+    for name, b, h, sq, sk, dt, causal, with_dlse in cases:
+        q = torch.randn(b, h, sq, DH, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
         out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
         dout = torch.randn(q.shape, device=dev, generator=gen).to(dt)
         dlse = torch.randn(lse.shape, device=dev, generator=gen) if with_dlse else None
@@ -651,20 +692,49 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     dmb = tk._dmb(out, dout, None)
     (b_dkv, by_dkv), (b_dq, by_dq) = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc)
     floor_dkv, floor_dq = flash_bwd_fma_floors(b, H, s, s, DH, True, f32)
+    # float32 copies for the FMA kernels' own times, bounded by the card's
+    # tensor cores at float32 accuracy (flash_bwd_bounds_f32)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    out32, lse32 = tk.flash_attention(q32, k32, v32, causal=True, return_lse=True)
+    dmb32 = tk._dmb(out32, do32, None)
+    b32_dkv, b32_dq = flash_bwd_bounds_f32(b, H, s, s, DH, True, bw, bf16_tc)
     times = {
         "dkv": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dkv(q, k, v, dout, lse, dmb,
                                                                   causal=True)),
                 "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb,
                                                                        causal=True)),
-                "bound": b_dkv, "bound_by": by_dkv, "fp32_fma_design_floor": floor_dkv},
+                "bound": b_dkv, "bound_by": by_dkv, "fp32_fma_design_floor": floor_dkv,
+                "fma_f32": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dkv(
+                                q32, k32, v32, do32, lse32, dmb32, causal=True)),
+                            "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(
+                                q32, k32, v32, do32, lse32, dmb32, causal=True)),
+                            "bound": b32_dkv[0], "bound_by": b32_dkv[1],
+                            "fp32_fma_design_floor": floor_dkv}},
         "dq": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb,
                                                                 causal=True)),
                "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb,
                                                                      causal=True)),
-               "bound": b_dq, "bound_by": by_dq, "fp32_fma_design_floor": floor_dq}}
+               "bound": b_dq, "bound_by": by_dq, "fp32_fma_design_floor": floor_dq,
+               "fma_f32": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(
+                               q32, k32, v32, do32, lse32, dmb32, causal=True)),
+                           "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(
+                               q32, k32, v32, do32, lse32, dmb32, causal=True)),
+                           "bound": b32_dq[0], "bound_by": b32_dq[1],
+                           "fp32_fma_design_floor": floor_dq}}}
+    # the float32 yardstick: PyTorch's memory-efficient attention backward
+    # (aten's flash backward takes no float32), fed by its own forward on
+    # the float32 copies; one call computes dq, dk and dv
+    scale = 1.0 / math.sqrt(DH)
+    fwd32 = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q32, k32, v32, None, True, 0.0, True, scale=scale)
+    o_e, lse_e, seed_e, offset_e = fwd32[:4]
+    times["aten_efficient_backward_f32_dq_dk_dv"] = time_ms(
+        torch, lambda: torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            do32, q32, k32, v32, None, o_e, lse_e, seed_e, offset_e, 0.0,
+            [True, True, True, False], True, scale=scale))
+    del q32, k32, v32, do32, out32, lse32, dmb32, fwd32, o_e, lse_e
     # the yardstick: PyTorch's flash-attention backward (behind SDPA), fed
     # by its own forward's outputs; one call computes dq, dk and dv
-    scale = 1.0 / math.sqrt(DH)
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False,
                                                              scale=scale)
     o_a, lse_a, cq, ck, mq, mk, seed, offset = fwd[:8]
@@ -674,6 +744,8 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     del q, k, v, dout, out, lse, dmb, fwd, o_a, lse_a
     torch.cuda.empty_cache()
     res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
+           "routes": {"dkv bfloat16": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu (wgmma, TMA)",
+                      "dkv float32, float16; dq": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
            "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
                    "NaN at the same places (check_flash_bwd)"}
     emit(res)
@@ -806,8 +878,20 @@ def main():
     clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
     spills = [ln.strip() for ln in info["log"].splitlines()
               if "bytes stack frame" in ln and ln.strip() != clean]
+    # ptxas's lines for the tensor-core kernels: registers at the launch
+    # value (the consumers raise theirs with setmaxnreg), stack and spills
+    sm90, entry = {}, None
+    for ln in info["log"].splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_sm90_kernel)ILi(\d+)E", ln)
+        if m:
+            entry = f"{m.group(1)}<{m.group(2)}>"
+        elif "Compiling entry function" in ln:
+            entry = None
+        elif entry and ("bytes stack frame" in ln or "Used" in ln):
+            sm90.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
           "library": info["path"], "ptxas_nonzero_stack_or_spill": spills,
+          "ptxas_sm90": sm90,
           "probe_launches_at_load": tk.launches["probe"]})
     assert tk.launches["probe"] == 1, tk.launches
 
@@ -883,45 +967,83 @@ def main():
     del mask, got, again, want, c
     torch.cuda.empty_cache()
 
-    # flash attention at the serving path's shapes (prefill: one request of
-    # 1024 rows, 16 heads of 64; the logits forward: 8 of them), a float32
-    # length that is no multiple of any tile, and causal Sq > Sk, whose
-    # first 100 rows see no key
+    # flash attention: bf16 runs on the tensor cores (csrc/flash_fwd_sm90.cu),
+    # float32 on the fp32-FMA kernel (csrc/flash_fwd.cu). Both at the serving
+    # path's shapes (prefill: one request of 1024 rows, 16 heads of 64; the
+    # logits forward: 8 of them), at a length that is no multiple of any
+    # tile, at causal Sq > Sk, whose first 100 rows see no key, and (bf16)
+    # at Sk = 4096, which wraps the key ring many times
     H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
     fl_checks = {}
-    for name, b, h, sq, sk, dt in (("prefill_1x16x1024x64_bf16", 1, H, 1024, 1024, torch.bfloat16),
-                                   ("logits_8x16x1024x64_bf16", 8, H, 1024, 1024, torch.bfloat16),
-                                   ("1x16x1000x64_f32", 1, H, 1000, 1000, torch.float32),
-                                   ("1x4x300x64_vs_200_f32", 1, 4, 300, 200, torch.float32)):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for name, b, h, sq, sk, dt, causal in (
+            ("prefill_1x16x1024x64_bf16", 1, H, 1024, 1024, bf16, True),
+            ("logits_8x16x1024x64_bf16", 8, H, 1024, 1024, bf16, True),
+            ("prefill_1x16x1024x64_f32", 1, H, 1024, 1024, fp32, True),
+            ("logits_8x16x1024x64_f32", 8, H, 1024, 1024, fp32, True),
+            ("1x16x1000x64_bf16", 1, H, 1000, 1000, bf16, True),
+            ("1x16x1000x64_f32", 1, H, 1000, 1000, fp32, True),
+            ("1x4x300x64_vs_200_bf16", 1, 4, 300, 200, bf16, True),
+            ("1x4x300x64_vs_200_f32", 1, 4, 300, 200, fp32, True),
+            ("1x4x300_vs_4096x64_bf16_causal", 1, 4, 300, 4096, bf16, True),
+            ("1x4x300_vs_4096x64_bf16_noncausal", 1, 4, 300, 4096, bf16, False)):
         q = torch.randn(b, h, sq, DH, device=dev, generator=gen).to(dt)
         k = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
         v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
-        step = 2.0**-7 if dt == torch.bfloat16 else 0.0
-        err, ratio = check_flash(torch, tk, q, k, v, causal=True, out_step=step)
-        fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step}
-        if sq > sk:
+        step = 2.0**-7 if dt == bf16 else 0.0
+        err, ratio = check_flash(torch, tk, q, k, v, causal=causal, out_step=step)
+        fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step,
+                           "causal": causal}
+        if causal and sq > sk:
             out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
             assert bool(torch.isnan(out[:, :, :sq - sk]).all())
             assert bool(torch.isneginf(lse[:, :, :sq - sk]).all())
             assert not bool(torch.isnan(out[:, :, sq - sk:]).any())
             fl_checks[name]["empty_rows"] = sq - sk
+            del out, lse
         del q, k, v
         torch.cuda.empty_cache()
     fl_times = {}
     for name, b in (("prefill_1x16x1024x64_bf16", 1), ("logits_8x16x1024x64_bf16", 8)):
         q, k, v = (torch.randn(b, H, 1024, DH, device=dev, generator=gen).bfloat16()
                    for _ in range(3))
+        qf, kf, vf = q.float(), k.float(), v.float()
         fb = flash_bound(b, H, 1024, 1024, DH, True, bw, bf16_tc)
+        fb32 = flash_bound_f32(b, H, 1024, 1024, DH, True, bw, bf16_tc)
         fl_times[name] = {
             "kernel": time_ms(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
             "plain": time_ms(torch, lambda: tk.flash_attention_plain(q, k, v, causal=True)),
             "sdpa": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True)),
             "bound": fb[0], "bound_by": fb[1],
-            "fp32_fma_design_floor": flash_fma_floor(b, H, 1024, 1024, DH, True, f32)}
-        del q, k, v
+            "fp32_fma_design_floor": flash_fma_floor(b, H, 1024, 1024, DH, True, f32),
+            "fma_f32": {
+                "kernel": time_ms(torch, lambda: tk.flash_attention(qf, kf, vf, causal=True)),
+                "plain": time_ms(torch, lambda: tk.flash_attention_plain(qf, kf, vf,
+                                                                         causal=True)),
+                "sdpa": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qf, kf, vf, is_causal=True)),
+                "bound": fb32[0], "bound_by": fb32[1],
+                "fp32_fma_design_floor": flash_fma_floor(b, H, 1024, 1024, DH, True, f32)}}
+        if b == 1:
+            # one prefill's work fills about one wave of the card, so the
+            # CUDA-event time of back-to-back calls may be the wrapper's host
+            # pace: the wall time per call of back-to-back calls apart from
+            # the kernel's own device time (torch.profiler); where the card
+            # idles over a tenth of the wall, the host sets the pace
+            w = device_share(torch, lambda: tk.flash_attention(q, k, v, causal=True), 200,
+                             kinds={"kernel": ("flash_fwd_sm90",)})
+            dev_ms = (w.get("device_ms_per_call_by_kind") or {}).get("kernel")
+            host_bound = dev_ms is not None and dev_ms < 0.9 * w["host_ms_per_call"]
+            fl_times[name].update(
+                device_ms=dev_ms, host_ms=w["host_ms_per_call"],
+                ms_is=("host-bound: the wrapper's host time per call; the kernel's own is "
+                       "device_ms" if host_bound else "the kernel's time"))
+        del q, k, v, qf, kf, vf
         torch.cuda.empty_cache()
-    emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times})
+    emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times,
+          "routes": {"bfloat16": "heat_tpu_torch/csrc/flash_fwd_sm90.cu (wgmma, TMA)",
+                     "float32, float16": "heat_tpu_torch/csrc/flash_fwd.cu (fp32 FMA)"}})
     bwd = flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
 
     # 5. the KMeans path, through the entry points a user calls ---------- #
@@ -1023,26 +1145,50 @@ def main():
          "replaces": "heat_tpu/core/pallas_kernels.py:858", "launches": launches["kmeans_step"],
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8"},
-        {"name": "flash_attention", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_fwd.cu",
+        {"name": "flash_attention", "route": "cuda",
+         "source": "heat_tpu_torch/csrc/flash_fwd_sm90.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
          "launches": serve_launches["flash_attention"],
          "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
          "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
          "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
          "shape": "1x16x1024x64 bf16, causal (prefill)",
+         "device_ms": fp["device_ms"], "host_ms": fp["host_ms"], "ms_is": fp["ms_is"],
          "training_launches": train_launches["flash_attention"],
-         "variants": [{"shape": "8x16x1024x64 bf16, causal (logits forward)",
-                       "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
-                       "ms": fl["kernel"], "plain_ms": fl["plain"], "bound_ms": fl["bound"],
-                       "bound_by": fl["bound_by"], "library_ms": fl["sdpa"]}]},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_bwd.cu",
+         "variants": [
+             {"shape": "8x16x1024x64 bf16, causal (logits forward)",
+              "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
+              "ms": fl["kernel"], "plain_ms": fl["plain"], "bound_ms": fl["bound"],
+              "bound_by": fl["bound_by"], "library_ms": fl["sdpa"]}] + [
+             {"source": "heat_tpu_torch/csrc/flash_fwd.cu", "dtype": "float32",
+              "shape": f"{shape} float32, causal",
+              "max_abs_err": fl_checks[f"{key}_f32"]["max_abs_err"],
+              "ms": t["fma_f32"]["kernel"], "plain_ms": t["fma_f32"]["plain"],
+              "bound_ms": t["fma_f32"]["bound"], "bound_by": t["fma_f32"]["bound_by"],
+              "fp32_fma_design_floor": t["fma_f32"]["fp32_fma_design_floor"],
+              "library_ms": t["fma_f32"]["sdpa"]}
+             for key, shape, t in (("prefill_1x16x1024x64", "1x16x1024x64", fp),
+                                   ("logits_8x16x1024x64", "8x16x1024x64", fl))]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:412",
          "launches": train_launches["flash_bwd_dkv"],
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
          "ms": bt["dkv"]["kernel"], "plain_ms": bt["dkv"]["plain"], "bound_ms": bt["dkv"]["bound"],
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
-         "shape": "8x16x1024x64 bf16, causal (training step)"},
+         "shape": "8x16x1024x64 bf16, causal (training step)",
+         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float32",
+                       "shape": "8x16x1024x64 float32, causal",
+                       "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
+                           "dk_dv_max_abs_err"],
+                       "ms": bt["dkv"]["fma_f32"]["kernel"],
+                       "plain_ms": bt["dkv"]["fma_f32"]["plain"],
+                       "bound_ms": bt["dkv"]["fma_f32"]["bound"],
+                       "bound_by": bt["dkv"]["fma_f32"]["bound_by"],
+                       "fp32_fma_design_floor": bt["dkv"]["fma_f32"]["fp32_fma_design_floor"],
+                       "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
+                       "library_covers": "dq, dk and dv together"}]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
          "launches": train_launches["flash_bwd_dq"],
@@ -1050,7 +1196,17 @@ def main():
          "ms": bt["dq"]["kernel"], "plain_ms": bt["dq"]["plain"], "bound_ms": bt["dq"]["bound"],
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
-         "shape": "8x16x1024x64 bf16, causal (training step)"},
+         "shape": "8x16x1024x64 bf16, causal (training step)",
+         "variants": [{"dtype": "float32", "shape": "8x16x1024x64 float32, causal",
+                       "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
+                           "dq_max_abs_err"],
+                       "ms": bt["dq"]["fma_f32"]["kernel"],
+                       "plain_ms": bt["dq"]["fma_f32"]["plain"],
+                       "bound_ms": bt["dq"]["fma_f32"]["bound"],
+                       "bound_by": bt["dq"]["fma_f32"]["bound_by"],
+                       "fp32_fma_design_floor": bt["dq"]["fma_f32"]["fp32_fma_design_floor"],
+                       "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
+                       "library_covers": "dq, dk and dv together"}]},
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],
          "max_abs_err": 0.0, "ms": ms_probe, "plain_ms": plain_probe, "bound_ms": b_probe[0],

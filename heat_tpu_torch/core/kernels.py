@@ -7,13 +7,18 @@ Each kernel sits beside a plain PyTorch version of the same function:
 * :func:`kmeans_step` (``csrc/kmeans_step.cu``) for heat_tpu's
   ``kmeans_step_tile`` (``pallas_kernels.py:858``), and
   :func:`kmeans_step_plain`;
-* :func:`flash_attention` (``csrc/flash_fwd.cu``) for heat_tpu's
-  ``flash_attention`` forward (``_flash_impl``, ``pallas_kernels.py:348``),
-  and :func:`flash_attention_plain`;
-* :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` (``csrc/flash_bwd.cu``) for
-  heat_tpu's ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
+* :func:`flash_attention` for heat_tpu's ``flash_attention`` forward
+  (``_flash_impl``, ``pallas_kernels.py:348``), and
+  :func:`flash_attention_plain`: bf16 on the tensor cores
+  (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, float32 accuracy by split-bf16
+  passes), float32 and float16 on fp32 FMA (``csrc/flash_fwd.cu``);
+* :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` for heat_tpu's
+  ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
   (``pallas_kernels.py:412``, ``:488``, launched by ``_flash_bwd_impl``
-  ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`;
+  ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`:
+  dK/dV in bf16 on the tensor cores (``csrc/flash_bwd_dkv_sm90.cu``), in
+  float32 and float16 on fp32 FMA (``csrc/flash_bwd.cu``), dQ on fp32 FMA
+  for every dtype (``csrc/flash_bwd.cu``);
   :func:`flash_attention`'s backward runs both, and
   :func:`flash_attention_bwd_plain` is the whole backward's plain version
   (heat_tpu's dense fallback, ``:668-686``);
@@ -23,7 +28,8 @@ Each kernel sits beside a plain PyTorch version of the same function:
 
 A wrapper takes the plain version only for tensors that lie on the CPU. A
 CUDA tensor launches the kernel, or the call raises: there is no fallback
-and no switch that turns a kernel off. ``launches`` counts each wrapper's
+and no switch that turns a kernel off. Where two kernels serve one function,
+the C entry point picks one by dtype alone, never on a failure. ``launches`` counts each wrapper's
 kernel launches; calling a plain version directly, as the card-side
 comparisons do, launches no kernel and counts nothing.
 """
@@ -51,7 +57,7 @@ _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 
 _KERNEL_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_GRID_Y = 65535
 _CDIST_TILE_N = 64  # output columns per block of the wide cdist tile (n > 8)
-_FLASH_TILE = 64    # query rows per block of the flash kernel
+_FLASH_TILE = 64    # query rows (keys for dK/dV) per block of the FMA flash kernels
 _FLASH_MAX_D = 128
 _NEG_BIG = -1e30    # heat_tpu's masked score (pallas_kernels.py:55)
 
@@ -391,9 +397,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU), so no ``(Sq, Sk)`` matrix is kept between the passes.
 
     On the card the kernels take float32, bfloat16 and float16, contiguous
-    inputs and head dims up to 128; float64 raises (ROADMAP). The card uses
-    its own 64 x 64 tiles and ignores ``block_q``/``block_k``, which stay
-    for heat_tpu's signature: results do not depend on tile sizes.
+    inputs and head dims up to 128; float64 raises (ROADMAP). bfloat16 runs
+    on the tensor cores, float32 and float16 on fp32 FMA, both at float32
+    accuracy. The card uses its own tiles and ignores
+    ``block_q``/``block_k``, which stay for heat_tpu's signature: results do
+    not depend on tile sizes.
     """
     _check_attention(q, k, v)
     if scale is None:

@@ -1,5 +1,8 @@
 // flash_bwd: the flash-attention backward, two kernels that recompute the
-// probabilities from the forward's saved log-sum-exp (lse).
+// probabilities from the forward's saved log-sum-exp (lse). dQ runs here for
+// every dtype; dK/dV runs here for float32 and float16, and
+// heat_flash_bwd_dkv routes bf16, by dtype alone, to the tensor-core kernel
+// of flash_bwd_dkv_sm90.cu.
 //
 // Replaces the TPU kernels launched by heat_tpu/core/pallas_kernels.py:549
 // _flash_bwd_impl:
@@ -35,7 +38,7 @@
 // per partner tile. Neither kernel uses atomics: each output row is written
 // once by the one block that owns it, so runs are bitwise repeatable.
 //
-// Design (simple first; wgmma, TMA and the tensor cores are later work):
+// Design (fp32 FMA on the CUDA cores; dQ's tensor-core redesign is later work):
 // 128 threads, 16 row groups of 8 lanes, 64 x 64 tiles, as the forward.
 //   dK/dV: one block per (batch*head, 64-key tile), the earliest keys (the
 //   most live query tiles under the causal mask) first. K and V stay in
@@ -422,10 +425,16 @@ cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, 
 
 }  // namespace
 
+cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* dmb, void* dk, void* dv,
+                               int64_t bh, int sq, int sk, int d, float scale, int causal,
+                               cudaStream_t s);
+
 // q, dout (bh, sq, d) and k, v (bh, sk, d), contiguous and of one dtype
 // (f32, bf16 or f16); lse and dmb (bh, sq) float32. dk and dv (bh, sk, d) in
 // that dtype. The wrapper guarantees bh >= 1, 1 <= sq, 1 <= sk <= 65535 * 64
-// and 1 <= d <= 128. Returns the launch's cudaError_t.
+// and 1 <= d <= 128. bf16 runs on the tensor cores (flash_bwd_dkv_sm90.cu),
+// f32 and f16 here. Returns the launch's cudaError_t.
 extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* dmb, void* dk, void* dv,
                                   int64_t bh, int sq, int sk, int d, int dtype, float scale,
@@ -435,7 +444,7 @@ extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   const float* m = static_cast<const float*>(dmb);
   switch (dtype) {
     case kF32: return dkv_d<float>(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
-    case kBF16: return dkv_d<__nv_bfloat16>(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
+    case kBF16: return flash_bwd_dkv_sm90(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
     case kF16: return dkv_d<__half>(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }

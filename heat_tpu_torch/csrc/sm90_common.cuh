@@ -1,0 +1,428 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): mbarriers, TMA tensor maps and
+// loads, wgmma descriptors and instructions in raw PTX, the 128-byte swizzled
+// tile layout, and the exact three-way bf16 split of a float32 operand.
+//
+// Tile layout in shared memory: a (ROWS, DP) bf16 tile is DP / 64 column
+// blocks of ROWS rows x 128 bytes, each block 1024-byte aligned, with the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8) of its row: the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads through
+// a 128B-swizzle descriptor. Columns past the head dim are zeros.
+//
+// Precision rule: a product of two bf16 operands takes one tensor-core pass
+// (bf16 x bf16 is exact in fp32, summed in fp32); a product with a float32
+// operand x splits it into x1 = bf16(x), x2 = bf16(x - x1),
+// x3 = bf16(x - x1 - x2), 24 significant bits as float32 has, and takes
+// three passes into one fp32 accumulator, smallest term first.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
+
+#include <atomic>
+
+#include "common.cuh"
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the other threads and to TMA.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA transfer to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads (wgmma) of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// A (64 columns, box rows, 1) box at (col, row, outer) of a 3-D tensor map
+// into shared memory; its bytes count against the barrier's expected
+// transaction (zero-filled parts past the tensor's ends included).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(outer)
+      : "memory");
+}
+
+// ---- register hand-over between warpgroups --------------------------------
+
+// A producer warpgroup gives registers up, the consumer warpgroups take them
+// (all 128 threads of a warpgroup execute it; the roles must never merge).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Descriptor of a 128B-swizzled operand at shared address `addr` (inside a
+// 1024-byte aligned column block): 8-row groups 1024 bytes apart (SBO).
+// K-major operands (K contiguous; a k16 step is +32 bytes of the address)
+// ignore the leading offset; MN-major ones (MN contiguous; a k16 step is +16
+// rows, 2048 bytes) take the stride between their 64-wide column blocks.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lead_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return sw128_desc(addr, 16); }
+
+// Accumulator fragments of m64nN (fp32): register i of a thread holds row
+// 16 * warp + lane / 4 + 8 * ((i / 2) % 2) and column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+// of the warpgroup's 64 x N tile. The A fragment of k16 step kk (4 x b32,
+// bf16 pairs) takes registers 8kk .. 8kk + 7 of that layout in order, so an
+// accumulator becomes an A operand in registers without any exchange.
+__device__ __forceinline__ int acc_col(int i, int lane) { return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1); }
+
+// 2^x on the special-function unit, results below 2^-126 flushed to zero
+// (far below one part in 2^24 of any softmax sum they join).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The exact split of two float32 values into three bf16 pairs (low half
+// the first value): x = t1 + t2 + t3 exactly for normal x down to ~2^-110.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& t1, uint32_t& t2,
+                                       uint32_t& t3) {
+  const __nv_bfloat162 b1 = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(b1), r1 = x1 - __high2float(b1);
+  const __nv_bfloat162 b2 = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 b3 = __floats2bfloat162_rn(r0 - __low2float(b2), r1 - __high2float(b2));
+  t1 = bf16x2_bits(b1);
+  t2 = bf16x2_bits(b2);
+  t3 = bf16x2_bits(b3);
+}
+
+// Stage rows [0, rows) of a row-major (rows, d) bf16 source into a swizzled
+// (ROWS, DP) tile with plain loads, zeros elsewhere: the path for sources
+// TMA cannot address (d * 2 bytes not a multiple of 16, or a base that is
+// not 16-byte aligned). The NT threads numbered `t` share the work; each
+// writes 16-byte chunks.
+template <int ROWS, int DP, int NT>
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const __nv_bfloat16* __restrict__ src,
+                                           int rows, int d, int t) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  for (int e = t; e < ROWS * CPR; e += NT) {
+    const int r = e / CPR, ch = e % CPR;
+    alignas(16) __nv_bfloat16 buf[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = ch * 8 + j;
+      buf[j] = (r < rows && c < d) ? src[static_cast<int64_t>(r) * d + c]
+                                   : __ushort_as_bfloat16(static_cast<unsigned short>(0));
+    }
+    uint8_t* blk = dst + (ch / 8) * ROWS * 128;
+    *reinterpret_cast<uint4*>(blk + r * 128 + (((ch & 7) ^ (r & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(buf);
+  }
+}
+
+// ---- the producer warpgroup's ring ----------------------------------------
+
+// A tensor a producer stages: its TMA map, and for the plain-load path its
+// base and rows per batch*head (a contiguous (BH, rows, d) bf16 tensor).
+struct Src {
+  const CUtensorMap* map;
+  const __nv_bfloat16* ptr;
+  int rows;
+};
+
+// The barriers of a producer/consumer ring of NS stages: `once` for the
+// tiles loaded once, full[s] for stage s loaded, empty[s] for stage s
+// released by lane 0 of each of the 8 consumer warps. With TMA one lane
+// loads (one arrival and the expected bytes), else all 128 producer
+// threads arrive.
+template <int NS>
+struct RingBars {
+  uint64_t once, full[NS], empty[NS];
+
+  __device__ __forceinline__ void init(bool use_tma) {
+    const int loaders = use_tma ? 1 : 128;
+    mbar_init(&once, loaders);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], loaders);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+};
+
+// ROWS rows from row0 of each of the N sources, one (ROWS, DP) tile after
+// another, into dst, completing on bar: by TMA from the calling lane, or by
+// plain loads shared by the producer threads numbered ptid (0..127), each
+// of which then arrives.
+template <int ROWS, int DP, int N>
+__device__ __forceinline__ void load_tiles(uint8_t* dst, const Src (&src)[N], int row0, int bh,
+                                           int d, uint64_t* bar, bool use_tma, int ptid) {
+  constexpr int BYTES = ROWS * DP * 2;
+  if (use_tma) {
+    mbar_arrive_expect_tx(bar, N * BYTES);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int cb = 0; cb < DP / 64; ++cb)
+        tma_load_3d(dst + j * BYTES + cb * ROWS * 128, src[j].map, bar, cb * 64, row0, bh);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      stage_tile<ROWS, DP, 128>(dst + j * BYTES,
+                                src[j].ptr + (static_cast<int64_t>(bh) * src[j].rows + row0) * d,
+                                min(ROWS, src[j].rows - row0), d, ptid);
+    fence_proxy_async();
+    mbar_arrive(bar);
+  }
+}
+
+// The producer warpgroup's work (threads ptid 0..127; with TMA ptid 0
+// alone): ONCE_ROWS rows of the `once` sources from row once_row into
+// once_dst; then for t = 0 .. ntiles - 1, RING_ROWS rows of the `ring`
+// sources from row (tile0 + t) * RING_ROWS into stage t % NS of the ring,
+// as soon as the consumers have released that stage.
+template <int DP, int NS, int ONCE_ROWS, int N1, int RING_ROWS, int N2>
+__device__ __forceinline__ void produce(RingBars<NS>& bars, bool use_tma, int ptid, int bh, int d,
+                                        uint8_t* once_dst, const Src (&once)[N1], int once_row,
+                                        uint8_t* ring, const Src (&srcs)[N2], int tile0,
+                                        int ntiles) {
+  if (use_tma && ptid != 0) return;
+  constexpr int STAGE = N2 * RING_ROWS * DP * 2;
+  load_tiles<ONCE_ROWS, DP>(once_dst, once, once_row, bh, d, &bars.once, use_tma, ptid);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NS;
+    mbar_wait(&bars.empty[s], ((t / NS) & 1) ^ 1);
+    load_tiles<RING_ROWS, DP>(ring + s * STAGE, srcs, (tile0 + t) * RING_ROWS, bh, d,
+                              &bars.full[s], use_tma, ptid);
+  }
+}
+
+// ---- wgmma instructions (m64nNk16, bf16 x bf16 -> fp32) ---------------------
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static constexpr int kRegs = 16;
+  // D (64 x 32, fp32) (+)= A (64 x 16, smem) * B (16 x 32, smem); both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // D (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 32,
+  // smem, MN-major).
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static constexpr int kRegs = 32;
+  // D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem); both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64,
+  // smem, MN-major).
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static constexpr int kRegs = 64;
+  // D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem); both K-major.
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // D (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 128,
+  // smem, MN-major).
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query, so that the library links no libcuda stub.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
+// (the attribute holds for the process): `done` is the kernel's own bit set
+// of the devices done, so a launch pays for the runtime call only once.
+inline cudaError_t raise_smem_limit(const void* kernel, int bytes, std::atomic<uint32_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// Tensor map of a contiguous (outer, rows, d) bf16 tensor read in boxes of
+// 64 columns x box_rows rows x 1, 128-byte swizzled, zeros past every end.
+// TMA needs d % 8 == 0 (16-byte row strides) and a 16-byte aligned base;
+// tma_ok says whether a tensor qualifies.
+inline bool tma_ok(const void* base, int d) {
+  return d % 8 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int64_t outer, int rows, int d,
+                             int box_rows) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_tiled_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace sm90

@@ -339,20 +339,63 @@ def test_smoke_flash_bound_counts_tensor_core_passes():
         4 * 64 * live / 67e12 * 1e3)
 
 
+def test_smoke_flash_bound_f32_is_the_fma_floor_or_the_bytes():
+    # the float32 forward's bound is the card's, not the FMA kernel's design
+    # floor: on the bf16 tensor cores q·kᵀ and P·V, each of two float32
+    # operands split exactly into three bf16 terms, take nine passes of
+    # 2·D FLOPs per live pair (0.156 ms at (8, 16, 1024, 64) causal on an
+    # H100 SXM, under the 0.257 ms FMA floor), unless moving float32 Q, K,
+    # V, O and the lse takes longer
+    cs = _smoke_module()
+    pairs = 8 * 16 * 1024 * 1025 // 2
+    ms, by = cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 3.35e12, 989e12)
+    assert by == "operations"
+    assert ms == pytest.approx(18 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.156 < ms < 0.157
+    assert ms < cs.flash_fma_floor(8, 16, 1024, 1024, 64, True, 67e12)
+    nbytes = 4 * 8 * 16 * 1024 * 64 * 4 + 8 * 16 * 1024 * 4
+    assert cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 1e11, 989e12) == (
+        pytest.approx(nbytes / 1e11 * 1e3), "bytes")
+
+
+def test_smoke_flash_bwd_bounds_f32_count_nine_passes_a_product():
+    # the float32 backward kernels' bounds at the training shape on an H100
+    # SXM: four float32 x float32 products per live pair for dK/dV (0.313
+    # ms) and three for dQ (0.235 ms), nine split-bf16 passes each; bytes as
+    # the bf16 bounds count them, every tensor four bytes an element
+    cs = _smoke_module()
+    pairs = 8 * 16 * 1024 * 1025 // 2
+    (dkv, by_dkv), (dq, by_dq) = cs.flash_bwd_bounds_f32(8, 16, 1024, 1024, 64, True,
+                                                         3.35e12, 989e12)
+    assert by_dkv == by_dq == "operations"
+    assert dkv == pytest.approx(4 * 9 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert dq == pytest.approx(3 * 9 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.312 < dkv < 0.314 and 0.234 < dq < 0.236
+    n = 8 * 16 * 1024 * 64 * 4
+    (b_dkv, _), (b_dq, _) = cs.flash_bwd_bounds_f32(8, 16, 1024, 1024, 64, True, 1e9, 989e12)
+    assert b_dkv == pytest.approx((6 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+    assert b_dq == pytest.approx((5 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+
+
 def _flash_case(card, b, h, sq, sk, d, dtype, seed):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(b, h, s, d, generator=g).to(card, dtype) for s in (sq, sk, sk))
 
 
-# head dims 8 and 16 pad to 32 columns in shared memory, 64 and 128 fill
-# theirs; Sq, Sk ragged against the 64-row tiles, Sq > Sk (empty rows),
-# Sq = 1 (one query), Sk < Sq without causal
+# bf16 runs on the tensor-core kernel (csrc/flash_fwd_sm90.cu), float32 and
+# float16 on the FMA kernel (csrc/flash_fwd.cu). Head dims 8 to 64 pad to 64
+# columns in the tensor-core kernel's shared memory (to 32 or 64 in the FMA
+# kernel's), 128 fills its own; d = 24 has 48-byte rows, which TMA
+# addresses, and d = 20 has 40-byte rows, which it cannot, so those stage
+# through plain loads. Sq, Sk ragged against the tiles, Sq > Sk (empty
+# rows), Sq = 1 (one query), Sk < Sq without causal, and Sk = 4096 with 300
+# queries, which wraps the key ring many times.
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 20, 24, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("sq,sk,causal", [
     (77, 130, True), (77, 130, False), (150, 70, True), (1, 200, True), (64, 64, True),
-    (100, 37, False)])
+    (100, 37, False), (300, 4096, True), (300, 4096, False)])
 def test_flash_kernel_matches_plain_on_card(card, d, dtype, sq, sk, causal):
     cs = _smoke_module()
     q, k, v = _flash_case(card, 2, 3, sq, sk, d, dtype, seed=d + sq)
@@ -475,17 +518,19 @@ def test_smoke_bf16_training_rules():
     assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
 
 
-# head dims 8 and 16 pad to 32 columns in shared memory, 64 and 128 fill
-# theirs; lengths ragged against the 64-row tiles; Sq > Sk (empty rows: with
-# 300 vs 100 whole query tiles are skipped, and their NaN dmb reaches dK);
-# Sq < Sk; Sq = 1; non-causal with Sk < Sq; every case with a nonzero lse
-# cotangent
+# dK/dV in bf16 runs on the tensor-core kernel (csrc/flash_bwd_dkv_sm90.cu),
+# in float32 and float16 on the FMA kernel, dQ on the FMA kernel for all.
+# Head dims as in the forward's test (d = 20 stages through plain loads);
+# lengths ragged against the tiles; Sq > Sk (empty rows: with 300 vs 100
+# whole query tiles are skipped, and their NaN dmb reaches dK); Sq < Sk;
+# Sq = 1; non-causal with Sk < Sq; 300 queries against 4096 keys, causal and
+# not; every case with a nonzero lse cotangent
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("d", [8, 16, 20, 24, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("sq,sk,causal", [
     (77, 130, True), (77, 130, False), (150, 70, True), (300, 100, True), (1, 200, True),
-    (64, 64, True), (100, 37, False)])
+    (64, 64, True), (100, 37, False), (300, 4096, True), (300, 4096, False)])
 def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
     cs = _smoke_module()
     q, k, v = _flash_case(card, 2, 3, sq, sk, d, dtype, seed=d + sq + 1)
@@ -508,3 +553,68 @@ def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
     if causal and sq > sk:
         assert bool(torch.isnan(dq[:, :, :sq - sk]).all()) and bool(torch.isnan(dk).all())
         assert not bool(torch.isnan(dv).any())
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype_on_card(card):
+    # bf16 reaches the tensor-core kernels and nothing else; float32 and
+    # float16 the FMA kernels; dQ runs the FMA kernel for every dtype
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        q, k, v = _flash_case(card, 1, 2, 130, 130, 64, dtype, seed=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+            dmb = tk._dmb(out, q, None)
+            tk.flash_bwd_dkv(q, k, v, q, lse, dmb, causal=True)
+            tk.flash_bwd_dq(q, k, v, q, lse, dmb, causal=True)
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events())
+        sm90 = dtype == torch.bfloat16
+        assert ("flash_fwd_sm90_kernel" in names) == sm90, names
+        assert ("flash_fwd_kernel" in names) == (not sm90), names
+        assert ("flash_bwd_dkv_sm90_kernel" in names) == sm90, names
+        assert ("flash_bwd_dkv_kernel" in names) == (not sm90), names
+        assert "flash_bwd_dq_kernel" in names, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dkv_bitwise_repeatable_on_card(card, causal):
+    # one block owns each key tile and writes it once: no atomics, so dK and
+    # dV repeat bitwise, here over a query stream that wraps the ring ~50 times
+    q, k, v = _flash_case(card, 2, 4, 1600, 4096, 64, torch.bfloat16, seed=4)
+    out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(card, q.dtype)
+    dmb = tk._dmb(out, dout, None)
+    first = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+    for _ in range(3):
+        again = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    again = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.cuda
+def test_flash_refused_launch_raises_on_card(card):
+    # a launch the C side refuses (here a head dim past 128, which the
+    # wrappers never pass on) returns its CUDA error, and the wrappers'
+    # error path raises it instead of running anything else
+    from heat_tpu_torch.core._build import library
+
+    lib = library()
+    q = torch.zeros(1, 1, 8, 136, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.heat_flash_fwd(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                             lse.data_ptr(), 1, 8, 8, 136, 2, 0.1, 1, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="flash_attention launch failed: CUDA error"):
+        tk._raise_on(err, lib, "flash_attention")
+    err = lib.heat_flash_bwd_dkv(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                 lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                 1, 8, 8, 136, 2, 0.1, 1, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="flash_bwd_dkv launch failed: CUDA error"):
+        tk._raise_on(err, lib, "flash_bwd_dkv")
+    torch.cuda.synchronize()

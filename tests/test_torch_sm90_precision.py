@@ -1,0 +1,233 @@
+"""The precision rule of the bf16 tensor-core flash kernels, on the CPU.
+
+``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu`` run every
+product on bf16 tensor cores with float32 accumulation: a product of two
+bf16 operands takes one pass (the products are exact in float32), and a
+product with a float32 operand (the probabilities P, the score cotangents
+dS) splits that operand exactly into three bf16 terms and takes three
+passes into one float32 accumulator, smallest term first. The card cannot
+be reached from here, so this file emulates that arithmetic in plain
+PyTorch (the kernels' 64-key online softmax in the log2 domain for the
+forward, the recomputed P^T and dS^T for dK/dV) and holds the emulation,
+with ``chip_smoke.check_flash`` and ``check_flash_bwd`` and their limits as
+they stand, against the port's plain versions, and against heat_tpu's
+Pallas kernels run in interpret mode as heat_tpu's own tests run them.
+The same check refuses a single bf16 pass of P, which shows that it guards
+the rule.
+"""
+
+import importlib.util
+import math
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from heat_tpu.core import pallas_kernels as pk  # noqa: E402
+
+from heat_tpu_torch.core import kernels as tk  # noqa: E402
+
+BF16_STEP = 2.0 ** -7
+LOG2E = 1.4426950408889634
+BK = 64  # keys per tile of the forward kernel
+NEG_BIG = -1e30
+
+
+def _smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def split3(x):
+    """The kernels' split of a float32 tensor into three bf16 terms (as
+    float32): x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2)."""
+    x1 = x.bfloat16().float()
+    r = x - x1
+    x2 = r.bfloat16().float()
+    return x1, x2, (r - x2).bfloat16().float()
+
+
+def _split_product(a, b, passes):
+    """a @ b with the float32 ``a`` split into bf16 terms and ``b`` bf16:
+    three passes, smallest term first, or one pass of bf16(a)."""
+    if passes == 1:
+        return a.bfloat16().float() @ b
+    x1, x2, x3 = split3(a)
+    return x3 @ b + x2 @ b + x1 @ b
+
+
+def emulate_fwd(q, k, v, causal, passes=3):
+    """The forward kernel's arithmetic on (B, H, S, D) bf16 tensors: S = Q Kᵀ
+    from bf16 operands in float32, times scale·log2(e); per 64-key tile the
+    running max and sum in the log2 domain, masked scores at -1e30 with
+    their probabilities zeroed, the output rescaled and P·V added in
+    ``passes`` bf16 passes of P; out in bf16, lse in float32."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale_log2 = np.float32(1.0 / math.sqrt(D) * LOG2E)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), NEG_BIG)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, BK):
+        cols = torch.arange(k0, min(k0 + BK, Sk))[None, :]
+        s2 = (qf @ kf[:, :, k0:k0 + BK].transpose(-1, -2)) * float(scale_log2)
+        ok = (cols <= rows + (Sk - Sq)) if causal else torch.ones_like(cols <= rows)
+        s2 = torch.where(ok, s2, torch.full((), NEG_BIG))
+        m_new = torch.maximum(m, s2.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s2 - m_new), torch.zeros(()))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _split_product(p, vf[:, :, k0:k0 + BK], passes)
+        m = m_new
+    empty = l == 0
+    out = torch.where(empty, torch.full((), float("nan")), o / torch.where(empty, 1.0, l))
+    lse = torch.where(empty, torch.full((), float("-inf")),
+                      m * math.log(2.0) + torch.log(torch.where(empty, 1.0, l)))
+    return out.to(q.dtype), lse[..., 0]
+
+
+def emulate_dkv(q, k, v, dout, lse, dmb, causal, passes=3):
+    """The dK/dV kernel's arithmetic: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ from bf16
+    operands, Pᵀ = exp2(scale·log2(e)·Sᵀ − lse·log2(e)) (one fused
+    multiply-add) where the pair is
+    visible and the lse finite, dSᵀ = Pᵀ ∘ (dPᵀ + dmb), then dV = Pᵀ dO and
+    dK = scale · dSᵀ Q with Pᵀ and dSᵀ split into bf16 terms."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of = q.float(), k.float(), v.float(), dout.float()
+    st = kf @ qf.transpose(-1, -2)
+    dpt = vf @ of.transpose(-1, -2)
+    ls = (lse * np.float32(LOG2E))[..., None, :]
+    ok = torch.isfinite(ls)
+    if causal:
+        keys = torch.arange(Sk)[:, None]
+        ok = ok & (keys <= torch.arange(Sq)[None, :] + (Sk - Sq))
+    # one rounding of s·c − lse, as the kernel's fused multiply-add (exact in
+    # float64: s·c has at most 48 significant bits)
+    c = float(np.float32(scale * LOG2E))
+    arg = (st.double() * c - ls.double()).float()
+    pt = torch.where(ok, torch.exp2(arg), torch.zeros(()))
+    dst = pt * (dpt + dmb[..., None, :])
+    dv = _split_product(pt, of, passes)
+    dk = _split_product(dst, qf, passes) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _case(b, h, sq, sk, d, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (rng.standard_normal((b, h, s, d)).astype(np.float32) for s in (sq, sk, sk, sq))
+    dlse = rng.standard_normal((b, h, sq)).astype(np.float32)
+    return q, k, v, dout, dlse
+
+
+# causal ragged against the 64-key tiles, causal Sq > Sk (the first 20 rows
+# see no key), non-causal
+CASES = [(1, 2, 77, 130, 64, True), (1, 2, 150, 130, 32, True), (1, 2, 96, 70, 64, False)]
+
+
+def test_split3_is_exact():
+    rng = np.random.default_rng(0)
+    e = rng.uniform(-100, 0, 200_000)
+    x = torch.from_numpy((2.0 ** e * rng.uniform(1, 2, e.size)).clip(2.0 ** -100, 1.0)
+                         .astype(np.float32))
+    x = torch.cat([x, torch.tensor([1.0, 2.0 ** -100, 1 - 2.0 ** -24, 0.333333343267])])
+    x1, x2, x3 = split3(x)
+    assert torch.equal(x1.double() + x2.double() + x3.double(), x.double())
+    # each term holds 8 significant bits: x1 alone is not exact
+    assert not torch.equal(x1, x)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", CASES)
+def test_sm90_forward_arithmetic_passes_check_flash(b, h, sq, sk, d, causal):
+    cs = _smoke()
+    q, k, v, _, _ = (torch.from_numpy(a).bfloat16() for a in _case(b, h, sq, sk, d, seed=sq))
+    got = emulate_fwd(q, k, v, causal)
+    assert cs.check_flash(torch, tk, q, k, v, causal, out_step=BF16_STEP, got=got)[1] <= 1.0
+    if causal and sq > sk:
+        assert bool(torch.isnan(got[0][:, :, :sq - sk]).all())
+        assert bool(torch.isneginf(got[1][:, :, :sq - sk]).all())
+    # against heat_tpu's Pallas forward (interpret mode on the CPU), with
+    # check_flash's rule: both round a float32 result to bf16 once
+    jo, jl = pk.flash_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+                                causal=causal, return_lse=True)
+    jo = torch.from_numpy(np.array(jo.astype(jnp.float32)))
+    jl = torch.from_numpy(np.array(jl))
+    assert cs.check_flash(torch, tk, q, k, v, causal, out_step=BF16_STEP,
+                          got=(jo.bfloat16(), jl))[1] <= 1.0
+    nan = torch.isnan(jo)
+    assert torch.equal(torch.isnan(got[0]), nan)
+    vmax = float(v.float().abs().max())
+    err = (got[0].float() - jo).abs()[~nan]
+    lim = (1e-5 * vmax + (2e-5 + 2 * BF16_STEP) * jo.abs())[~nan]
+    assert bool((err <= lim).all()), float((err / lim).max())
+    fin = torch.isfinite(jl)
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    assert bool(((got[1] - jl).abs()[fin] <= 2e-5 * (1 + jl.abs()[fin])).all())
+
+
+def test_check_flash_refuses_one_bf16_pass_of_p():
+    cs = _smoke()
+    q, k, v, _, _ = (torch.from_numpy(a).bfloat16() for a in _case(1, 2, 77, 130, 64, seed=77))
+    assert cs.check_flash(torch, tk, q, k, v, True, out_step=BF16_STEP,
+                          got=emulate_fwd(q, k, v, True, passes=3))[1] <= 1.0
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        cs.check_flash(torch, tk, q, k, v, True, out_step=BF16_STEP,
+                       got=emulate_fwd(q, k, v, True, passes=1))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", CASES)
+def test_sm90_dkv_arithmetic_passes_check_flash_bwd(b, h, sq, sk, d, causal):
+    cs = _smoke()
+    qn, kn, vn, don, dlse = _case(b, h, sq, sk, d, seed=sq + 1)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn, don))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    dmb = tk._dmb(out, dout, torch.from_numpy(dlse))
+    dk, dv = emulate_dkv(q, k, v, dout, lse, dmb, causal)
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=BF16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values())
+    if causal and sq > sk:
+        assert bool(torch.isnan(dk).all()) and not bool(torch.isnan(dv).any())
+    # against heat_tpu's Pallas dK/dV (interpret mode) on the same forward
+    # outputs, within one bf16 rounding of each and 1e-5 of the largest
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (qn, kn, vn, don))
+    jo, jl = pk.flash_attention(jq, jk, jv, causal=causal, return_lse=True)
+    _, wk, wv = pk._flash_bwd_impl(jq, jk, jv, jo, jl, jdo, jnp.asarray(dlse),
+                                   1.0 / math.sqrt(d), causal, 128, 128)
+    o32 = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
+    lse_j = torch.from_numpy(np.array(jl))
+    dk, dv = emulate_dkv(q, k, v, dout, lse_j, tk._dmb(o32, dout, torch.from_numpy(dlse)), causal)
+    # (where Sq > Sk, Pallas leaves the NaN of the empty rows' dmb out of a
+    # key block whose query tiles it skips; the port follows heat_tpu's dense
+    # backward, which spreads it to every dK, so Pallas's NaN are a subset)
+    for g, w in ((dk, wk), (dv, wv)):
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        nan = np.isnan(g)
+        assert not (np.isnan(w) & ~nan).any()
+        if nan.all():
+            continue
+        lim = 2 * BF16_STEP * np.abs(w) + 1e-5 * np.abs(w[~nan]).max()
+        assert (np.abs(g - w)[~nan] <= lim[~nan]).all(), float((np.abs(g - w) / lim)[~nan].max())
+
+
+def test_check_flash_bwd_refuses_one_bf16_pass():
+    cs = _smoke()
+    qn, kn, vn, don, dlse = _case(1, 2, 77, 130, 64, seed=5)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn, don))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    dmb = tk._dmb(out, dout, torch.from_numpy(dlse))
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=True)
+    dk, dv = emulate_dkv(q, k, v, dout, lse, dmb, True, passes=1)
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=BF16_STEP,
+                           got=(dq, dk, dv))
