@@ -11,7 +11,10 @@ Phases, one JSON line each:
    bf16 GEMM switches (the port never turns TF32 on).
 2. build: ``nvcc`` builds every kernel from ``heat_tpu_torch/csrc``; the
    library runs the probe kernel once as it loads.
-3. probe: one launch of the probe kernel, held bitwise against ``x + 1``.
+3. probe: one launch of the probe kernel, held bitwise against ``x + 1``;
+   then where the host time of a wrapper call goes (``host_breakdown``: the
+   probe and the flash forward at the prefill shape, whole and step by
+   step, µs per call over 1,000 calls).
 4. kernels: each CUDA kernel against its plain PyTorch version at the main
    paths' shapes, with its time (CUDA events around 10 back-to-back calls,
    median of 10 such samples), the plain
@@ -46,10 +49,11 @@ Phases, one JSON line each:
 
 Phase 4 holds the flash forward (bf16 on the tensor cores,
 ``csrc/flash_fwd_sm90.cu``; float32 on fp32 FMA, ``csrc/flash_fwd.cu``)
-and the flash backward kernels (dK/dV, bf16 ``csrc/flash_bwd_dkv_sm90.cu``
-and float32 ``csrc/flash_bwd.cu``; dQ, ``csrc/flash_bwd.cu``) against their
-plain versions (``check_flash``, ``check_flash_bwd``) at the serving and
-training paths' shapes in both dtypes, at ragged lengths, empty rows and
+and the flash backward kernels (bf16 on the tensor cores,
+``csrc/flash_bwd_dkv_sm90.cu`` and ``csrc/flash_bwd_dq_sm90.cu``; float32
+on fp32 FMA, ``csrc/flash_bwd.cu``) against their plain versions
+(``check_flash``, ``check_flash_bwd``) at the serving and training paths'
+shapes in both dtypes, at ragged lengths, empty rows and
 300 queries against 4096 keys, with their times, bounds, the FMA kernels'
 float32 times, SDPA's, the aten flash backward's (bf16) and the aten
 memory-efficient backward's (float32). At the prefill shape the forward's
@@ -134,6 +138,99 @@ def time_ms(torch, fn, reps=10, inner=10):
         end.synchronize()
         out.append(start.elapsed_time(end) / inner)
     return statistics.median(out)
+
+
+def host_us(torch, fn, n=1000, chunk=100):
+    """Host µs per call of ``fn`` over ``n`` calls, by ``time.perf_counter_ns``
+    around chunks of ``chunk`` back-to-back calls, the card drained before
+    each chunk (not timed), so queued launches never fill the launch queue
+    and stall the host: the figure is the host's own cost of a call."""
+    fn()
+    total = 0
+    for _ in range(n // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / n / 1e3
+
+
+def host_breakdown(torch, tk, lib, dev, gen):
+    """Where a wrapper's host time goes, in µs per call over 1,000 calls
+    (:func:`host_us`): the probe at (8, 128) float32 and the flash forward at
+    the prefill shape (1, 16, 1024, 64) bf16 causal under ``torch.no_grad``,
+    whole and step by step: the checks, the output allocation, the ctypes
+    call with the C side's work inside it (the device check, and for the
+    flash forward three tensor-map encodes), the shared launch path
+    (``kernels._launch``: library, raw stream, ctypes call, count), and for
+    the flash forward the launch with and without ``autograd.Function.apply``
+    around it; beside the probe, ``torch.add`` whole, its library yardstick.
+    Then the steps that the launch path before this design paid
+    on every call, alone: the stream lookup as a ``Stream`` object (against
+    the raw handle), a ``torch.cuda.device`` guard entered and left, the
+    library lock taken and released (against the lock-free lookup)."""
+    from heat_tpu_torch.core import _build
+
+    H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    x = torch.randn(8, 128, device=dev, generator=gen)
+    q, k, v = (torch.randn(1, H, 1024, DH, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    scale, idx = 1.0 / math.sqrt(DH), dev.index
+    out_p, out = torch.empty_like(x), torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    flash_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), H,
+                  1024, 1024, DH, 2, scale, 1)
+
+    def probe_checks():
+        return (x.dtype != torch.float32, x.is_cpu, tk._on_card(x), x.numel(),
+                x.is_contiguous())
+
+    def flash_checks():
+        tk._check_attention(q, k, v)
+        tk._on_cpu(q, k, v)
+        tk._check_card_attention(q, k, v)
+
+    def device_guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def library_lock():
+        with _build._lock:
+            pass
+
+    res = {"probe_8x128_f32": {
+        "wrapper": host_us(torch, lambda: tk.probe(x)),
+        "checks": host_us(torch, probe_checks),
+        "alloc": host_us(torch, lambda: torch.empty_like(x)),
+        "ctypes_call": host_us(torch, lambda: lib.heat_probe(
+            x.data_ptr(), out_p.data_ptr(), x.numel(), idx, stream)),
+        "launch_path": host_us(torch, lambda: tk._launch(
+            "probe", idx, x.data_ptr(), out_p.data_ptr(), x.numel())),
+        "torch.add_whole": host_us(torch, lambda: torch.add(x, 1.0))}}
+    with torch.no_grad():
+        res["flash_attention_1x16x1024x64_bf16_causal_no_grad"] = {
+            "wrapper": host_us(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
+            "checks": host_us(torch, flash_checks),
+            "alloc": host_us(torch, lambda: (torch.empty_like(q), q.new_empty(
+                q.shape[:3], dtype=torch.float32))),
+            "ctypes_call": host_us(torch, lambda: lib.heat_flash_attention(
+                *flash_args, idx, stream)),
+            "launch_path": host_us(torch, lambda: tk._launch("flash_attention", idx,
+                                                             *flash_args)),
+            "launch_without_autograd": host_us(
+                torch, lambda: tk._flash_launch(q, k, v, scale, True, idx)),
+            "autograd_apply_with_launch": host_us(
+                torch, lambda: tk._FlashAttention.apply(q, k, v, scale, True))}
+    res["former_launch_path_steps"] = {
+        "stream_object": host_us(torch, lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream": host_us(torch, lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        "device_guard": host_us(torch, device_guard),
+        "library_lock": host_us(torch, library_lock),
+        "library_lookup": host_us(torch, _build.library)}
+    return res
 
 
 def bound(nbytes, ops, bw, rate):
@@ -635,16 +732,17 @@ def serving_path(torch, ht, tk, dev, smi):
 
 BWD_PATH_CASE = "train_8x16x1024x64_bf16_causal"
 # kernel kinds of a training step, by parts of their names
-TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_attention_bwd": ("flash_bwd",),
+TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
+               "flash_bwd_dkv": ("flash_bwd_dkv",),
                "gemm": ("nvjet", "gemm", "xmma", "cutlass", "gemv"),
                "log_softmax": ("softmax",), "adam": ("adam",)}
 
 
 def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     """Phase 4, the flash backward: both kernels against their plain
-    versions (``check_flash_bwd``), dK/dV in bf16 on the tensor cores
-    (csrc/flash_bwd_dkv_sm90.cu) and in float32 on the fp32-FMA kernel
-    (csrc/flash_bwd.cu), dQ on the FMA kernel for both: at the training
+    versions (``check_flash_bwd``), in bf16 on the tensor cores
+    (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu) and in float32
+    on the fp32-FMA kernels (csrc/flash_bwd.cu): at the training
     path's shape (causal, no lse cotangent) in bf16 and float32, at lengths
     that are no multiple of any tile with Sq < Sk, causal and a nonzero lse
     cotangent, without the causal mask, and (bf16) at Sk = 4096 with 300
@@ -745,7 +843,8 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     torch.cuda.empty_cache()
     res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
            "routes": {"dkv bfloat16": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu (wgmma, TMA)",
-                      "dkv float32, float16; dq": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
+                      "dq bfloat16": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu (wgmma, TMA)",
+                      "float32, float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
            "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
                    "NaN at the same places (check_flash_bwd)"}
     emit(res)
@@ -906,8 +1005,10 @@ def main():
     plain_probe = time_ms(torch, lambda: tk.probe_plain(xp))
     lib_probe = time_ms(torch, lambda: torch.add(xp, 1.0))
     b_probe = bound(2 * xp.numel() * 4, xp.numel(), bw, f32)
+    host = host_breakdown(torch, tk, _build.library(), dev, gen)
     emit({"phase": "probe", "card": smi, "bitwise_equal": True, "ms": ms_probe,
           "plain_ms": plain_probe, "torch.add_ms": lib_probe, "bound_ms": b_probe[0]})
+    emit({"phase": "host_breakdown", "card": smi, "host_us_per_call": host})
 
     # 4. kernels against their plain versions, at the main paths' shapes - #
     x = torch.rand(N_POINTS, N_FEATURES, device=dev, generator=gen)
@@ -1189,7 +1290,8 @@ def main():
                        "fp32_fma_design_floor": bt["dkv"]["fma_f32"]["fp32_fma_design_floor"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_bwd.cu",
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
          "launches": train_launches["flash_bwd_dq"],
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
@@ -1197,7 +1299,8 @@ def main():
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
          "shape": "8x16x1024x64 bf16, causal (training step)",
-         "variants": [{"dtype": "float32", "shape": "8x16x1024x64 float32, causal",
+         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float32",
+                       "shape": "8x16x1024x64 float32, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
                            "dq_max_abs_err"],
                        "ms": bt["dq"]["fma_f32"]["kernel"],
@@ -1210,7 +1313,9 @@ def main():
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],
          "max_abs_err": 0.0, "ms": ms_probe, "plain_ms": plain_probe, "bound_ms": b_probe[0],
-         "bound_by": b_probe[1], "library_ms": lib_probe, "shape": "8x128 f32"}]})
+         "bound_by": b_probe[1], "library_ms": lib_probe, "shape": "8x128 f32",
+         "host_ms": host["probe_8x128_f32"]["wrapper"] / 1e3,
+         "host_us_per_call": host["probe_8x128_f32"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -30,8 +30,9 @@ _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_lock = threading.RLock()  # the load-time probe re-enters library()
-_lib: Optional[ctypes.CDLL] = None
+_lock = threading.RLock()  # the first load only; the load-time probe re-enters library()
+_lib: Optional[ctypes.CDLL] = None  # the loaded, probed library, read without the lock
+_loading: Optional[ctypes.CDLL] = None  # the library while its load-time probe runs
 _info: dict = {}
 
 
@@ -80,32 +81,36 @@ def _compile(so: Path, sources) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.heat_cdist_tile.argtypes = [p, p, p, i64, i64, i64, i, i, i, p]
-    lib.heat_cdist_tile.restype = i
-    lib.heat_kmeans_step.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, i, p]
-    lib.heat_kmeans_step.restype = i
-    lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
-    lib.heat_kmeans_step_plan.restype = i
-    lib.heat_flash_fwd.argtypes = [p, p, p, p, p, i64, i, i, i, i, ctypes.c_float, i, p]
-    lib.heat_flash_fwd.restype = i
-    lib.heat_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, i, i, ctypes.c_float,
-                                       i, p]
-    lib.heat_flash_bwd_dkv.restype = i
-    lib.heat_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, i, ctypes.c_float, i, p]
-    lib.heat_flash_bwd_dq.restype = i
-    lib.heat_probe.argtypes = [p, p, i64, p]
-    lib.heat_probe.restype = i
+    # every launching entry point ends in (int device, void* stream)
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.heat_cdist_tile.argtypes = [p, p, p, i64, i64, i64, i, i, i, i, p]
+    lib.heat_kmeans_step.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, i, i, p]
+    lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), i]
+    lib.heat_flash_attention.argtypes = [p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
+    lib.heat_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
+    lib.heat_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
+    lib.heat_probe.argtypes = [p, p, i64, i, p]
+    for fn in (lib.heat_cdist_tile, lib.heat_kmeans_step, lib.heat_kmeans_step_plan,
+               lib.heat_flash_attention, lib.heat_flash_bwd_dkv, lib.heat_flash_bwd_dq,
+               lib.heat_probe):
+        fn.restype = i
     lib.heat_cuda_error_string.argtypes = [i]
     lib.heat_cuda_error_string.restype = ctypes.c_char_p
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built from ``csrc/`` on first call."""
-    global _lib
+    """The kernels' shared library, built from ``csrc/`` on first call. Once
+    it is loaded and its probe has passed, a call reads the module global and
+    takes no lock."""
+    global _lib, _loading
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is not None:
             return _lib
+        if _loading is not None:  # the load-time probe's own launch
+            return _loading
         start = time.perf_counter()
         sources = sorted(_CSRC.glob("*.cu"))
         h = hashlib.sha256(" ".join(_FLAGS).encode())
@@ -120,12 +125,12 @@ def library() -> ctypes.CDLL:
             log_file.read_text() if log_file.exists() else "")
         lib = ctypes.CDLL(str(so))
         _declare(lib)
-        _lib = lib
+        _loading = lib
         try:
             _probe_card()
-        except BaseException:
-            _lib = None
-            raise
+        finally:
+            _loading = None
+        _lib = lib
         _info.update(path=str(so), built=built, seconds=time.perf_counter() - start,
                      log=log)
         return lib

@@ -150,12 +150,14 @@ cudaError_t launch_out(const void* x, const void* y, void* out, int64_t m, int64
 
 }  // namespace
 
-// Inputs x (m, d) and y (n, d) are contiguous and of one dtype; f64 inputs
-// take an f64 output and f64 accumulation, every other pair accumulates in
-// f32. Returns the launch's cudaError_t.
+// Inputs x (m, d) and y (n, d) are contiguous and of one dtype, on card
+// `device`; f64 inputs take an f64 output and f64 accumulation, every other
+// pair accumulates in f32. Returns the launch's cudaError_t.
 extern "C" int heat_cdist_tile(const void* x, const void* y, void* out, int64_t m,
                                int64_t n, int64_t d, int in_dtype, int out_dtype,
-                               int do_sqrt, void* stream) {
+                               int do_sqrt, int device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype) {
     case kF64:

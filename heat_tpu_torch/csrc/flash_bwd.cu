@@ -1,8 +1,8 @@
 // flash_bwd: the flash-attention backward, two kernels that recompute the
-// probabilities from the forward's saved log-sum-exp (lse). dQ runs here for
-// every dtype; dK/dV runs here for float32 and float16, and
-// heat_flash_bwd_dkv routes bf16, by dtype alone, to the tensor-core kernel
-// of flash_bwd_dkv_sm90.cu.
+// probabilities from the forward's saved log-sum-exp (lse). Both run here
+// for float32 and float16; heat_flash_bwd_dkv and heat_flash_bwd_dq route
+// bf16, by dtype alone, to the tensor-core kernels of flash_bwd_dkv_sm90.cu
+// and flash_bwd_dq_sm90.cu.
 //
 // Replaces the TPU kernels launched by heat_tpu/core/pallas_kernels.py:549
 // _flash_bwd_impl:
@@ -38,7 +38,7 @@
 // per partner tile. Neither kernel uses atomics: each output row is written
 // once by the one block that owns it, so runs are bitwise repeatable.
 //
-// Design (fp32 FMA on the CUDA cores; dQ's tensor-core redesign is later work):
+// Design (fp32 FMA on the CUDA cores):
 // 128 threads, 16 row groups of 8 lanes, 64 x 64 tiles, as the forward.
 //   dK/dV: one block per (batch*head, 64-key tile), the earliest keys (the
 //   most live query tiles under the causal mask) first. K and V stay in
@@ -372,10 +372,10 @@ template <typename T, int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* dmb, void* dk, void* dv, int64_t bh,
                        int sq, int sk, int d, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int smem = static_cast<int>(dkv_smem_bytes<DP>());
+  static std::atomic<uint32_t> smem_raised{0};
+  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dkv_kernel<T, DP>),
+                                     smem, smem_raised);
   if (err != cudaSuccess) return err;
   const int vec = d == DP && aligned16(q, k, v, dout);
   dim3 grid(static_cast<unsigned>(bh), (sk + BK - 1) / BK);
@@ -390,10 +390,10 @@ template <typename T, int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* dmb, void* dq, int64_t bh, int sq, int sk,
                       int d, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int smem = static_cast<int>(dq_smem_bytes<DP>());
+  static std::atomic<uint32_t> smem_raised{0};
+  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, DP>),
+                                     smem, smem_raised);
   if (err != cudaSuccess) return err;
   const int vec = d == DP && aligned16(q, k, v, dout);
   dim3 grid(static_cast<unsigned>(bh), (sq + BQ - 1) / BQ);
@@ -429,16 +429,21 @@ cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, cons
                                const float* lse, const float* dmb, void* dk, void* dv,
                                int64_t bh, int sq, int sk, int d, float scale, int causal,
                                cudaStream_t s);
+cudaError_t flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                              const float* lse, const float* dmb, void* dq, int64_t bh, int sq,
+                              int sk, int d, float scale, int causal, cudaStream_t s);
 
 // q, dout (bh, sq, d) and k, v (bh, sk, d), contiguous and of one dtype
-// (f32, bf16 or f16); lse and dmb (bh, sq) float32. dk and dv (bh, sk, d) in
-// that dtype. The wrapper guarantees bh >= 1, 1 <= sq, 1 <= sk <= 65535 * 64
-// and 1 <= d <= 128. bf16 runs on the tensor cores (flash_bwd_dkv_sm90.cu),
+// (f32, bf16 or f16) on card `device`; lse and dmb (bh, sq) float32. dk and
+// dv (bh, sk, d) in that dtype. The wrapper guarantees bh >= 1, 1 <= sq,
+// 1 <= sk <= 65535 * 64 and 1 <= d <= 128. bf16 runs on the tensor cores (flash_bwd_dkv_sm90.cu),
 // f32 and f16 here. Returns the launch's cudaError_t.
 extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* dmb, void* dk, void* dv,
                                   int64_t bh, int sq, int sk, int d, int dtype, float scale,
-                                  int causal, void* stream) {
+                                  int causal, int device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* m = static_cast<const float*>(dmb);
@@ -451,16 +456,20 @@ extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, c
 }
 
 // The same inputs; dq (bh, sq, d) in their dtype. The wrapper guarantees
-// bh >= 1, 1 <= sq <= 65535 * 64, 1 <= sk and 1 <= d <= 128.
+// bh >= 1, 1 <= sq <= 65535 * 64, 1 <= sk and 1 <= d <= 128. bf16 runs on
+// the tensor cores (flash_bwd_dq_sm90.cu), f32 and f16 here.
 extern "C" int heat_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* dmb, void* dq, int64_t bh, int sq,
-                                 int sk, int d, int dtype, float scale, int causal, void* stream) {
+                                 int sk, int d, int dtype, float scale, int causal, int device,
+                                 void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* m = static_cast<const float*>(dmb);
   switch (dtype) {
     case kF32: return dq_d<float>(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
-    case kBF16: return dq_d<__nv_bfloat16>(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
+    case kBF16: return flash_bwd_dq_sm90(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
     case kF16: return dq_d<__half>(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }

@@ -190,10 +190,10 @@ template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int64_t bh, int sq, int sk, int d, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int smem = static_cast<int>(smem_bytes<DP>());
+  static std::atomic<uint32_t> smem_raised{0};
+  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_kernel<T, DP>),
+                                     smem, smem_raised);
   if (err != cudaSuccess) return err;
   const int vec = d == DP && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -222,13 +222,15 @@ cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v, void* ou
                            cudaStream_t s);
 
 // q (bh, sq, d), k and v (bh, sk, d), contiguous and of one dtype (f32, bf16
-// or f16); out (bh, sq, d) in that dtype and lse (bh, sq) float32. The
-// wrapper guarantees bh >= 1, 1 <= sq <= 65535 * 64 and 1 <= d <= 128.
-// bf16 runs on the tensor cores (flash_fwd_sm90.cu), f32 and f16 here.
-// Returns the launch's cudaError_t.
-extern "C" int heat_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                              void* lse, int64_t bh, int sq, int sk, int d, int dtype,
-                              float scale, int causal, void* stream) {
+// or f16) on card `device`; out (bh, sq, d) in that dtype and lse (bh, sq)
+// float32. The wrapper guarantees bh >= 1, 1 <= sq <= 65535 * 64 and
+// 1 <= d <= 128. bf16 runs on the tensor cores (flash_fwd_sm90.cu), f32 and
+// f16 here. Returns the launch's cudaError_t.
+extern "C" int heat_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int64_t bh, int sq, int sk, int d, int dtype,
+                                    float scale, int causal, int device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (dtype) {

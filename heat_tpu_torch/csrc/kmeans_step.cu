@@ -293,16 +293,18 @@ cudaError_t occupancy(int k, size_t smem, int* per_sm) {
 }  // namespace
 
 // Pick the tile rows (the largest of 128..8 whose shared memory fits a block)
-// and the grid (blocks resident on the card at once, at most one per tile).
-// Returns -1 when not even 8 rows fit next to k*d centroids and partial sums.
+// and the grid (blocks resident on card `device` at once, at most one per
+// tile). Returns -1 when not even 8 rows fit next to k*d centroids and
+// partial sums.
 extern "C" int heat_kmeans_step_plan(int64_t n, int d, int k, int dtype, int* tile_rows,
-                                     int* grid) {
-  int dev, sms, optin;
-  cudaError_t err = cudaGetDevice(&dev);
+                                     int* grid, int device) {
+  DeviceScope scope(device);
+  cudaError_t err = scope.error();
+  int sms, optin;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   const int acc_bytes = dtype == kF64 ? 8 : 4;
   const Layout L(d, acc_bytes);
@@ -323,13 +325,16 @@ extern "C" int heat_kmeans_step_plan(int64_t n, int d, int k, int dtype, int* ti
   return cudaSuccess;
 }
 
-// x (n, d) and centroids (k, d) contiguous, f32 or f64; mask (n,) bytes or
-// NULL for all rows; ws holds grid * (k*d + k + 1) values; out (k*d + k + 1)
-// receives sums, counts, inertia in x's dtype; labels (n,) int32 receives
-// each row's cluster, or is NULL. Returns the cudaError_t.
+// x (n, d) and centroids (k, d) contiguous, f32 or f64, on card `device`;
+// mask (n,) bytes or NULL for all rows; ws holds grid * (k*d + k + 1)
+// values; out (k*d + k + 1) receives sums, counts, inertia in x's dtype;
+// labels (n,) int32 receives each row's cluster, or is NULL. Returns the
+// cudaError_t.
 extern "C" int heat_kmeans_step(const void* x, const void* c, const void* mask, void* ws,
                                 void* out, void* labels, int64_t n, int d, int k, int dtype,
-                                int grid, int tile_rows, void* stream) {
+                                int grid, int tile_rows, int device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   int* lab = static_cast<int*>(labels);

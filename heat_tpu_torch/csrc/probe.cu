@@ -23,10 +23,12 @@ __global__ void probe_kernel(const float* __restrict__ x, float* __restrict__ o,
 
 }  // namespace
 
-// x and o: n contiguous float32 values on the current device. Returns the
+// x and o: n contiguous float32 values on card `device`. Returns the
 // launch's cudaError_t.
-extern "C" int heat_probe(const void* x, void* o, int64_t n, void* stream) {
+extern "C" int heat_probe(const void* x, void* o, int64_t n, int device, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   probe_kernel<<<static_cast<unsigned>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(

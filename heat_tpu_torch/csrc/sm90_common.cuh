@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): mbarriers, TMA tensor maps and
-// loads, wgmma descriptors and instructions in raw PTX, the 128-byte swizzled
-// tile layout, and the exact three-way bf16 split of a float32 operand.
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu):
+// mbarriers, TMA tensor maps and loads, wgmma descriptors and instructions in
+// raw PTX, the 128-byte swizzled tile layout, and the exact three-way bf16
+// split of a float32 operand.
 //
 // Tile layout in shared memory: a (ROWS, DP) bf16 tile is DP / 64 column
 // blocks of ROWS rows x 128 bytes, each block 1024-byte aligned, with the
@@ -17,8 +18,6 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
-
-#include <atomic>
 
 #include "common.cuh"
 
@@ -383,20 +382,6 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   }
   *out = fn;
   return cudaSuccess;
-}
-
-// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
-// (the attribute holds for the process): `done` is the kernel's own bit set
-// of the devices done, so a launch pays for the runtime call only once.
-inline cudaError_t raise_smem_limit(const void* kernel, int bytes, std::atomic<uint32_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
-  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 // Tensor map of a contiguous (outer, rows, d) bf16 tensor read in boxes of

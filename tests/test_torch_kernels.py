@@ -199,6 +199,9 @@ def test_wrappers_take_plain_only_on_cpu():
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only there")
+    from heat_tpu_torch.core._build import library
+
+    library()  # built and probed before a test counts launches, whatever runs first
     return torch.device("cuda")
 
 
@@ -518,8 +521,9 @@ def test_smoke_bf16_training_rules():
     assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
 
 
-# dK/dV in bf16 runs on the tensor-core kernel (csrc/flash_bwd_dkv_sm90.cu),
-# in float32 and float16 on the FMA kernel, dQ on the FMA kernel for all.
+# dK/dV and dQ in bf16 run on the tensor-core kernels
+# (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), in float32 and
+# float16 on the FMA kernels.
 # Head dims as in the forward's test (d = 20 stages through plain loads);
 # lengths ragged against the tiles; Sq > Sk (empty rows: with 300 vs 100
 # whole query tiles are skipped, and their NaN dmb reaches dK); Sq < Sk;
@@ -558,7 +562,7 @@ def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_on_card(card):
     # bf16 reaches the tensor-core kernels and nothing else; float32 and
-    # float16 the FMA kernels; dQ runs the FMA kernel for every dtype
+    # float16 the FMA kernels
     from torch.profiler import ProfilerActivity, profile
 
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
@@ -575,7 +579,8 @@ def test_flash_routes_by_dtype_on_card(card):
         assert ("flash_fwd_kernel" in names) == (not sm90), names
         assert ("flash_bwd_dkv_sm90_kernel" in names) == sm90, names
         assert ("flash_bwd_dkv_kernel" in names) == (not sm90), names
-        assert "flash_bwd_dq_kernel" in names, names
+        assert ("flash_bwd_dq_sm90_kernel" in names) == sm90, names
+        assert ("flash_bwd_dq_kernel" in names) == (not sm90), names
 
 
 @pytest.mark.cuda
@@ -595,26 +600,128 @@ def test_flash_bwd_dkv_bitwise_repeatable_on_card(card, causal):
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
+# The bf16 dQ kernel (csrc/flash_bwd_dq_sm90.cu) alone, against its plain
+# version: head dims 40 (80-byte rows, which TMA cannot address: plain
+# loads), 64 and 128 (DP 64 and 128); Sq < Sk and Sq > Sk at lengths that
+# are no multiple of any tile (with 333 queries against 200 keys, causal,
+# rows 0-132 see no key and the whole first query tile is skipped: their NaN
+# dmb must reach their dQ, and only theirs), causal and not, a nonzero lse
+# cotangent; under the causal mask an infinite dmb on row 5, whose masked
+# keys make its dQ NaN (0 x dmb); and two runs bitwise equal.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (200, 333, True), (333, 200, True), (200, 333, False), (333, 200, False)])
+def test_flash_bwd_dq_sm90_matches_plain_on_card(card, d, sq, sk, causal):
+    cs = _smoke_module()
+    q, k, v = _flash_case(card, 2, 3, sq, sk, d, torch.bfloat16, seed=d * sq + sk)
+    out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator().manual_seed(d + sq)
+    dout = torch.randn(q.shape, generator=g).to(card, torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=g).to(card)
+    dmb = tk._dmb(out, dout, dlse)
+    if causal:
+        dmb[:, :, 5] = float("inf")
+    before = tk.launches["flash_bwd_dq"]
+    dq = tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal)
+    assert tk.launches["flash_bwd_dq"] == before + 1
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+    cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=2.0 ** -7,
+                       got=(dq, dk, dv))
+    assert torch.equal(tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal).view(torch.int16),
+                       dq.view(torch.int16))  # no atomics: bitwise repeatable
+    # NaN rows, whole: those that see no key (causal, Sq > Sk) and row 5
+    want_nan = torch.zeros(sq, dtype=torch.bool, device=card)
+    if causal:
+        want_nan[:max(sq - sk, 0)] = True
+        want_nan[5] = True
+    assert torch.equal(torch.isnan(dq).all(dim=-1), want_nan.expand(dq.shape[:3]))
+    assert torch.equal(torch.isnan(dq).any(dim=-1), want_nan.expand(dq.shape[:3]))
+
+
+def _on_stream_cases(dev):
+    """Per wrapper: a function of its first input, that input's values, and
+    the rest of its inputs on ``dev``."""
+    g = torch.Generator().manual_seed(11)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    q, k, v, dout = (randn(1, 2, 130, 64, dtype=torch.bfloat16) for _ in range(4))
+    out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    dmb = tk._dmb(out, dout, None)
+    y, c = randn(77, 18), randn(8, 18)
+    return {
+        "probe": (tk.probe, randn(8, 128), ()),
+        "cdist_tile": (tk.cdist_tile, randn(300, 18), (y,)),
+        "kmeans_step": (lambda x, cc: tk.kmeans_step(x, cc), randn(300, 18), (c,)),
+        "flash_attention": (lambda qq, kk, vv: tk.flash_attention(qq, kk, vv, causal=True), q,
+                            (k, v)),
+        "flash_bwd_dkv": (lambda qq, *r: tk.flash_bwd_dkv(qq, *r, causal=True), q,
+                          (k, v, dout, lse, dmb)),
+        "flash_bwd_dq": (lambda qq, *r: tk.flash_bwd_dq(qq, *r, causal=True), q,
+                         (k, v, dout, lse, dmb)),
+    }
+
+
+def _flat(res):
+    return res if isinstance(res, tuple) else (res,)
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_callers_stream_and_device(card):
+    # Each wrapper runs on a side stream behind a ~10 ms sleep that holds
+    # that stream, after its first input was filled in on the same stream:
+    # a launch that landed anywhere but the caller's stream would run at
+    # once and read the input's zeros.
+    dev0 = torch.device("cuda", torch.cuda.current_device())
+    for name, (fn, first, rest) in _on_stream_cases(dev0).items():
+        want = _flat(fn(first, *rest))
+        x = torch.zeros_like(first)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        before = tk.launches[name]
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            x.copy_(first)
+            got = _flat(fn(x, *rest))
+        side.synchronize()
+        assert tk.launches[name] > before, name
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=name)
+    # Where the host has a second card, tensors there launch there while
+    # the first stays current: each entry point switches to its tensors'
+    # device and back.
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1 - dev0.index)
+        for name, (fn, first, rest) in _on_stream_cases(other).items():
+            with torch.cuda.device(other):
+                want = _flat(fn(first, *rest))
+            got = _flat(fn(first, *rest))
+            assert torch.cuda.current_device() == dev0.index, name
+            for a, b in zip(got, want):
+                assert a.device == other, name
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True, msg=name)
+
+
 @pytest.mark.cuda
 def test_flash_refused_launch_raises_on_card(card):
     # a launch the C side refuses (here a head dim past 128, which the
-    # wrappers never pass on) returns its CUDA error, and the wrappers'
-    # error path raises it instead of running anything else
-    from heat_tpu_torch.core._build import library
-
-    lib = library()
+    # wrappers never pass on) returns its CUDA error, and the launch path
+    # shared by the wrappers raises it instead of running anything else
     q = torch.zeros(1, 1, 8, 136, device=card, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8, device=card)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.heat_flash_fwd(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                             lse.data_ptr(), 1, 8, 8, 136, 2, 0.1, 1, stream)
-    assert err != 0
+    before = dict(tk.launches)
     with pytest.raises(RuntimeError, match="flash_attention launch failed: CUDA error"):
-        tk._raise_on(err, lib, "flash_attention")
-    err = lib.heat_flash_bwd_dkv(q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                                 lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(),
-                                 1, 8, 8, 136, 2, 0.1, 1, stream)
-    assert err != 0
+        tk._launch("flash_attention", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                   q.data_ptr(), lse.data_ptr(), 1, 8, 8, 136, 2, 0.1, 1)
     with pytest.raises(RuntimeError, match="flash_bwd_dkv launch failed: CUDA error"):
-        tk._raise_on(err, lib, "flash_bwd_dkv")
+        tk._launch("flash_bwd_dkv", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 8,
+                   8, 136, 2, 0.1, 1)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq launch failed: CUDA error"):
+        tk._launch("flash_bwd_dq", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), 1, 8, 8, 136, 2,
+                   0.1, 1)
+    assert tk.launches == before  # a refused launch is not counted
     torch.cuda.synchronize()

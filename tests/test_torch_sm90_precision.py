@@ -1,19 +1,20 @@
 """The precision rule of the bf16 tensor-core flash kernels, on the CPU.
 
-``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu`` run every
-product on bf16 tensor cores with float32 accumulation: a product of two
-bf16 operands takes one pass (the products are exact in float32), and a
-product with a float32 operand (the probabilities P, the score cotangents
-dS) splits that operand exactly into three bf16 terms and takes three
-passes into one float32 accumulator, smallest term first. The card cannot
-be reached from here, so this file emulates that arithmetic in plain
-PyTorch (the kernels' 64-key online softmax in the log2 domain for the
-forward, the recomputed P^T and dS^T for dK/dV) and holds the emulation,
-with ``chip_smoke.check_flash`` and ``check_flash_bwd`` and their limits as
-they stand, against the port's plain versions, and against heat_tpu's
-Pallas kernels run in interpret mode as heat_tpu's own tests run them.
-The same check refuses a single bf16 pass of P, which shows that it guards
-the rule.
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu`` and
+``csrc/flash_bwd_dq_sm90.cu`` run every product on bf16 tensor cores with
+float32 accumulation: a product of two bf16 operands takes one pass (the
+products are exact in float32), and a product with a float32 operand (the
+probabilities P, the score cotangents dS) splits that operand exactly into
+three bf16 terms and takes three passes into one float32 accumulator,
+smallest term first. The card cannot be reached from here, so this file
+emulates that arithmetic in plain PyTorch (the kernels' 64-key online
+softmax in the log2 domain for the forward, the recomputed P^T and dS^T
+for dK/dV, P and dS for dQ) and holds the emulation, with
+``chip_smoke.check_flash`` and ``check_flash_bwd`` and their limits as they
+stand, against the port's plain versions, and against heat_tpu's Pallas
+kernels run in interpret mode as heat_tpu's own tests run them.
+The same checks refuse a single bf16 pass of P or dS, which shows that
+they guard the rule.
 """
 
 import importlib.util
@@ -120,6 +121,29 @@ def emulate_dkv(q, k, v, dout, lse, dmb, causal, passes=3):
     dv = _split_product(pt, of, passes)
     dk = _split_product(dst, qf, passes) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def emulate_dq(q, k, v, dout, lse, dmb, causal, passes=3):
+    """The dQ kernel's arithmetic: S = Q Kᵀ and dP = dO Vᵀ from bf16
+    operands, P = exp2(scale·log2(e)·S − lse·log2(e)) (one fused multiply-add)
+    where the pair is visible and the lse finite, dS = P ∘ (dP + dmb) (zero
+    past the keys only: a masked pair's 0 × a non-finite dmb stays NaN), then
+    dQ = scale · dS K with dS split into bf16 terms."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of = q.float(), k.float(), v.float(), dout.float()
+    s = qf @ kf.transpose(-1, -2)
+    dp = of @ vf.transpose(-1, -2)
+    ls = (lse * np.float32(LOG2E))[..., None]
+    ok = torch.isfinite(ls)
+    if causal:
+        ok = ok & (torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None] + (Sk - Sq))
+    c = float(np.float32(scale * LOG2E))
+    arg = (s.double() * c - ls.double()).float()
+    p = torch.where(ok, torch.exp2(arg), torch.zeros(()))
+    ds = p * (dp + dmb[..., None])
+    return (_split_product(ds, kf, passes) * scale).to(q.dtype)
 
 
 def _case(b, h, sq, sk, d, seed):
@@ -231,3 +255,49 @@ def test_check_flash_bwd_refuses_one_bf16_pass():
     with pytest.raises(AssertionError, match="beyond their tolerance"):
         cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=BF16_STEP,
                            got=(dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", CASES)
+def test_sm90_dq_arithmetic_passes_check_flash_bwd(b, h, sq, sk, d, causal):
+    cs = _smoke()
+    qn, kn, vn, don, dlse = _case(b, h, sq, sk, d, seed=sq + 2)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn, don))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    dmb = tk._dmb(out, dout, torch.from_numpy(dlse))
+    dq = emulate_dq(q, k, v, dout, lse, dmb, causal)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=BF16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values())
+    if causal and sq > sk:  # the empty rows' NaN dmb reaches their dQ, and only theirs
+        assert bool(torch.isnan(dq[:, :, :sq - sk]).all())
+        assert not bool(torch.isnan(dq[:, :, sq - sk:]).any())
+    # against heat_tpu's Pallas dQ (interpret mode) on the same forward
+    # outputs, within one bf16 rounding of each and 1e-5 of the largest
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (qn, kn, vn, don))
+    jo, jl = pk.flash_attention(jq, jk, jv, causal=causal, return_lse=True)
+    wq, _, _ = pk._flash_bwd_impl(jq, jk, jv, jo, jl, jdo, jnp.asarray(dlse),
+                                  1.0 / math.sqrt(d), causal, 128, 128)
+    o32 = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
+    lse_j = torch.from_numpy(np.array(jl))
+    g = emulate_dq(q, k, v, dout, lse_j, tk._dmb(o32, dout, torch.from_numpy(dlse)), causal)
+    g, w = g.float().numpy(), np.asarray(wq.astype(jnp.float32))
+    nan = np.isnan(g)
+    assert np.array_equal(np.isnan(w), nan)
+    lim = 2 * BF16_STEP * np.abs(w) + 1e-5 * np.abs(w[~nan]).max()
+    assert (np.abs(g - w)[~nan] <= lim[~nan]).all(), float((np.abs(g - w) / lim)[~nan].max())
+
+
+def test_check_flash_bwd_refuses_one_bf16_pass_of_ds():
+    cs = _smoke()
+    qn, kn, vn, don, dlse = _case(1, 2, 77, 130, 64, seed=6)
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in (qn, kn, vn, don))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    dmb = tk._dmb(out, dout, torch.from_numpy(dlse))
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=True)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=BF16_STEP,
+                             got=(emulate_dq(q, k, v, dout, lse, dmb, True), dk, dv))
+    assert all(r <= 1.0 for _, r in res.values())
+    with pytest.raises(AssertionError, match="dq: .* beyond their tolerance"):
+        cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=BF16_STEP,
+                           got=(emulate_dq(q, k, v, dout, lse, dmb, True, passes=1), dk, dv))
