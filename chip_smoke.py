@@ -49,15 +49,17 @@ Phases, one JSON line each:
 
 Phase 4 holds the flash forward (bf16 on the tensor cores,
 ``csrc/flash_fwd_sm90.cu``; float32 on fp32 FMA, ``csrc/flash_fwd.cu``)
-and the flash backward kernels (bf16 on the tensor cores,
-``csrc/flash_bwd_dkv_sm90.cu`` and ``csrc/flash_bwd_dq_sm90.cu``; float32
-on fp32 FMA, ``csrc/flash_bwd.cu``) against their plain versions
+and the flash backward kernels (bf16 and float32 on the tensor cores,
+``csrc/flash_bwd_dkv_sm90.cu`` and ``csrc/flash_bwd_dq_sm90.cu``, float32
+after a split pass into three bf16 planes) against their plain versions
 (``check_flash``, ``check_flash_bwd``) at the serving and training paths'
-shapes in both dtypes, at ragged lengths, empty rows and
-300 queries against 4096 keys, with their times, bounds, the FMA kernels'
-float32 times, SDPA's, the aten flash backward's (bf16) and the aten
-memory-efficient backward's (float32). At the prefill shape the forward's
-wrapper host time per call is measured apart from the kernel's device time.
+shapes in both dtypes, at ragged lengths, empty rows, 300 queries against
+4096 keys and (float32) head dim 128, with their times, bounds, the FMA
+forward's float32 times, SDPA's, the aten flash backward's (bf16) and the
+aten memory-efficient backward's (float32). At the prefill shape the
+forward's wrapper host time per call is measured apart from the kernel's
+device time. Phase 3's ``kmeans_step`` checks add two shapes whose k·d
+takes the streaming path (2^20 x 64 at k = 128, 2^17 x 1024 at k = 64).
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -79,6 +81,17 @@ N_POINTS, N_FEATURES, K, ITERS = 2**23, 64, 8, 20
 CDIST_N, CDIST_D = 40_000, 18
 U32 = 2.0**-24  # float32 unit roundoff
 U_BF16 = 2.0**-8  # bfloat16 unit roundoff
+# tensor-core passes of a product of two float32 operands, each split into
+# its three bf16 terms (split3): the largest cross terms of the two splits,
+# (0,0), (0,1), (1,0), (1,1), (0,2), (2,0), ... The fewest that pass the
+# checks in every case of tests/test_torch_sm90_precision.py (which
+# emulates them, and refuses one fewer): six for the backward under
+# check_flash_bwd, which its float32 kernels run; four for a float32
+# forward under check_flash (not built yet: the bound's count); three for
+# the float32 scores x·c of a Lloyd step under check_kmeans_step.
+F32_PASSES_BWD = 6
+F32_PASSES_FWD = 4
+F32_PASSES_KMEANS = 3
 
 # the flagship model (bench.py:204-206, 222-223, transformer_train_metrics
 # defaults; README's combined-parallelism model without the experts)
@@ -245,6 +258,19 @@ def cdist_bound(m, n, d, in_bytes, out_bytes, bw, f32):
                  2 * m * n * d + 2 * (m + n) * d + 5 * m * n, bw, f32)
 
 
+def kmeans_bound(n, d, k, bw, f32, tc_rate):
+    """The least time of a float32 Lloyd partial: x read once, the centroids
+    once, the sums, counts and inertia written once; the n·k products x·c of
+    two float32 operands on the bf16 tensor cores, :data:`F32_PASSES_KMEANS`
+    split-bf16 passes of 2·d FLOPs each (:func:`flash_bound_f32`'s rule),
+    and per row the |x|², the k score updates and the fold into the sums,
+    3·d + 3·k operations, at the float32 rate."""
+    nbytes = n * d * 4 + k * d * 4 + (k * d + k + 1) * 4
+    t_bytes = nbytes / bw * 1e3
+    t_ops = (F32_PASSES_KMEANS * 2 * n * k * d / tc_rate + (3 * n * d + 3 * n * k) / f32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def d2_tol(d, scale):
     """Bound on the difference of two float32 evaluations of
     x² + y² − 2·x·y (or of c² − 2·x·c): each is within 2·(d + 3)·u·scale of
@@ -361,12 +387,12 @@ def flash_fma_floor(b, h, sq, sk, d, causal, f32):
 
 def flash_bound_f32(b, h, sq, sk, d, causal, bw, tc_rate):
     """The least time of a float32 flash forward at float32 accuracy: Q, K,
-    V read and O written once as float32, the lse once; per live pair, by
-    :func:`flash_bound`'s rule on the bf16 tensor cores, q·kᵀ and P·V each
-    with two float32 operands, each split exactly into three bf16 terms
-    (nine passes of 2·D FLOPs a product)."""
+    V read and O written once as float32, the lse once; per live pair, on
+    the bf16 tensor cores, q·kᵀ and P·V each with two float32 operands
+    split into bf16 terms, :data:`F32_PASSES_FWD` passes of 2·D FLOPs a
+    product."""
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * 4 + b * h * sq * 4
-    flops = (9 + 9) * 2 * d * b * h * flash_live_pairs(sq, sk, causal)
+    flops = 2 * F32_PASSES_FWD * 2 * d * b * h * flash_live_pairs(sq, sk, causal)
     return bound(nbytes, flops, bw, tc_rate)
 
 
@@ -388,15 +414,16 @@ def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate):
 
 def flash_bwd_bounds_f32(b, h, sq, sk, d, causal, bw, tc_rate):
     """The least times of the two float32 flash backward kernels at float32
-    accuracy, by :func:`flash_bound_f32`'s rule (nine split-bf16 passes for
-    each product of two float32 operands): dK/dV's four products per live
-    pair (q·kᵀ, dO·vᵀ, Pᵀ·dO, dSᵀ·q), dQ's three (q·kᵀ, dO·vᵀ, dS·k). Bytes
-    as :func:`flash_bwd_bounds` counts them, every tensor float32. Returns
-    ((ms, by) for dK/dV, (ms, by) for dQ)."""
+    accuracy, by :func:`flash_bound_f32`'s rule (:data:`F32_PASSES_BWD`
+    split-bf16 passes for each product of two float32 operands): dK/dV's
+    four products per live pair (q·kᵀ, dO·vᵀ, Pᵀ·dO, dSᵀ·q), dQ's three
+    (q·kᵀ, dO·vᵀ, dS·k). Bytes as :func:`flash_bwd_bounds` counts them,
+    every tensor float32. Returns ((ms, by) for dK/dV, (ms, by) for dQ)."""
     pairs = b * h * flash_live_pairs(sq, sk, causal)
     inputs = (2 * b * h * sq * d + 2 * b * h * sk * d) * 4 + 2 * b * h * sq * 4
-    dkv = bound(inputs + 2 * b * h * sk * d * 4, 4 * 9 * 2 * d * pairs, bw, tc_rate)
-    dq = bound(inputs + b * h * sq * d * 4, 3 * 9 * 2 * d * pairs, bw, tc_rate)
+    dkv = bound(inputs + 2 * b * h * sk * d * 4, 4 * F32_PASSES_BWD * 2 * d * pairs, bw,
+                tc_rate)
+    dq = bound(inputs + b * h * sq * d * 4, 3 * F32_PASSES_BWD * 2 * d * pairs, bw, tc_rate)
     return dkv, dq
 
 
@@ -733,39 +760,44 @@ def serving_path(torch, ht, tk, dev, smi):
 BWD_PATH_CASE = "train_8x16x1024x64_bf16_causal"
 # kernel kinds of a training step, by parts of their names
 TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
-               "flash_bwd_dkv": ("flash_bwd_dkv",),
+               "flash_bwd_dkv": ("flash_bwd_dkv",), "flash_bwd_split_f32": ("split_planes",),
                "gemm": ("nvjet", "gemm", "xmma", "cutlass", "gemv"),
                "log_softmax": ("softmax",), "adam": ("adam",)}
 
 
 def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     """Phase 4, the flash backward: both kernels against their plain
-    versions (``check_flash_bwd``), in bf16 on the tensor cores
-    (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu) and in float32
-    on the fp32-FMA kernels (csrc/flash_bwd.cu): at the training
-    path's shape (causal, no lse cotangent) in bf16 and float32, at lengths
-    that are no multiple of any tile with Sq < Sk, causal and a nonzero lse
-    cotangent, without the causal mask, and (bf16) at Sk = 4096 with 300
-    queries, causal and not; then the times at the path's shape."""
+    versions (``check_flash_bwd``), in bf16 and in float32 on the tensor
+    cores (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu; float32
+    after its split pass) and in float16 on fp32 FMA (csrc/flash_bwd.cu):
+    at the training path's shape (causal, no lse cotangent), at lengths that are no multiple of any tile with Sq < Sk,
+    causal and a nonzero lse cotangent, without the causal mask, at Sk =
+    4096 with 300 queries, causal and not, and (float32) at head dim 128;
+    each bitwise repeatable; then the times at the path's shape."""
     H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    bf16, fp32 = torch.bfloat16, torch.float32
-    cases = ((BWD_PATH_CASE, 8, H, 1024, 1024, bf16, True, False),
-             ("train_8x16x1024x64_f32_causal", 8, H, 1024, 1024, fp32, True, False),
-             ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, H, 1000, 1090, fp32, True, True),
-             ("1x16x1000_vs_1090x64_bf16_causal_dlse", 1, H, 1000, 1090, bf16, True, True),
-             ("2x16x1024x64_bf16_noncausal_dlse", 2, H, 1024, 1024, bf16, False, True),
-             ("1x4x300_vs_4096x64_bf16_causal_dlse", 1, 4, 300, 4096, bf16, True, True),
-             ("1x4x300_vs_4096x64_bf16_noncausal_dlse", 1, 4, 300, 4096, bf16, False, True))
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    cases = ((BWD_PATH_CASE, 8, H, 1024, 1024, DH, bf16, True, False),
+             ("train_8x16x1024x64_f32_causal", 8, H, 1024, 1024, DH, fp32, True, False),
+             ("train_8x16x1024x64_f16_causal", 8, H, 1024, 1024, DH, fp16, True, False),
+             ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, H, 1000, 1090, DH, fp32, True, True),
+             ("1x16x1000_vs_1090x64_bf16_causal_dlse", 1, H, 1000, 1090, DH, bf16, True, True),
+             ("2x16x1024x64_bf16_noncausal_dlse", 2, H, 1024, 1024, DH, bf16, False, True),
+             ("2x16x1024x64_f32_noncausal_dlse", 2, H, 1024, 1024, DH, fp32, False, True),
+             ("1x4x300_vs_4096x64_bf16_causal_dlse", 1, 4, 300, 4096, DH, bf16, True, True),
+             ("1x4x300_vs_4096x64_bf16_noncausal_dlse", 1, 4, 300, 4096, DH, bf16, False, True),
+             ("1x4x300_vs_4096x64_f32_causal_dlse", 1, 4, 300, 4096, DH, fp32, True, True),
+             ("1x4x300_vs_4096x64_f32_noncausal_dlse", 1, 4, 300, 4096, DH, fp32, False, True),
+             ("1x16x1000_vs_1090x128_f32_causal_dlse", 1, H, 1000, 1090, 128, fp32, True, True))
     checks = {}
-    for name, b, h, sq, sk, dt, causal, with_dlse in cases:
-        q = torch.randn(b, h, sq, DH, device=dev, generator=gen).to(dt)
-        k = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
-        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+    for name, b, h, sq, sk, dh, dt, causal, with_dlse in cases:
+        q = torch.randn(b, h, sq, dh, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, h, sk, dh, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, h, sk, dh, device=dev, generator=gen).to(dt)
         out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
         dout = torch.randn(q.shape, device=dev, generator=gen).to(dt)
         dlse = torch.randn(lse.shape, device=dev, generator=gen) if with_dlse else None
         dmb = tk._dmb(out, dout, dlse)
-        step = 2.0**-7 if dt == torch.bfloat16 else 0.0
+        step = {bf16: 2.0**-7, fp16: 2.0**-10}.get(dt, 0.0)
         before = dict(tk.launches)
         res = check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=step)
         assert tk.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
@@ -790,35 +822,61 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     dmb = tk._dmb(out, dout, None)
     (b_dkv, by_dkv), (b_dq, by_dq) = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc)
     floor_dkv, floor_dq = flash_bwd_fma_floors(b, H, s, s, DH, True, f32)
-    # float32 copies for the FMA kernels' own times, bounded by the card's
-    # tensor cores at float32 accuracy (flash_bwd_bounds_f32)
+    # float32 copies for the float32 kernels' times (their split pass
+    # included), bounded by the card's tensor cores at float32 accuracy
+    # (flash_bwd_bounds_f32); the device time of one call by kernel says
+    # what the split pass takes
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
     out32, lse32 = tk.flash_attention(q32, k32, v32, causal=True, return_lse=True)
     dmb32 = tk._dmb(out32, do32, None)
     b32_dkv, b32_dq = flash_bwd_bounds_f32(b, H, s, s, DH, True, bw, bf16_tc)
+    # float16 copies for the FMA kernels' times, bounded by flash_bwd_bounds'
+    # rule (the float16 tensor-core rate is bf16's)
+    q16, k16, v16, do16 = (t.half() for t in (q, k, v, dout))
+    out16, lse16 = tk.flash_attention(q16, k16, v16, causal=True, return_lse=True)
+    dmb16 = tk._dmb(out16, do16, None)
+
+    def f16_times(fn, plain, b16, floor):
+        return {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain), "bound": b16,
+                "bound_by": by_dkv, "fp32_fma_design_floor": floor}
+
+    def f32_times(fn, plain, b32, kernel_part):
+        split = device_share(torch, fn, 20, kinds={"split_pass": ("split_planes",),
+                                                    "kernel": (kernel_part,)})
+        return {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain),
+                "bound": b32[0], "bound_by": b32[1], "passes_per_product": F32_PASSES_BWD,
+                "device_ms_by_kind": split.get("device_ms_per_call_by_kind")}
+
     times = {
         "dkv": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dkv(q, k, v, dout, lse, dmb,
                                                                   causal=True)),
                 "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb,
                                                                        causal=True)),
                 "bound": b_dkv, "bound_by": by_dkv, "fp32_fma_design_floor": floor_dkv,
-                "fma_f32": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dkv(
-                                q32, k32, v32, do32, lse32, dmb32, causal=True)),
-                            "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(
-                                q32, k32, v32, do32, lse32, dmb32, causal=True)),
-                            "bound": b32_dkv[0], "bound_by": b32_dkv[1],
-                            "fp32_fma_design_floor": floor_dkv}},
+                "f32": f32_times(
+                    lambda: tk.flash_bwd_dkv(q32, k32, v32, do32, lse32, dmb32, causal=True),
+                    lambda: tk.flash_bwd_dkv_plain(q32, k32, v32, do32, lse32, dmb32,
+                                                   causal=True),
+                    b32_dkv, "flash_bwd_dkv_sm90"),
+                "f16": f16_times(
+                    lambda: tk.flash_bwd_dkv(q16, k16, v16, do16, lse16, dmb16, causal=True),
+                    lambda: tk.flash_bwd_dkv_plain(q16, k16, v16, do16, lse16, dmb16,
+                                                   causal=True), b_dkv, floor_dkv)},
         "dq": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb,
                                                                 causal=True)),
                "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb,
                                                                      causal=True)),
                "bound": b_dq, "bound_by": by_dq, "fp32_fma_design_floor": floor_dq,
-               "fma_f32": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(
-                               q32, k32, v32, do32, lse32, dmb32, causal=True)),
-                           "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(
-                               q32, k32, v32, do32, lse32, dmb32, causal=True)),
-                           "bound": b32_dq[0], "bound_by": b32_dq[1],
-                           "fp32_fma_design_floor": floor_dq}}}
+               "f32": f32_times(
+                   lambda: tk.flash_bwd_dq(q32, k32, v32, do32, lse32, dmb32, causal=True),
+                   lambda: tk.flash_bwd_dq_plain(q32, k32, v32, do32, lse32, dmb32,
+                                                 causal=True),
+                   b32_dq, "flash_bwd_dq_sm90"),
+               "f16": f16_times(
+                   lambda: tk.flash_bwd_dq(q16, k16, v16, do16, lse16, dmb16, causal=True),
+                   lambda: tk.flash_bwd_dq_plain(q16, k16, v16, do16, lse16, dmb16,
+                                                 causal=True), b_dq, floor_dq)}}
+    times["dq"]["f16"]["bound_by"] = by_dq
     # the float32 yardstick: PyTorch's memory-efficient attention backward
     # (aten's flash backward takes no float32), fed by its own forward on
     # the float32 copies; one call computes dq, dk and dv
@@ -833,18 +891,24 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     del q32, k32, v32, do32, out32, lse32, dmb32, fwd32, o_e, lse_e
     # the yardstick: PyTorch's flash-attention backward (behind SDPA), fed
     # by its own forward's outputs; one call computes dq, dk and dv
-    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True, False,
-                                                             scale=scale)
-    o_a, lse_a, cq, ck, mq, mk, seed, offset = fwd[:8]
-    times["aten_flash_backward_dq_dk_dv"] = time_ms(
-        torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            dout, q, k, v, o_a, lse_a, cq, ck, mq, mk, 0.0, True, seed, offset, scale=scale))
-    del q, k, v, dout, out, lse, dmb, fwd, o_a, lse_a
+    for key, (q_, k_, v_, do_) in (("aten_flash_backward_dq_dk_dv", (q, k, v, dout)),
+                                   ("aten_flash_backward_f16_dq_dk_dv", (q16, k16, v16, do16))):
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(q_, k_, v_, 0.0, True, False,
+                                                                 scale=scale)
+        o_a, lse_a, cq, ck, mq, mk, seed, offset = fwd[:8]
+        times[key] = time_ms(
+            torch, lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                do_, q_, k_, v_, o_a, lse_a, cq, ck, mq, mk, 0.0, True, seed, offset,
+                scale=scale))
+        del fwd, o_a, lse_a
+    del q, k, v, dout, out, lse, dmb, q16, k16, v16, do16, out16, lse16, dmb16
     torch.cuda.empty_cache()
     res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
-           "routes": {"dkv bfloat16": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu (wgmma, TMA)",
-                      "dq bfloat16": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu (wgmma, TMA)",
-                      "float32, float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
+           "routes": {"dkv bfloat16, float32": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu "
+                                               "(wgmma, TMA; float32 as three bf16 planes)",
+                      "dq bfloat16, float32": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu "
+                                              "(wgmma, TMA; float32 as three bf16 planes)",
+                      "float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
            "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
                    "NaN at the same places (check_flash_bwd)"}
     emit(res)
@@ -870,7 +934,8 @@ def training_path(torch, ht, tk, smi, bf16_tc):
     model32 = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP))
     params = model.init(0, dtype=torch.float32)
     loss16, g16 = model.loss_and_grad_fn()(params, toks)
-    loss32, g32 = model32.loss_and_grad_fn()(params, toks)
+    lg32 = model32.loss_and_grad_fn()
+    loss32, g32 = lg32(params, toks)
     logits32 = model32.logits_fn()(params, toks)
     loss_tol = bf16_loss_tol(torch, logits32, L)
     del logits32
@@ -886,7 +951,11 @@ def training_path(torch, ht, tk, smi, bf16_tc):
         assert np.isfinite(a).all(), f"bf16 gradient {name} is not finite"
         grad_ratios[name] = float(np.linalg.norm(a - b) / np.linalg.norm(b)) / grad_tol
     assert max(grad_ratios.values()) <= 1.0, f"bf16 gradients beyond bf16_grad_tol: {grad_ratios}"
-    del g16, g32, h16, h32, leaves, model32
+    del g16, g32, h16, h32, leaves
+    # the float32 reference's device time by kind: the default compute dtype
+    # runs both float32 backward kernels 8 + 8 times a call
+    ref32 = device_share(torch, lambda: lg32(params, toks), 2, kinds=TRAIN_KINDS)
+    del lg32, model32
     torch.cuda.empty_cache()
 
     # the train step: float32 masters through the converter, Adam(1e-3)
@@ -940,7 +1009,8 @@ def training_path(torch, ht, tk, smi, bf16_tc):
           "losses_per_step": losses, "profiled": share, "peak_memory_gb": peak_gb,
           "bf16_vs_f32": {"loss_bf16": float(loss16), "loss_f32": float(loss32),
                           "loss_err_over_tol": loss_ratio, "loss_tol": loss_tol,
-                          "grad_relnorm_over_tol": grad_ratios, "grad_tol": grad_tol}})
+                          "grad_relnorm_over_tol": grad_ratios, "grad_tol": grad_tol},
+          "f32_loss_and_grad_profiled": ref32})
     return launches
 
 
@@ -1054,18 +1124,43 @@ def main():
     torch.cuda.empty_cache()
     ms_km = time_ms(torch, lambda: tk.kmeans_step(x, c))
     plain_km = time_ms(torch, lambda: tk.kmeans_step_plain(x, c))
-    b_km = bound(N_POINTS * N_FEATURES * 4 + K * N_FEATURES * 4 + (K * N_FEATURES + K + 1) * 4,
-                 2 * N_POINTS * K * N_FEATURES + 3 * N_POINTS * N_FEATURES + 3 * N_POINTS * K,
-                 bw, f32)
+    b_km = kmeans_bound(N_POINTS, N_FEATURES, K, bw, f32, bf16_tc)
+    del mask, got, again, want
+    torch.cuda.empty_cache()
+    # k*d past what a block's shared memory holds: the streaming path
+    # (centroid chunks, each block's sums in its workspace row), planned by
+    # shape alone
+    km_large = {}
+    for name, n, d, k in (("2^20x64_k128", 2**20, 64, 128), ("2^17x1024_k64", 2**17, 1024, 64)):
+        xl = torch.rand(n, d, device=dev, generator=gen)
+        cl = xl[torch.randint(0, n, (k,), device=dev, generator=gen)].clone()
+        ml = torch.arange(n, device=dev) < n - 1234
+        got = tk.kmeans_step(xl, cl, ml, return_labels=True)
+        again = tk.kmeans_step(xl, cl, ml, return_labels=True)
+        want = tk.kmeans_step_plain(xl, cl, ml, return_labels=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"kmeans_step {name}"
+        chk = check_kmeans_step(torch, xl, cl, ml, got, want)
+        del got, again, want
+        torch.cuda.empty_cache()
+        b_l = kmeans_bound(n, d, k, bw, f32, bf16_tc)
+        km_large[name] = {"check": chk, "kernel": time_ms(torch, lambda: tk.kmeans_step(xl, cl)),
+                          "plain": time_ms(torch, lambda: tk.kmeans_step_plain(xl, cl)),
+                          "bound": b_l[0], "bound_by": b_l[1]}
+        del xl, cl, ml
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": smi, "checks": {
-        "cdist_tile": cd_checks, "kmeans_step_2^23x64_k8_masked": km_check},
+        "cdist_tile": cd_checks, "kmeans_step_2^23x64_k8_masked": km_check,
+        **{f"kmeans_step_{name}_masked": r["check"] for name, r in km_large.items()}},
         "timings_ms": {
             "cdist_tile_40000x40000x18": {"kernel": ms_40k, "plain": plain_40k,
                                           "torch.cdist": lib_40k, "bound": b_40k[0]},
             "cdist_tile_2^23x64_vs_8": {"kernel": ms_pp, "plain": plain_pp,
                                         "torch.cdist": lib_pp, "bound": b_pp[0]},
-            "kmeans_step_2^23x64_k8": {"kernel": ms_km, "plain": plain_km, "bound": b_km[0]}}})
-    del mask, got, again, want, c
+            "kmeans_step_2^23x64_k8": {"kernel": ms_km, "plain": plain_km, "bound": b_km[0]},
+            **{f"kmeans_step_{name}": {key: r[key] for key in ("kernel", "plain", "bound",
+                                                                "bound_by")}
+               for name, r in km_large.items()}}})
+    del c
     torch.cuda.empty_cache()
 
     # flash attention: bf16 runs on the tensor cores (csrc/flash_fwd_sm90.cu),
@@ -1245,7 +1340,12 @@ def main():
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:858", "launches": launches["kmeans_step"],
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
-         "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8"},
+         "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
+         "variants": [{"shape": f"{name} f32 (streaming path)",
+                       "max_abs_err": r["check"]["max_abs_err_sums_vs_plain"],
+                       "ms": r["kernel"], "plain_ms": r["plain"], "bound_ms": r["bound"],
+                       "bound_by": r["bound_by"], "library_ms": None}
+                      for name, r in km_large.items()]},
         {"name": "flash_attention", "route": "cuda",
          "source": "heat_tpu_torch/csrc/flash_fwd_sm90.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
@@ -1279,16 +1379,28 @@ def main():
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
          "shape": "8x16x1024x64 bf16, causal (training step)",
-         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float32",
+         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu", "dtype": "float32",
                        "shape": "8x16x1024x64 float32, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
                            "dk_dv_max_abs_err"],
-                       "ms": bt["dkv"]["fma_f32"]["kernel"],
-                       "plain_ms": bt["dkv"]["fma_f32"]["plain"],
-                       "bound_ms": bt["dkv"]["fma_f32"]["bound"],
-                       "bound_by": bt["dkv"]["fma_f32"]["bound_by"],
-                       "fp32_fma_design_floor": bt["dkv"]["fma_f32"]["fp32_fma_design_floor"],
+                       "ms": bt["dkv"]["f32"]["kernel"],
+                       "plain_ms": bt["dkv"]["f32"]["plain"],
+                       "bound_ms": bt["dkv"]["f32"]["bound"],
+                       "bound_by": bt["dkv"]["f32"]["bound_by"],
+                       "passes_per_product": bt["dkv"]["f32"]["passes_per_product"],
+                       "device_ms_by_kind": bt["dkv"]["f32"]["device_ms_by_kind"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
+                       "library_covers": "dq, dk and dv together"},
+                      {"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float16",
+                       "shape": "8x16x1024x64 float16, causal",
+                       "max_abs_err": bwd["checks"]["train_8x16x1024x64_f16_causal"][
+                           "dk_dv_max_abs_err"],
+                       "ms": bt["dkv"]["f16"]["kernel"],
+                       "plain_ms": bt["dkv"]["f16"]["plain"],
+                       "bound_ms": bt["dkv"]["f16"]["bound"],
+                       "bound_by": bt["dkv"]["f16"]["bound_by"],
+                       "fp32_fma_design_floor": bt["dkv"]["f16"]["fp32_fma_design_floor"],
+                       "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
@@ -1299,16 +1411,28 @@ def main():
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
          "shape": "8x16x1024x64 bf16, causal (training step)",
-         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float32",
+         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu", "dtype": "float32",
                        "shape": "8x16x1024x64 float32, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
                            "dq_max_abs_err"],
-                       "ms": bt["dq"]["fma_f32"]["kernel"],
-                       "plain_ms": bt["dq"]["fma_f32"]["plain"],
-                       "bound_ms": bt["dq"]["fma_f32"]["bound"],
-                       "bound_by": bt["dq"]["fma_f32"]["bound_by"],
-                       "fp32_fma_design_floor": bt["dq"]["fma_f32"]["fp32_fma_design_floor"],
+                       "ms": bt["dq"]["f32"]["kernel"],
+                       "plain_ms": bt["dq"]["f32"]["plain"],
+                       "bound_ms": bt["dq"]["f32"]["bound"],
+                       "bound_by": bt["dq"]["f32"]["bound_by"],
+                       "passes_per_product": bt["dq"]["f32"]["passes_per_product"],
+                       "device_ms_by_kind": bt["dq"]["f32"]["device_ms_by_kind"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
+                       "library_covers": "dq, dk and dv together"},
+                      {"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float16",
+                       "shape": "8x16x1024x64 float16, causal",
+                       "max_abs_err": bwd["checks"]["train_8x16x1024x64_f16_causal"][
+                           "dq_max_abs_err"],
+                       "ms": bt["dq"]["f16"]["kernel"],
+                       "plain_ms": bt["dq"]["f16"]["plain"],
+                       "bound_ms": bt["dq"]["f16"]["bound"],
+                       "bound_by": bt["dq"]["f16"]["bound_by"],
+                       "fp32_fma_design_floor": bt["dq"]["f16"]["fp32_fma_design_floor"],
+                       "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],

@@ -23,11 +23,28 @@ def _split_in_output(split, ndim_in: int, ndim_out: int):
     return None if split is None else split + (ndim_out - ndim_in)
 
 
+# the type of each kind of python scalar where it outranks the array's kind
+_SCALAR_DEFAULT = {1: types.int64, 2: types.float64}
+
+
+def _scalar_type(dtype, scalar):
+    """The type of an array of ``dtype`` combined with a python bool, int or
+    float, as heat_tpu's JAX operations give it (a weak-typed scalar under
+    x64): the array's type, unless the scalar is of a higher kind (bool <
+    int < float); then int64 for an int, float64 for a float."""
+    kind = types._kind_rank(types.canonical_heat_type(type(scalar)))
+    return dtype if kind <= types._kind_rank(dtype) else _SCALAR_DEFAULT[kind]
+
+
 def __binary_op(operation: Callable, t1, t2) -> DNDarray:
     """Elementwise binary operation (heat_tpu ``_operations.py:61``) for a
-    DNDarray with a python scalar, or two DNDarrays. A replicated operand is
-    cut to the split operand's chunk locally; two different splits align
-    the second operand to the first by a resplit."""
+    DNDarray with a python scalar, or two DNDarrays. With a scalar the shard
+    first takes the type heat_tpu's operation gives (:func:`_scalar_type`).
+    A split operand of extent 1 along its split
+    axis, where the output is longer, is replicated first, as heat_tpu
+    does. A replicated operand is cut to the split operand's chunk locally;
+    two different splits align the second operand to the first by a
+    resplit."""
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)}, {type(t2)}")
     if not isinstance(t1, DNDarray) or not isinstance(t2, DNDarray):
@@ -35,7 +52,8 @@ def __binary_op(operation: Callable, t1, t2) -> DNDarray:
         other = t2 if x is t1 else t1
         if not isinstance(other, (int, float, bool)):
             raise TypeError(f"operand type not supported: {type(other)}")
-        res = operation(x.larray, other) if x is t1 else operation(other, x.larray)
+        local = x.larray.to(_scalar_type(x.dtype, other).torch_type())
+        res = operation(local, other) if x is t1 else operation(other, local)
         return DNDarray(res, x.gshape, types.canonical_heat_type(res.dtype), x.split,
                         x.device, x.comm)
 
@@ -43,6 +61,12 @@ def __binary_op(operation: Callable, t1, t2) -> DNDarray:
     ndim = len(out_shape)
     s1 = _split_in_output(t1.split, t1.ndim, ndim)
     s2 = _split_in_output(t2.split, t2.ndim, ndim)
+    # an operand split along an axis it broadcasts over holds its one row on
+    # one rank only: replicate it (heat_tpu ``_operations.py:124-133``)
+    if s1 is not None and t1.shape[t1.split] == 1 and out_shape[s1] != 1:
+        t1, s1 = t1.resplit(None), None
+    if s2 is not None and t2.shape[t2.split] == 1 and out_shape[s2] != 1:
+        t2, s2 = t2.resplit(None), None
     if s1 is not None and s2 is not None and s1 != s2:
         t2 = t2.resplit(s1 - (ndim - t2.ndim))
         s2 = s1

@@ -12,7 +12,7 @@ heat_tpu while the storage differs.
 This slice carries what the KMeans/cdist path uses: construction and
 metadata, ``resplit`` between ``None`` and a split axis, indexing by an
 integer array or basic slices, ``astype``/``numpy``/``item`` and the
-``min``/``argmin``/``sum``/``**`` operations. Other index forms raise
+``min``/``argmin``/``sum``/``+``/``**`` operations. Other index forms raise
 ``NotImplementedError``.
 """
 
@@ -314,10 +314,35 @@ class DNDarray:
         res = torch.gather(alli, 0, best)[0]
         return DNDarray(res, gshape, types.int64, None, self.__device, self.__comm)
 
+    def __add__(self, other) -> "DNDarray":
+        from . import _operations
+
+        return _operations._binary_op(torch.add, self, other)
+
+    def __radd__(self, other) -> "DNDarray":
+        from . import _operations
+
+        return _operations._binary_op(torch.add, other, self)
+
     def __pow__(self, other) -> "DNDarray":
         from . import _operations
 
-        return _operations._binary_op(torch.pow, self, other)
+        return _operations._binary_op(_pow, self, other)
+
+    def __rpow__(self, other) -> "DNDarray":
+        from . import _operations
+
+        return _operations._binary_op(_pow, other, self)
+
+
+def _pow(a, b):
+    """``torch.pow`` with bool tensors taken as int32, as ``jnp.power``
+    promotes them (heat_tpu: bool ** bool is int32)."""
+    if isinstance(a, torch.Tensor) and a.dtype == torch.bool:
+        a = a.to(torch.int32)
+    if isinstance(b, torch.Tensor) and b.dtype == torch.bool:
+        b = b.to(torch.int32)
+    return torch.pow(a, b)
 
 
 def _max_value(dtype: torch.dtype):

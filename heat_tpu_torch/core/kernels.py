@@ -16,10 +16,12 @@ Each kernel sits beside a plain PyTorch version of the same function:
   ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
   (``pallas_kernels.py:412``, ``:488``, launched by ``_flash_bwd_impl``
   ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`:
-  bf16 on the tensor cores (``csrc/flash_bwd_dkv_sm90.cu``,
-  ``csrc/flash_bwd_dq_sm90.cu``), float32 and float16 on fp32 FMA
-  (``csrc/flash_bwd.cu``);
-  :func:`flash_attention`'s backward runs both, and
+  bf16 and float32 on the tensor cores (``csrc/flash_bwd_dkv_sm90.cu``,
+  ``csrc/flash_bwd_dq_sm90.cu``; float32 through three bf16 planes per
+  input that a split pass writes into a workspace the wrapper allocates),
+  float16 on fp32 FMA (``csrc/flash_bwd.cu``);
+  :func:`flash_attention`'s backward runs both (float32: one split pass,
+  written by the dK/dV launch and read by the dQ launch), and
   :func:`flash_attention_bwd_plain` is the whole backward's plain version
   (heat_tpu's dense fallback, ``:668-686``);
 * :func:`probe` (``csrc/probe.cu``) for heat_tpu's Mosaic probe
@@ -223,7 +225,11 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
     ``valid_mask`` (bool ``(n,)``, default all) is set, in ``x``'s dtype.
     With ``return_labels`` it also returns every row's cluster (int32
     ``(n,)``), which lets a check hold the counts and sums against the labels
-    the kernel chose. The card takes float32 and float64."""
+    the kernel chose. The card takes float32 and float64 at any ``k·d``:
+    where the centroids and partial sums do not fit a block's shared memory
+    the kernel streams the centroids in chunks and keeps each block's sums
+    in its workspace row (``csrc/kmeans_step.cu``); only a row wider than
+    half a block's shared memory (float32 ``d`` > ~29,000) is refused."""
     _check_step(x, centroids, valid_mask)
     if _on_cpu(x, centroids, valid_mask):
         return kmeans_step_plain(x, centroids, valid_mask, return_labels)
@@ -236,11 +242,11 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
     lib = _build.library()
     n, d = x.shape
     k = centroids.shape[0]
-    tile_rows, grid = ctypes.c_int(), ctypes.c_int()
+    tile_rows, grid, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = lib.heat_kmeans_step_plan(n, d, k, _CODES[x.dtype], ctypes.byref(tile_rows),
-                                    ctypes.byref(grid), index)
+                                    ctypes.byref(grid), ctypes.byref(chunk), index)
     if err == -1:
-        raise ValueError(f"kmeans_step: {k} centroids x {d} features do not fit the "
+        raise ValueError(f"kmeans_step: one row of {d} features does not fit half the "
                          "card's shared memory per block")
     _raise_on(err, lib, "kmeans_step planning")
     width = k * d + k + 1
@@ -250,7 +256,7 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
     _launch("kmeans_step", index, x.data_ptr(), centroids.data_ptr(),
             None if valid_mask is None else valid_mask.data_ptr(), ws.data_ptr(),
             out.data_ptr(), None if labels is None else labels.data_ptr(), n, d, k,
-            _CODES[x.dtype], grid.value, tile_rows.value)
+            _CODES[x.dtype], grid.value, tile_rows.value, chunk.value)
     res = (out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k])
     return res + (labels,) if return_labels else res
 
@@ -373,8 +379,13 @@ class _FlashAttention(torch.autograd.Function):
                                               ctx.causal)
             return grads + (None, None)
         dmb = _dmb(out, dout, dlse)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal)
-        dq = flash_bwd_dq(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal)
+        _check_backward(q, k, v, dout, lse, dmb)
+        index = _check_card_backward(q, k, v, dout, lse, dmb)
+        # float32: dK/dV's launch writes the split planes, dQ's reads them
+        ws = _split_workspace(q, k)
+        dk, dv, split = _dkv_launch(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal, index, ws,
+                                    True)
+        dq = _dq_launch(q, k, v, dout, lse, dmb, ctx.scale, ctx.causal, index, ws, not split)
         return dq, dk, dv, None, None
 
 
@@ -400,7 +411,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card the kernels take float32, bfloat16 and float16, contiguous
     inputs and head dims up to 128; float64 raises (ROADMAP). bfloat16 runs
     on the tensor cores, float32 and float16 on fp32 FMA, both at float32
-    accuracy. The card uses its own tiles and ignores
+    accuracy; the backward runs float32 on the tensor cores too (six
+    split-bf16 passes a product). The card uses its own tiles and ignores
     ``block_q``/``block_k``, which stay for heat_tpu's signature: results do
     not depend on tile sizes. Where no gradient can flow (grad mode off, or
     no input requires grad) the call skips the autograd machinery: the same
@@ -504,6 +516,19 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse=None, scale: Optiona
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _split_workspace(q, k):
+    """The float32 backward kernels' workspace: q, k, v and dout as three
+    bf16 planes each (their exact split3 terms), rows padded to a multiple
+    of 8 columns (``csrc/sm90_common.cuh`` ``split_inputs``); nothing for
+    other dtypes."""
+    if q.dtype != torch.float32:
+        return None
+    B, H, Sq, D = q.shape
+    d8 = -(-D // 8) * 8
+    return torch.empty(6 * B * H * d8 * (Sq + k.shape[2]), dtype=torch.bfloat16,
+                       device=q.device)
+
+
 def _check_card_backward(q, k, v, dout, lse, dmb) -> int:
     """What the flash backward kernels take on the card; returns its index."""
     _check_card_attention(q, k, v)
@@ -517,6 +542,40 @@ def _check_card_backward(q, k, v, dout, lse, dmb) -> int:
         raise ValueError(f"flash backward takes at most {_MAX_GRID_Y * _FLASH_TILE} keys, got "
                          f"{k.shape[2]}")
     return index
+
+
+def _dkv_launch(q, k, v, dout, lse, dmb, scale: float, causal: bool, index: int, ws,
+                split: bool):
+    """dK and dV on card ``index``; for float32 through the split planes in
+    ``ws``, which the launch writes first where ``split`` is set. Returns
+    (dk, dv, whether the split planes were written)."""
+    B, H, Sq, D = q.shape
+    if Sq == 0:  # no query: nothing reaches k or v
+        return torch.zeros_like(k), torch.zeros_like(v), False
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv, False
+    _launch("flash_bwd_dkv", index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dmb.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if ws is None else ws.data_ptr(), int(split), B * H, Sq, k.shape[2], D,
+            _CODES[q.dtype], float(scale), int(bool(causal)))
+    return dk, dv, split and ws is not None
+
+
+def _dq_launch(q, k, v, dout, lse, dmb, scale: float, causal: bool, index: int, ws,
+               split: bool):
+    """dQ on card ``index``, with the split planes of :func:`_dkv_launch`."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if Sk == 0:  # no key: every score cotangent is empty
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd_dq", index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dmb.data_ptr(), dq.data_ptr(), None if ws is None else ws.data_ptr(),
+            int(split), B * H, Sq, Sk, D, _CODES[q.dtype], float(scale), int(bool(causal)))
+    return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
@@ -533,16 +592,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
     if _on_cpu(q, k, v, dout, lse, dmb):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, scale, causal)
     index = _check_card_backward(q, k, v, dout, lse, dmb)
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    if Sq == 0:  # no query: nothing reaches k or v
-        return torch.zeros_like(k), torch.zeros_like(v)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if dk.numel() == 0:
-        return dk, dv
-    _launch("flash_bwd_dkv", index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dmb.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, Sq, Sk, D,
-            _CODES[q.dtype], float(scale), int(bool(causal)))
+    dk, dv, _ = _dkv_launch(q, k, v, dout, lse, dmb, scale, causal, index,
+                            _split_workspace(q, k), True)
     return dk, dv
 
 
@@ -555,17 +606,8 @@ def flash_bwd_dq(q, k, v, dout, lse, dmb, scale: Optional[float] = None, causal:
     if _on_cpu(q, k, v, dout, lse, dmb):
         return flash_bwd_dq_plain(q, k, v, dout, lse, dmb, scale, causal)
     index = _check_card_backward(q, k, v, dout, lse, dmb)
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    if Sk == 0:  # no key: every score cotangent is empty
-        return torch.zeros_like(q)
-    dq = torch.empty_like(q)
-    if dq.numel() == 0:
-        return dq
-    _launch("flash_bwd_dq", index, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dmb.data_ptr(), dq.data_ptr(), B * H, Sq, Sk, D, _CODES[q.dtype],
-            float(scale), int(bool(causal)))
-    return dq
+    return _dq_launch(q, k, v, dout, lse, dmb, scale, causal, index, _split_workspace(q, k),
+                      True)
 
 
 # --------------------------------------------------------------------------- #

@@ -21,7 +21,7 @@ __all__ = [
     "int32", "int", "int64", "long", "bfloat16", "float16", "half",
     "float32", "float", "float_", "float64", "double", "complex64", "cfloat",
     "csingle", "complex128", "cdouble", "canonical_heat_type",
-    "heat_type_is_exact", "promote_types",
+    "heat_type_is_exact", "promote_types", "result_type",
     "can_cast", "accumulation_dtype",
 ]
 
@@ -280,3 +280,48 @@ def can_cast(from_, to, casting: str = "intuitive") -> builtins.bool:
     if casting == "intuitive":
         return to_t in _INTUITIVE[from_t]
     return to_t in _SAFE[from_t] or _KINDS[from_t] == _KINDS[to_t]
+
+
+def _kind_rank(t) -> builtins.int:
+    if issubclass(t, complexfloating):
+        return 3
+    if issubclass(t, floating):
+        return 2
+    if issubclass(t, integer):
+        return 1
+    return 0
+
+
+def result_type(*arrays_and_types) -> type:
+    """Promotion over arrays, dtypes and scalars (heat_tpu ``types.py:416``:
+    precedence array(0) > type(1) > 0-d array(2) > python scalar(3); same
+    kind → higher precedence wins, different kind → higher kind wins)."""
+    from .dndarray import DNDarray
+
+    def classify(arg):
+        if isinstance(arg, DNDarray):
+            return arg.dtype, (0 if arg.ndim > 0 else 2)
+        if isinstance(arg, np.ndarray) or hasattr(arg, "dtype"):
+            t = canonical_heat_type(arg.dtype)
+            return t, (0 if len(getattr(arg, "shape", (1,))) > 0 else 2)
+        try:
+            return canonical_heat_type(arg), 1
+        except TypeError:
+            return canonical_heat_type(type(arg)), 3
+
+    t1, p1 = classify(arrays_and_types[0])
+    for arg in arrays_and_types[1:]:
+        t2, p2 = classify(arg)
+        if t1 == t2:
+            p1 = min(p1, p2)
+            continue
+        if p1 == p2:
+            t1 = promote_types(t1, t2)
+            continue
+        k1, k2 = _kind_rank(t1), _kind_rank(t2)
+        if k1 == k2:
+            t1 = t1 if p1 < p2 else t2
+        else:
+            t1 = t1 if k1 > k2 else t2
+        p1 = min(p1, p2)
+    return t1

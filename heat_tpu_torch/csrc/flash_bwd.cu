@@ -1,8 +1,8 @@
 // flash_bwd: the flash-attention backward, two kernels that recompute the
 // probabilities from the forward's saved log-sum-exp (lse). Both run here
-// for float32 and float16; heat_flash_bwd_dkv and heat_flash_bwd_dq route
-// bf16, by dtype alone, to the tensor-core kernels of flash_bwd_dkv_sm90.cu
-// and flash_bwd_dq_sm90.cu.
+// for float16; heat_flash_bwd_dkv and heat_flash_bwd_dq route bf16 and
+// float32, by dtype alone, to the tensor-core kernels of
+// flash_bwd_dkv_sm90.cu and flash_bwd_dq_sm90.cu.
 //
 // Replaces the TPU kernels launched by heat_tpu/core/pallas_kernels.py:549
 // _flash_bwd_impl:
@@ -429,46 +429,60 @@ cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, cons
                                const float* lse, const float* dmb, void* dk, void* dv,
                                int64_t bh, int sq, int sk, int d, float scale, int causal,
                                cudaStream_t s);
+cudaError_t flash_bwd_dkv_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
+                                   const float* lse, const float* dmb, void* dk, void* dv,
+                                   void* ws, int split, int64_t bh, int sq, int sk, int d,
+                                   float scale, int causal, cudaStream_t s);
 cudaError_t flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* dmb, void* dq, int64_t bh, int sq,
                               int sk, int d, float scale, int causal, cudaStream_t s);
+cudaError_t flash_bwd_dq_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* dmb, void* dq, void* ws,
+                                  int split, int64_t bh, int sq, int sk, int d, float scale,
+                                  int causal, cudaStream_t s);
 
 // q, dout (bh, sq, d) and k, v (bh, sk, d), contiguous and of one dtype
 // (f32, bf16 or f16) on card `device`; lse and dmb (bh, sq) float32. dk and
-// dv (bh, sk, d) in that dtype. The wrapper guarantees bh >= 1, 1 <= sq,
-// 1 <= sk <= 65535 * 64 and 1 <= d <= 128. bf16 runs on the tensor cores (flash_bwd_dkv_sm90.cu),
-// f32 and f16 here. Returns the launch's cudaError_t.
+// dv (bh, sk, d) in that dtype. ws: for f32 the workspace of the split
+// planes, 12 * bh * d8 * (sq + sk) bytes (d8: d rounded up to 8), 16-byte
+// aligned; unused otherwise. The wrapper guarantees bh >= 1, 1 <= sq,
+// 1 <= sk <= 65535 * 64 and 1 <= d <= 128. bf16 and f32 run on the tensor
+// cores (flash_bwd_dkv_sm90.cu), f16 here. Returns the launch's cudaError_t.
 extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* dmb, void* dk, void* dv,
-                                  int64_t bh, int sq, int sk, int d, int dtype, float scale,
-                                  int causal, int device, void* stream) {
+                                  const void* lse, const void* dmb, void* dk, void* dv, void* ws,
+                                  int split, int64_t bh, int sq, int sk, int d, int dtype,
+                                  float scale, int causal, int device, void* stream) {
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* m = static_cast<const float*>(dmb);
   switch (dtype) {
-    case kF32: return dkv_d<float>(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
+    case kF32:
+      return flash_bwd_dkv_sm90_f32(q, k, v, dout, l, m, dk, dv, ws, split, bh, sq, sk, d, scale,
+                                    causal, s);
     case kBF16: return flash_bwd_dkv_sm90(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
     case kF16: return dkv_d<__half>(q, k, v, dout, l, m, dk, dv, bh, sq, sk, d, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The same inputs; dq (bh, sq, d) in their dtype. The wrapper guarantees
-// bh >= 1, 1 <= sq <= 65535 * 64, 1 <= sk and 1 <= d <= 128. bf16 runs on
-// the tensor cores (flash_bwd_dq_sm90.cu), f32 and f16 here.
+// The same inputs and workspace; dq (bh, sq, d) in their dtype. The wrapper
+// guarantees bh >= 1, 1 <= sq <= 65535 * 64, 1 <= sk and 1 <= d <= 128.
+// bf16 and f32 run on the tensor cores (flash_bwd_dq_sm90.cu), f16 here.
 extern "C" int heat_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* dmb, void* dq, int64_t bh, int sq,
-                                 int sk, int d, int dtype, float scale, int causal, int device,
-                                 void* stream) {
+                                 const void* lse, const void* dmb, void* dq, void* ws, int split,
+                                 int64_t bh, int sq, int sk, int d, int dtype, float scale,
+                                 int causal, int device, void* stream) {
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* m = static_cast<const float*>(dmb);
   switch (dtype) {
-    case kF32: return dq_d<float>(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
+    case kF32:
+      return flash_bwd_dq_sm90_f32(q, k, v, dout, l, m, dq, ws, split, bh, sq, sk, d, scale,
+                                   causal, s);
     case kBF16: return flash_bwd_dq_sm90(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
     case kF16: return dq_d<__half>(q, k, v, dout, l, m, dq, bh, sq, sk, d, scale, causal, s);
     default: return cudaErrorInvalidValue;

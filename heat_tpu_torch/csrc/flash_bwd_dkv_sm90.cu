@@ -1,10 +1,10 @@
-// flash_bwd_dkv_sm90: dK and dV of the bf16 flash-attention backward on
-// Hopper's tensor cores, recomputing the probabilities from the forward's
-// saved log-sum-exp (lse).
+// flash_bwd_dkv_sm90: dK and dV of the bf16 and float32 flash-attention
+// backward on Hopper's tensor cores, recomputing the probabilities from the
+// forward's saved log-sum-exp (lse).
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:412
 // _flash_bwd_dkv_kernel (pallas_call :592, launched by _flash_bwd_impl
-// :549) for bf16 inputs; float32 and float16 stay on the fp32-FMA kernel of
+// :549) for bf16 and float32 inputs; float16 stays on the fp32-FMA kernel of
 // flash_bwd.cu, which routes here by dtype only. For q, dout (BH, Sq, D),
 // k, v (BH, Sk, D), lse and dmb (BH, Sq) float32, with s = scale * k . q:
 //   p  = exp(s - lse) where the pair is visible and lse is finite, else 0,
@@ -23,6 +23,14 @@
 // and dK += dS^T Q split the fp32 P^T and dS^T into three bf16 terms
 // (sm90_common.cuh, split3) and take three passes each, smallest term
 // first; the scale is applied to the fp32 scores and to dK at the end.
+// float32 inputs (F32): every product has two float32 operands. A split pass
+// (sm90_common.cuh, split_inputs) first writes each of q, k, v and dout as
+// its three split3 planes into the caller's workspace, padded to whole
+// 16-byte rows; the kernel then runs S^T, dP^T, dV and dK in six passes
+// each (the term pairs i + j <= 2, smallest first; sm90_common.cuh,
+// pass_a/pass_b), with P^T and dS^T split by split3 in registers, and
+// writes float32 dK and dV. The order of work is the bf16 kernel's, with
+// three planes per tile.
 //
 // What bounds it on an H100: at the training path's shape (8 x 16 heads of
 // 64, 1024 rows, causal) the eight bf16 passes per live pair, 16 * D FLOPs,
@@ -48,48 +56,57 @@
 // from the same tiles, splitting dS^T while dV's passes run: nothing is
 // transposed in memory. Head dims pad to DP in {64, 128} with zeros in
 // shared memory only; at DP = 128 query tiles shrink to 32 rows so the
-// accumulators fit the registers.
+// accumulators fit the registers. float32 runs 24 passes per live pair, 3x
+// the bf16 kernel's work, plus the split pass's traffic (its inputs read
+// once, three bf16 planes written once); three planes per tile triple the
+// shared memory, so its ring has 2 stages and at DP = 128 a block holds 64
+// keys with one consumer warpgroup (256 threads, no register hand-over):
+// 192 KB either way.
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int BKB = 128;  // keys per block (64 per consumer warpgroup)
-constexpr int NS = 3;     // query-tile ring stages
-constexpr int NT = 384;   // two consumer warpgroups and one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP>
+// F32: float32 inputs as three bf16 planes (TERMS = 3), float32 output
+template <int DP, bool F32>
 struct Layout {
-  static constexpr int BQ = DP == 64 ? 64 : 32;     // query rows per streamed tile
-  static constexpr int KV_BYTES = BKB * DP * 2;     // the K or V tile
-  static constexpr int Q_BYTES = BQ * DP * 2;       // one Q or dO tile
-  static constexpr int STAGE = 2 * Q_BYTES;         // Q then dO
-  static constexpr int SMEM = 2 * KV_BYTES + NS * STAGE + 1024;  // + alignment slack
+  static constexpr int NC = F32 && DP == 128 ? 1 : 2;  // consumer warpgroups
+  static constexpr int NT = 128 * (NC + 1);            // and one producer warpgroup
+  static constexpr int BKB = 64 * NC;                  // keys per block
+  static constexpr int NS = F32 ? 2 : 3;               // query-tile ring stages
+  static constexpr int BQ = DP == 64 ? 64 : 32;        // query rows per streamed tile
+  static constexpr int TERMS = F32 ? 3 : 1;            // bf16 planes per input tile
+  static constexpr int NP = F32 ? 6 : 1;               // passes of a product
+  static constexpr int KV_BYTES = BKB * DP * 2;        // one plane of the K or V tile
+  static constexpr int Q_BYTES = BQ * DP * 2;          // one plane of a Q or dO tile
+  static constexpr int STAGE = 2 * TERMS * Q_BYTES;    // Q's planes then dO's
+  static constexpr int SMEM = 2 * TERMS * KV_BYTES + NS * STAGE + 1024;  // + alignment slack
+  using Out = typename std::conditional<F32, float, __nv_bfloat16>::type;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo,
+template <int DP, bool F32>
+__global__ void __launch_bounds__(Layout<DP, F32>::NT, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
                           const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ dmb, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int sq, int sk, int d, float scale,
+                          const float* __restrict__ dmb, void* __restrict__ dk_out,
+                          void* __restrict__ dv_out, int sq, int sk, int d, float scale,
                           int causal, int use_tma) {
-  using L = Layout<DP>;
-  constexpr int BQ = L::BQ;
+  using L = Layout<DP, F32>;
+  typename L::Out* dk = static_cast<typename L::Out*>(dk_out);  // bf16, or float32 (F32)
+  typename L::Out* dv = static_cast<typename L::Out*>(dv_out);
+  constexpr int BQ = L::BQ, BKB = L::BKB, NS = L::NS, NC = L::NC;
+  constexpr int T = L::TERMS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ RingBars<NS> bars;  // once: the K and V tiles; the ring: Q/dO tiles
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* ks = smem;
-  uint8_t* vs = smem + L::KV_BYTES;
-  uint8_t* ring = smem + 2 * L::KV_BYTES;
+  uint8_t* ks = smem;                       // K's planes, then V's
+  uint8_t* ring = smem + 2 * T * L::KV_BYTES;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -101,22 +118,30 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nqt = (sq + BQ - 1) / BQ;
   const int ntiles = max(0, nqt - qt0);
 
-  if (tid == 0) bars.init(use_tma);
+  if (tid == 0) bars.init(use_tma, 4 * NC);
   __syncthreads();
 
-  if (warp >= 8) {
+  if (warp >= 4 * NC) {
     // ---- producer warpgroup --------------------------------------------
     // It hands its registers to the consumers; with TMA one lane works.
-    setmaxnreg_dec<40>();
-    const Src kv[2] = {{&tk, k, sk}, {&tv, v, sk}};
-    const Src qdo[2] = {{&tq, q, sq}, {&tdo, dout, sq}};
-    produce<DP, NS, BKB, 2, BQ, 2>(bars, use_tma, tid - 256, bh, d, ks, kv, k0, ring, qdo, qt0,
-                                   ntiles);
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    // maps: q's planes, k's, v's, dout's; a float32 plane is never staged by
+    // plain loads (use_tma is set), so its pointer is not read
+    Src kv[2 * T], qdo[2 * T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      kv[j] = {&maps.m[T + j], k, sk};
+      kv[T + j] = {&maps.m[2 * T + j], v, sk};
+      qdo[j] = {&maps.m[j], q, sq};
+      qdo[T + j] = {&maps.m[3 * T + j], dout, sq};
+    }
+    produce<DP, NS, BKB, 2 * T, BQ, 2 * T>(bars, use_tma, tid - 128 * NC, bh, d, ks, kv, k0,
+                                           ring, qdo, qt0, ntiles);
     return;
   }
 
   // ---- consumer warpgroups ---------------------------------------------
-  setmaxnreg_inc<232>();
+  if constexpr (NC == 2) setmaxnreg_inc<232>();
   const int wg = warp >> 2;      // 64-key half of the key tile
   const int kw = k0 + wg * 64;   // first key of this warpgroup
   const int key0 = kw + 16 * (warp & 3) + (lane >> 2);  // keys key0 and key0 + 8 of this thread
@@ -137,8 +162,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
 
   mbar_wait(&bars.once, 0);
-  const uint32_t k_addr = smem_u32(ks) + wg * 64 * 128;
-  const uint32_t v_addr = smem_u32(vs) + wg * 64 * 128;
+  // plane j of this warpgroup's 64 keys of K and of V
+  auto k_addr = [&](int j) { return smem_u32(ks) + j * L::KV_BYTES + wg * 64 * 128; };
+  auto v_addr = [&](int j) { return smem_u32(ks) + (T + j) * L::KV_BYTES + wg * 64 * 128; };
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % NS;
@@ -156,23 +182,33 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mb[c] = row < sq ? dmbb[row] : 0.f;
       }
       mbar_wait(&bars.full[s], (t / NS) & 1);
-      const uint32_t q_addr = smem_u32(ring + s * L::STAGE);
-      const uint32_t o_addr = q_addr + L::Q_BYTES;
+      // plane j of the stage's Q and dO tiles
+      const uint32_t stage = smem_u32(ring + s * L::STAGE);
+      auto q_addr = [&](int j) { return stage + j * L::Q_BYTES; };
+      auto o_addr = [&](int j) { return stage + (T + j) * L::Q_BYTES; };
 
+      // S^T = K Q^T and dP^T = V dO^T: one pass (bf16), or six of the two
+      // float32 operands' planes
       float st[BQ / 2], dpt[BQ / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
-        Wgmma<BQ>::ss(st, kmajor_desc(k_addr + (kk >> 2) * BKB * 128 + off),
-                      kmajor_desc(q_addr + (kk >> 2) * BQ * 128 + off), kk > 0);
-      }
+      for (int p = 6 - L::NP; p < 6; ++p)
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t off = (kk & 3) * 32;
-        Wgmma<BQ>::ss(dpt, kmajor_desc(v_addr + (kk >> 2) * BKB * 128 + off),
-                      kmajor_desc(o_addr + (kk >> 2) * BQ * 128 + off), kk > 0);
-      }
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
+          Wgmma<BQ>::ss(st, kmajor_desc(k_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
+                        kmajor_desc(q_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
+                        p > 6 - L::NP || kk > 0);
+        }
+#pragma unroll
+      for (int p = 6 - L::NP; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk & 3) * 32;
+          Wgmma<BQ>::ss(dpt, kmajor_desc(v_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
+                        kmajor_desc(o_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
+                        p > 6 - L::NP || kk > 0);
+        }
       wgmma_commit();
       wgmma_wait<0>();
 
@@ -192,43 +228,82 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         dpt[i] = p * (dpt[i] + mb[c]);  // rows past sq have p = 0 and dmb = 0
       }
 
-      uint32_t a1[BQ / 16][4], a2[BQ / 16][4], a3[BQ / 16][4];
+      // dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
+      // fragments: bf16, their three split3 terms against dO's (Q's) one
+      // plane; float32, the six passes of their terms and dO's (Q's) planes
+      if constexpr (F32) {
+        uint32_t a[3][BQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
+        for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split3(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1], a1[kk][j], a2[kk][j], a3[kk][j]);
-      wgmma_fence();
+          for (int j = 0; j < 4; ++j)
+            split3(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1], a[0][kk][j], a[1][kk][j],
+                   a[2][kk][j]);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_v, a3[kk], sw128_desc(o_addr + kk * 2048, BQ * 128));
+        for (int p = 0; p < 6; ++p)
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_v, a2[kk], sw128_desc(o_addr + kk * 2048, BQ * 128));
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_v, a1[kk], sw128_desc(o_addr + kk * 2048, BQ * 128));
-      wgmma_commit();
-      if constexpr (DP > 64) wgmma_wait<0>();  // frees the P^T terms' registers
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<DP>::rs(acc_v, a[pass_a(p)][kk],
+                          sw128_desc(o_addr(pass_b(p)) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        if constexpr (DP > 64) wgmma_wait<0>();  // frees the P^T terms' registers
 
-      uint32_t b1[BQ / 16][4], b2[BQ / 16][4], b3[BQ / 16][4];
+        uint32_t b[3][BQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
+        for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split3(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1], b1[kk][j], b2[kk][j], b3[kk][j]);
-      wgmma_fence();
+          for (int j = 0; j < 4; ++j)
+            split3(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1], b[0][kk][j], b[1][kk][j],
+                   b[2][kk][j]);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_k, b3[kk], sw128_desc(q_addr + kk * 2048, BQ * 128));
+        for (int p = 0; p < 6; ++p)
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_k, b2[kk], sw128_desc(q_addr + kk * 2048, BQ * 128));
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<DP>::rs(acc_k, b[pass_a(p)][kk],
+                          sw128_desc(q_addr(pass_b(p)) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+      } else {
+        uint32_t a1[BQ / 16][4], a2[BQ / 16][4], a3[BQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-        Wgmma<DP>::rs(acc_k, b1[kk], sw128_desc(q_addr + kk * 2048, BQ * 128));
-      wgmma_commit();
-      wgmma_wait<0>();
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split3(st[8 * kk + 2 * j], st[8 * kk + 2 * j + 1], a1[kk][j], a2[kk][j], a3[kk][j]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_v, a3[kk], sw128_desc(o_addr(0) + kk * 2048, BQ * 128));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_v, a2[kk], sw128_desc(o_addr(0) + kk * 2048, BQ * 128));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_v, a1[kk], sw128_desc(o_addr(0) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        if constexpr (DP > 64) wgmma_wait<0>();  // frees the P^T terms' registers
+
+        uint32_t b1[BQ / 16][4], b2[BQ / 16][4], b3[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split3(dpt[8 * kk + 2 * j], dpt[8 * kk + 2 * j + 1], b1[kk][j], b2[kk][j], b3[kk][j]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_k, b3[kk], sw128_desc(q_addr(0) + kk * 2048, BQ * 128));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_k, b2[kk], sw128_desc(q_addr(0) + kk * 2048, BQ * 128));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<DP>::rs(acc_k, b1[kk], sw128_desc(q_addr(0) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
     } else {
       mbar_wait(&bars.full[s], (t / NS) & 1);
     }
@@ -237,8 +312,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   // ---- epilogue: dK (times scale, NaN where poisoned) and dV -------------
   const float nan = __int_as_float(0x7fc00000);
-  const bool pairs = (d & 1) == 0 && (reinterpret_cast<uintptr_t>(dk) & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(dv) & 3) == 0;
+  constexpr uintptr_t pair_align = 2 * sizeof(typename L::Out) - 1;
+  const bool pairs = (d & 1) == 0 && (reinterpret_cast<uintptr_t>(dk) & pair_align) == 0 &&
+                     (reinterpret_cast<uintptr_t>(dv) & pair_align) == 0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const int key = key0 + 8 * ((i >> 1) & 1);
@@ -248,43 +324,65 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const float k0v = poison ? nan : acc_k[i] * scale;
     const float k1v = poison ? nan : acc_k[i + 1] * scale;
     if (pairs) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(k0v, k1v);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(dk + at) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(dv + at) = make_float2(acc_v[i], acc_v[i + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(k0v, k1v);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+      }
     } else {
-      dk[at] = __float2bfloat16(k0v);
-      dv[at] = __float2bfloat16(acc_v[i]);
+      dk[at] = from_acc<typename L::Out>(k0v);
+      dv[at] = from_acc<typename L::Out>(acc_v[i]);
       if (col + 1 < d) {
-        dk[at + 1] = __float2bfloat16(k1v);
-        dv[at + 1] = __float2bfloat16(acc_v[i + 1]);
+        dk[at + 1] = from_acc<typename L::Out>(k1v);
+        dv[at + 1] = from_acc<typename L::Out>(acc_v[i + 1]);
       }
     }
   }
 }
 
-template <int DP>
+// The bf16 kernel on q, k, v, dout as they are (TMA where it can address
+// them, else plain loads), or the float32 kernel on their split planes.
+template <int DP, bool F32>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* dmb, void* dk, void* dv, int64_t bh, int sq,
-                   int sk, int d, float scale, int causal, cudaStream_t stream) {
-  using L = Layout<DP>;
-  constexpr int smem = L::SMEM;
+                   const float* lse, const float* dmb, void* dk, void* dv, void* ws, int split,
+                   int64_t bh, int sq, int sk, int d, float scale, int causal,
+                   cudaStream_t stream) {
+  using L = Layout<DP, F32>;
+  constexpr int smem = L::SMEM, BKB = L::BKB;
   static std::atomic<uint32_t> smem_raised{0};
   cudaError_t err = raise_smem_limit(
-      reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<DP>), smem, smem_raised);
+      reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<DP, F32>), smem, smem_raised);
   if (err != cudaSuccess) return err;
-  const int use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d) && tma_ok(dout, d);
-  CUtensorMap tq{}, tk{}, tv{}, tdo{};
-  if (use_tma) {
-    if ((err = make_tmap(&tq, q, bh, sq, d, L::BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tdo, dout, bh, sq, d, L::BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tk, k, bh, sk, d, BKB)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tv, v, bh, sk, d, BKB)) != cudaSuccess) return err;
+  TMaps maps{};
+  const void* src[4] = {q, k, v, dout};
+  int use_tma;
+  if constexpr (F32) {
+    SplitInputs planes;
+    err = split_inputs(q, k, v, dout, ws, split, bh, sq, sk, d, stream, &planes);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 4; ++i) src[i] = planes.plane[i][0];
+    use_tma = 1;  // the planes' rows are whole 16-byte chunks
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 3; ++j)
+        if ((err = make_tmap(&maps.m[3 * i + j], planes.plane[i][j], bh, i == 1 || i == 2 ? sk : sq,
+                             planes.d8, i == 1 || i == 2 ? BKB : L::BQ)) != cudaSuccess)
+          return err;
+  } else {
+    use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d) && tma_ok(dout, d);
+    if (use_tma)
+      for (int i = 0; i < 4; ++i)
+        if ((err = make_tmap(&maps.m[i], src[i], bh, i == 1 || i == 2 ? sk : sq, d,
+                             i == 1 || i == 2 ? BKB : L::BQ)) != cudaSuccess)
+          return err;
   }
   dim3 grid(static_cast<unsigned>(bh), (sk + BKB - 1) / BKB);
-  flash_bwd_dkv_sm90_kernel<DP><<<grid, NT, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, dmb,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq, sk, d, scale, causal,
-      use_tma);
+  flash_bwd_dkv_sm90_kernel<DP, F32><<<grid, L::NT, smem, stream>>>(
+      maps, static_cast<const __nv_bfloat16*>(src[0]), static_cast<const __nv_bfloat16*>(src[1]),
+      static_cast<const __nv_bfloat16*>(src[2]), static_cast<const __nv_bfloat16*>(src[3]), lse,
+      dmb, dk, dv, sq, sk, d, scale, causal, use_tma);
   return cudaGetLastError();
 }
 
@@ -295,8 +393,27 @@ cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, cons
                                const float* lse, const float* dmb, void* dk, void* dv,
                                int64_t bh, int sq, int sk, int d, float scale, int causal,
                                cudaStream_t s) {
-  if (d <= 64) return launch<64>(q, k, v, dout, lse, dmb, dk, dv, bh, sq, sk, d, scale, causal, s);
+  if (d <= 64)
+    return launch<64, false>(q, k, v, dout, lse, dmb, dk, dv, nullptr, 0, bh, sq, sk, d,
+                             scale, causal, s);
   if (d <= 128)
-    return launch<128>(q, k, v, dout, lse, dmb, dk, dv, bh, sq, sk, d, scale, causal, s);
+    return launch<128, false>(q, k, v, dout, lse, dmb, dk, dv, nullptr, 0, bh, sq, sk, d,
+                              scale, causal, s);
+  return cudaErrorInvalidValue;
+}
+
+// The float32 case: the same arguments, the workspace of the split planes,
+// 12 * bh * d8 * (sq + sk) bytes (d8: d rounded up to 8), and whether to
+// write them (split) or read them as the other kernel wrote them.
+cudaError_t flash_bwd_dkv_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
+                                   const float* lse, const float* dmb, void* dk, void* dv,
+                                   void* ws, int split, int64_t bh, int sq, int sk, int d,
+                                   float scale, int causal, cudaStream_t s) {
+  if (d <= 64)
+    return launch<64, true>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                            causal, s);
+  if (d <= 128)
+    return launch<128, true>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                             causal, s);
   return cudaErrorInvalidValue;
 }

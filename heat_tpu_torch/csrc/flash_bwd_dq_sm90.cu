@@ -1,10 +1,10 @@
-// flash_bwd_dq_sm90: dQ of the bf16 flash-attention backward on Hopper's
-// tensor cores, recomputing the probabilities from the forward's saved
-// log-sum-exp (lse).
+// flash_bwd_dq_sm90: dQ of the bf16 and float32 flash-attention backward on
+// Hopper's tensor cores, recomputing the probabilities from the forward's
+// saved log-sum-exp (lse).
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:488
 // _flash_bwd_dq_kernel (pallas_call :618, launched by _flash_bwd_impl :549)
-// for bf16 inputs; float32 and float16 stay on the fp32-FMA kernel of
+// for bf16 and float32 inputs; float16 stays on the fp32-FMA kernel of
 // flash_bwd.cu, which routes here by dtype only. For q, dout (BH, Sq, D),
 // k, v (BH, Sk, D), lse and dmb (BH, Sq) float32, with s = scale * q . k:
 //   p  = exp(s - lse) where the pair is visible and lse is finite, else 0,
@@ -21,7 +21,12 @@
 // one bf16 wgmma pass each (exact products, fp32 sums); dQ += dS K splits
 // the fp32 dS into three bf16 terms (sm90_common.cuh, split3) and takes
 // three passes, smallest term first; the scale is applied to the fp32
-// scores and to dQ at the end.
+// scores and to dQ at the end. float32 inputs (F32): a split pass
+// (sm90_common.cuh, split_inputs) first writes q, k, v and dout as their
+// three split3 planes into the caller's workspace (or the caller passes the
+// planes the dK/dV launch of the same backward wrote); S, dP and dQ then take
+// six passes each (the term pairs i + j <= 2, smallest first), with dS split
+// by split3 in registers, and dQ is written in float32.
 //
 // What bounds it on an H100: at the training path's shape (8 x 16 heads of
 // 64, 1024 rows, causal) the five bf16 passes per live pair, 10 * D FLOPs,
@@ -47,45 +52,55 @@
 // nothing is transposed in memory. Tile t's S and dP run while tile t - 1's
 // dS K is still on the tensor cores. Head dims pad to DP in {64, 128} with
 // zeros in shared memory only; dQ stays in registers and is scaled and
-// written once.
+// written once. float32 runs 18 passes per live pair, 3.6x the bf16
+// kernel's work, plus the split pass's traffic; three planes per tile
+// triple the shared memory, so its ring has 2 stages, and at DP = 128 a
+// block holds 64 query rows with one consumer warpgroup (256 threads, no
+// register hand-over) and key tiles of 32: 192 KB either way.
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int BQ = 128;  // query rows per block (64 per consumer warpgroup)
-constexpr int BK = 64;   // keys per streamed tile
-constexpr int NS = 4;    // K/V ring stages
-constexpr int NT = 384;  // two consumer warpgroups and one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP>
+// F32: float32 inputs as three bf16 planes (TERMS = 3), float32 output
+template <int DP, bool F32>
 struct Layout {
-  static constexpr int Q_BYTES = BQ * DP * 2;   // the Q or the dO tile
-  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
-  static constexpr int STAGE = 2 * KV_BYTES;    // K then V
-  static constexpr int SMEM = 2 * Q_BYTES + NS * STAGE + 1024;  // + alignment slack
+  static constexpr bool kNarrow = F32 && DP == 128;  // 3 planes x 128 columns
+  static constexpr int NC = kNarrow ? 1 : 2;         // consumer warpgroups
+  static constexpr int NT = 128 * (NC + 1);          // and one producer warpgroup
+  static constexpr int BQ = 64 * NC;                 // query rows per block
+  static constexpr int BK = kNarrow ? 32 : 64;       // keys per streamed tile
+  static constexpr int NS = F32 ? 2 : 4;             // K/V ring stages
+  static constexpr int TERMS = F32 ? 3 : 1;          // bf16 planes per input tile
+  static constexpr int NP = F32 ? 6 : 1;             // passes of a product
+  static constexpr int Q_BYTES = BQ * DP * 2;        // one plane of the Q or the dO tile
+  static constexpr int KV_BYTES = BK * DP * 2;       // one plane of a K or V tile
+  static constexpr int STAGE = 2 * TERMS * KV_BYTES;  // K's planes then V's
+  static constexpr int SMEM = 2 * TERMS * Q_BYTES + NS * STAGE + 1024;  // + alignment slack
+  using Out = typename std::conditional<F32, float, __nv_bfloat16>::type;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo,
+template <int DP, bool F32>
+__global__ void __launch_bounds__(Layout<DP, F32>::NT, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ TMaps maps,
                          const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ dmb, __nv_bfloat16* __restrict__ dq, int sq,
+                         const float* __restrict__ dmb, void* __restrict__ dq_out, int sq,
                          int sk, int d, float scale, int causal, int use_tma) {
-  using L = Layout<DP>;
+  using L = Layout<DP, F32>;
+  typename L::Out* dq = static_cast<typename L::Out*>(dq_out);  // bf16, or float32 (F32)
+  constexpr int BQ = L::BQ, BK = L::BK, NS = L::NS, NC = L::NC;
+  constexpr int T = L::TERMS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ RingBars<NS> bars;  // once: the Q and dO tiles; the ring: K/V tiles
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* qs = smem;                    // Q, then dO at qs + Q_BYTES
-  uint8_t* ring = smem + 2 * L::Q_BYTES;
+  uint8_t* qs = smem;                        // Q's planes, then dO's
+  uint8_t* ring = smem + 2 * T * L::Q_BYTES;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -96,23 +111,31 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int kend = causal ? min(sk, q0 + BQ + offset) : sk;
   const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
 
-  if (tid == 0) bars.init(use_tma);
+  if (tid == 0) bars.init(use_tma, 4 * NC);
   __syncthreads();
 
-  if (warp >= 8) {
+  if (warp >= 4 * NC) {
     // ---- producer warpgroup --------------------------------------------
     // It hands its registers to the consumers; with TMA one lane works.
-    setmaxnreg_dec<40>();
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
     if (ntiles == 0) return;  // no key is visible to any row of the tile
-    const Src qdo[2] = {{&tq, q, sq}, {&tdo, dout, sq}};
-    const Src kv[2] = {{&tk, k, sk}, {&tv, v, sk}};
-    produce<DP, NS, BQ, 2, BK, 2>(bars, use_tma, tid - 256, bh, d, qs, qdo, q0, ring, kv, 0,
-                                  ntiles);
+    // maps: q's planes, k's, v's, dout's; a float32 plane is never staged by
+    // plain loads (use_tma is set), so its pointer is not read
+    Src qdo[2 * T], kv[2 * T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      qdo[j] = {&maps.m[j], q, sq};
+      qdo[T + j] = {&maps.m[3 * T + j], dout, sq};
+      kv[j] = {&maps.m[T + j], k, sk};
+      kv[T + j] = {&maps.m[2 * T + j], v, sk};
+    }
+    produce<DP, NS, BQ, 2 * T, BK, 2 * T>(bars, use_tma, tid - 128 * NC, bh, d, qs, qdo, q0, ring,
+                                          kv, 0, ntiles);
     return;
   }
 
   // ---- consumer warpgroups ---------------------------------------------
-  setmaxnreg_inc<232>();
+  if constexpr (NC == 2) setmaxnreg_inc<232>();
   const int wg = warp >> 2;        // 64-row half of the query tile
   const int qw = q0 + wg * 64;     // first query row of this warpgroup
   const int r0 = qw + 16 * (warp & 3) + (lane >> 2);  // rows r0 and r0 + 8 of this thread
@@ -137,41 +160,56 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float st[BK / 2], dst[BK / 2];  // S then P; dP then dS, of one tile
-  uint32_t a1[BK / 16][4], a2[BK / 16][4], a3[BK / 16][4];  // dS's split terms
+  uint32_t a[3][BK / 16][4];  // dS's split3 terms
 
-  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
-  const uint32_t o_addr = q_addr + L::Q_BYTES;
-  auto k_addr = [&](int t) { return smem_u32(ring + (t % NS) * L::STAGE); };
+  // plane j of this warpgroup's 64 rows of Q and of dO
+  auto q_addr = [&](int j) { return smem_u32(qs) + j * L::Q_BYTES + wg * 64 * 128; };
+  auto o_addr = [&](int j) { return smem_u32(qs) + (T + j) * L::Q_BYTES + wg * 64 * 128; };
+  // plane j of tile t's K and V
+  auto k_addr = [&](int t, int j) { return smem_u32(ring + (t % NS) * L::STAGE) + j * L::KV_BYTES; };
+  auto v_addr = [&](int t, int j) { return k_addr(t, T + j); };
 
-  // S = Q K^T and dP = dO V^T of tile t (one commit group)
+  // S = Q K^T and dP = dO V^T of tile t (one commit group): one pass
+  // (bf16), or six of the float32 operands' planes
   auto mma_sdp = [&](int t) {
-    const uint32_t ka = k_addr(t), va = ka + L::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
-      Wgmma<BK>::ss(st, kmajor_desc(q_addr + (kk >> 2) * BQ * 128 + off),
-                    kmajor_desc(ka + (kk >> 2) * BK * 128 + off), kk > 0);
-    }
+    for (int p = 6 - L::NP; p < 6; ++p)
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk & 3) * 32;
-      Wgmma<BK>::ss(dst, kmajor_desc(o_addr + (kk >> 2) * BQ * 128 + off),
-                    kmajor_desc(va + (kk >> 2) * BK * 128 + off), kk > 0);
-    }
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
+        Wgmma<BK>::ss(st, kmajor_desc(q_addr(pass_a(p)) + (kk >> 2) * BQ * 128 + off),
+                      kmajor_desc(k_addr(t, pass_b(p)) + (kk >> 2) * BK * 128 + off),
+                      p > 6 - L::NP || kk > 0);
+      }
+#pragma unroll
+    for (int p = 6 - L::NP; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        Wgmma<BK>::ss(dst, kmajor_desc(o_addr(pass_a(p)) + (kk >> 2) * BQ * 128 + off),
+                      kmajor_desc(v_addr(t, pass_b(p)) + (kk >> 2) * BK * 128 + off),
+                      p > 6 - L::NP || kk > 0);
+      }
     wgmma_commit();
   };
-  // dQ += dS K of tile t from the split terms, smallest first (one commit group)
+  // dQ += dS K of tile t from the split terms, smallest first (one commit
+  // group): bf16, dS's three terms against K; float32, the six passes of
+  // dS's terms and K's planes
   auto mma_dq = [&](int t) {
-    const uint32_t ka = k_addr(t);
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(acc, a3[kk], sw128_desc(ka + kk * 2048, BK * 128));
+      for (int p = 0; p < 6; ++p)
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(acc, a2[kk], sw128_desc(ka + kk * 2048, BK * 128));
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<DP>::rs(acc, a[pass_a(p)][kk],
+                        sw128_desc(k_addr(t, pass_b(p)) + kk * 2048, BK * 128));
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(acc, a1[kk], sw128_desc(ka + kk * 2048, BK * 128));
+      for (int j = 2; j >= 0; --j)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<DP>::rs(acc, a[j][kk], sw128_desc(k_addr(t, 0) + kk * 2048, BK * 128));
+    }
     wgmma_commit();
   };
   // dS of tile t into dst: register i holds row r0 + 8 * ((i / 2) % 2) and
@@ -199,7 +237,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        split3(dst[8 * kk + 2 * j], dst[8 * kk + 2 * j + 1], a1[kk][j], a2[kk][j], a3[kk][j]);
+        split3(dst[8 * kk + 2 * j], dst[8 * kk + 2 * j + 1], a[0][kk][j], a[1][kk][j],
+               a[2][kk][j]);
   };
 
   // Software pipeline: tile t's S and dP run, and its dS is formed, while
@@ -240,47 +279,69 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   bool poison[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) poison[h] = skipped && !isfinite(mb[h]);
-  const bool pairs = (d & 1) == 0 && (reinterpret_cast<uintptr_t>(dq) & 3) == 0;
+  using Out = typename L::Out;
+  const bool pairs =
+      (d & 1) == 0 && (reinterpret_cast<uintptr_t>(dq) & (2 * sizeof(Out) - 1)) == 0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int row = r0 + 8 * h;
     const int col = acc_col(i, lane);
     if (row >= sq || col >= d) continue;
-    __nv_bfloat16* qrow = dq + (static_cast<int64_t>(bh) * sq + row) * d;
+    Out* qrow = dq + (static_cast<int64_t>(bh) * sq + row) * d;
     const float x0 = poison[h] ? nan : acc[i] * scale;
     const float x1 = poison[h] ? nan : acc[i + 1] * scale;
     if (pairs) {
-      *reinterpret_cast<__nv_bfloat162*>(qrow + col) = __floats2bfloat162_rn(x0, x1);
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(qrow + col) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(qrow + col) = __floats2bfloat162_rn(x0, x1);
     } else {
-      qrow[col] = __float2bfloat16(x0);
-      if (col + 1 < d) qrow[col + 1] = __float2bfloat16(x1);
+      qrow[col] = from_acc<Out>(x0);
+      if (col + 1 < d) qrow[col + 1] = from_acc<Out>(x1);
     }
   }
 }
 
-template <int DP>
+// The bf16 kernel on q, k, v, dout as they are (TMA where it can address
+// them, else plain loads), or the float32 kernel on their split planes.
+template <int DP, bool F32>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* dmb, void* dq, int64_t bh, int sq, int sk,
-                   int d, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = Layout<DP>::SMEM;
+                   const float* lse, const float* dmb, void* dq, void* ws, int split, int64_t bh,
+                   int sq, int sk, int d, float scale, int causal, cudaStream_t stream) {
+  using L = Layout<DP, F32>;
+  constexpr int smem = L::SMEM;
   static std::atomic<uint32_t> smem_raised{0};
   cudaError_t err = raise_smem_limit(
-      reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel<DP>), smem, smem_raised);
+      reinterpret_cast<const void*>(flash_bwd_dq_sm90_kernel<DP, F32>), smem, smem_raised);
   if (err != cudaSuccess) return err;
-  const int use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d) && tma_ok(dout, d);
-  CUtensorMap tq{}, tk{}, tv{}, tdo{};
-  if (use_tma) {
-    if ((err = make_tmap(&tq, q, bh, sq, d, BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tdo, dout, bh, sq, d, BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tk, k, bh, sk, d, BK)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tv, v, bh, sk, d, BK)) != cudaSuccess) return err;
+  TMaps maps{};
+  const void* src[4] = {q, k, v, dout};
+  int use_tma;
+  if constexpr (F32) {
+    SplitInputs planes;
+    err = split_inputs(q, k, v, dout, ws, split, bh, sq, sk, d, stream, &planes);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 4; ++i) src[i] = planes.plane[i][0];
+    use_tma = 1;  // the planes' rows are whole 16-byte chunks
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 3; ++j)
+        if ((err = make_tmap(&maps.m[3 * i + j], planes.plane[i][j], bh, i == 1 || i == 2 ? sk : sq,
+                             planes.d8, i == 1 || i == 2 ? L::BK : L::BQ)) != cudaSuccess)
+          return err;
+  } else {
+    use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d) && tma_ok(dout, d);
+    if (use_tma)
+      for (int i = 0; i < 4; ++i)
+        if ((err = make_tmap(&maps.m[i], src[i], bh, i == 1 || i == 2 ? sk : sq, d,
+                             i == 1 || i == 2 ? L::BK : L::BQ)) != cudaSuccess)
+          return err;
   }
-  dim3 grid(static_cast<unsigned>(bh), (sq + BQ - 1) / BQ);
-  flash_bwd_dq_sm90_kernel<DP><<<grid, NT, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, dmb,
-      static_cast<__nv_bfloat16*>(dq), sq, sk, d, scale, causal, use_tma);
+  dim3 grid(static_cast<unsigned>(bh), (sq + L::BQ - 1) / L::BQ);
+  flash_bwd_dq_sm90_kernel<DP, F32><<<grid, L::NT, smem, stream>>>(
+      maps, static_cast<const __nv_bfloat16*>(src[0]), static_cast<const __nv_bfloat16*>(src[1]),
+      static_cast<const __nv_bfloat16*>(src[2]), static_cast<const __nv_bfloat16*>(src[3]), lse,
+      dmb, dq, sq, sk, d, scale, causal, use_tma);
   return cudaGetLastError();
 }
 
@@ -290,7 +351,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 cudaError_t flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                               const float* lse, const float* dmb, void* dq, int64_t bh, int sq,
                               int sk, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 64) return launch<64>(q, k, v, dout, lse, dmb, dq, bh, sq, sk, d, scale, causal, s);
-  if (d <= 128) return launch<128>(q, k, v, dout, lse, dmb, dq, bh, sq, sk, d, scale, causal, s);
+  if (d <= 64)
+    return launch<64, false>(q, k, v, dout, lse, dmb, dq, nullptr, 0, bh, sq, sk, d, scale,
+                             causal, s);
+  if (d <= 128)
+    return launch<128, false>(q, k, v, dout, lse, dmb, dq, nullptr, 0, bh, sq, sk, d, scale,
+                              causal, s);
+  return cudaErrorInvalidValue;
+}
+
+// The float32 case: the same arguments, the workspace of the split planes,
+// 12 * bh * d8 * (sq + sk) bytes (d8: d rounded up to 8), and whether to
+// write them (split) or read them as the other kernel wrote them.
+cudaError_t flash_bwd_dq_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* dmb, void* dq, void* ws,
+                                  int split, int64_t bh, int sq, int sk, int d, float scale,
+                                  int causal, cudaStream_t s) {
+  if (d <= 64)
+    return launch<64, true>(q, k, v, dout, lse, dmb, dq, ws, split, bh, sq, sk, d, scale, causal,
+                            s);
+  if (d <= 128)
+    return launch<128, true>(q, k, v, dout, lse, dmb, dq, ws, split, bh, sq, sk, d, scale,
+                             causal, s);
   return cudaErrorInvalidValue;
 }

@@ -14,10 +14,17 @@
 // (bf16 x bf16 is exact in fp32, summed in fp32); a product with a float32
 // operand x splits it into x1 = bf16(x), x2 = bf16(x - x1),
 // x3 = bf16(x - x1 - x2), 24 significant bits as float32 has, and takes
-// three passes into one fp32 accumulator, smallest term first.
+// three passes into one fp32 accumulator, smallest term first. A product
+// of two float32 operands (the float32 backward kernels) splits both the
+// same way and takes the six passes a_i x b_j with i + j <= 2 (terms 0, 1,
+// 2 from the largest), smallest first: the three it drops are below 2^-24
+// of |a||b|. Six are the fewest that hold the backward's float32 check
+// (tests/test_torch_sm90_precision.py; five are refused).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -155,6 +162,17 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& t1, uint32_
   t3 = bf16x2_bits(b3);
 }
 
+// The passes of a product of two float32 operands, each split into its
+// three split3 terms (0 the largest), smallest first: pass p (0..5)
+// multiplies A's term pass_a(p) by B's term pass_b(p): 2x0, 0x2, 1x1, 1x0,
+// 0x1, 0x0. A product of two bf16 operands takes the last pass alone.
+__device__ __forceinline__ constexpr int pass_a(int p) {
+  return p == 0 ? 2 : (p == 2 || p == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int pass_b(int p) {
+  return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
+}
+
 // Stage rows [0, rows) of a row-major (rows, d) bf16 source into a swizzled
 // (ROWS, DP) tile with plain loads, zeros elsewhere: the path for sources
 // TMA cannot address (d * 2 bytes not a multiple of 16, or a base that is
@@ -191,19 +209,20 @@ struct Src {
 
 // The barriers of a producer/consumer ring of NS stages: `once` for the
 // tiles loaded once, full[s] for stage s loaded, empty[s] for stage s
-// released by lane 0 of each of the 8 consumer warps. With TMA one lane
+// released by lane 0 of each consumer warp (8, or 4 where a kernel runs one
+// consumer warpgroup). With TMA one lane
 // loads (one arrival and the expected bytes), else all 128 producer
 // threads arrive.
 template <int NS>
 struct RingBars {
   uint64_t once, full[NS], empty[NS];
 
-  __device__ __forceinline__ void init(bool use_tma) {
+  __device__ __forceinline__ void init(bool use_tma, int consumer_warps = 8) {
     const int loaders = use_tma ? 1 : 128;
     mbar_init(&once, loaders);
     for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], loaders);
-      mbar_init(&empty[s], 8);
+      mbar_init(&empty[s], consumer_warps);
     }
     fence_barrier_init();
   }
@@ -353,6 +372,78 @@ struct Wgmma<128> {
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
+};
+
+// ---- the float32 kernels' split pass ---------------------------------------
+
+// The split3 terms of a contiguous (rows, d) float32 tensor into three
+// (rows, d8) bf16 planes, the largest first, d8 = d rounded up to a
+// multiple of 8 and the columns past d zero: rows TMA can address whatever
+// d is. One thread per 8 columns of a row (16 bytes of each plane). Static:
+// one copy per translation unit that launches it.
+static __global__ void __launch_bounds__(256)
+split_planes_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
+                    int64_t rows, int d, int d8, int vec) {
+  const int cpr = d8 / 8;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= rows * cpr) return;
+  const int64_t r = e / cpr;
+  const int c0 = static_cast<int>(e - r * cpr) * 8;
+  alignas(16) float v[8];
+  const float* src = x + r * d + c0;
+  if (vec) {  // d == d8 and a 16-byte aligned base
+    *reinterpret_cast<float4*>(v) = reinterpret_cast<const float4*>(src)[0];
+    *reinterpret_cast<float4*>(v + 4) = reinterpret_cast<const float4*>(src)[1];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c0 + j < d ? src[j] : 0.f;
+  }
+  uint4 t1, t2, t3;
+  split3(v[0], v[1], t1.x, t2.x, t3.x);
+  split3(v[2], v[3], t1.y, t2.y, t3.y);
+  split3(v[4], v[5], t1.z, t2.z, t3.z);
+  split3(v[6], v[7], t1.w, t2.w, t3.w);
+  const int64_t at = r * d8 + c0, plane = rows * d8;
+  *reinterpret_cast<uint4*>(planes + at) = t1;
+  *reinterpret_cast<uint4*>(planes + plane + at) = t2;
+  *reinterpret_cast<uint4*>(planes + 2 * plane + at) = t3;
+}
+
+// The split planes of the float32 backward kernels' four inputs in the
+// caller's workspace ws (12 * bh * d8 * (sq + sk) bytes, 16-byte aligned):
+// q, k, v, dout, each its three planes in order, (bh, rows, d8) bf16 per
+// plane. With split == 0 ws already holds them (the other backward kernel
+// of the same call wrote them): only their addresses are set.
+struct SplitInputs {
+  const __nv_bfloat16* plane[4][3];  // [q, k, v, dout][term]
+  int d8;
+};
+
+static cudaError_t split_inputs(const void* q, const void* k, const void* v, const void* dout,
+                                void* ws, int split, int64_t bh, int sq, int sk, int d,
+                                cudaStream_t stream, SplitInputs* out) {
+  const int d8 = (d + 7) / 8 * 8;
+  const void* src[4] = {q, k, v, dout};
+  const int64_t rows[4] = {bh * sq, bh * sk, bh * sk, bh * sq};
+  __nv_bfloat16* at = static_cast<__nv_bfloat16*>(ws);
+  for (int i = 0; i < 4; ++i) {
+    const int64_t threads = rows[i] * (d8 / 8);
+    const int vec = d == d8 && reinterpret_cast<uintptr_t>(src[i]) % 16 == 0;
+    if (split)
+      split_planes_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(src[i]), at, rows[i], d, d8, vec);
+    for (int j = 0; j < 3; ++j) out->plane[i][j] = at + j * rows[i] * d8;
+    at += 3 * rows[i] * d8;
+  }
+  out->d8 = d8;
+  return cudaGetLastError();
+}
+
+// The tensor maps of a kernel's inputs, passed as one __grid_constant__
+// parameter: per input (q, k, v, dout) its bf16 planes, one or three, in
+// that order (a bf16 kernel uses the first four).
+struct TMaps {
+  CUtensorMap m[12];
 };
 
 // ---- host: tensor maps ----------------------------------------------------

@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Time the heat_tpu_torch of one checkout on one CUDA card, to compare
+checkouts in one call.
+
+    python3 scripts/torch_same_call.py DIR
+
+imports ``heat_tpu_torch`` from checkout ``DIR`` and prints one JSON line:
+the times of the flash backward pair in float32 and bf16 at the training
+shape (8 x 16 heads of 64, 1024 rows, causal), the bf16 forward there,
+``kmeans_step`` at 2^23 x 64 float32, k = 8, and the device time by kind of
+one float32 ``loss_and_grad_fn`` of the flagship model, all with
+``chip_smoke.py``'s timers and shapes. Run it for two checkouts in turns
+(parent, change, change, parent) within one call: times on one card are
+only comparable within one call.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def main(root):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_same_call: no CUDA card is visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+    import chip_smoke as cs
+
+    sys.path.insert(0, os.path.abspath(root))
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import _build
+    from heat_tpu_torch.core import kernels as tk
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    H, DH = cs.FLAGSHIP["n_heads"], cs.FLAGSHIP["d_model"] // cs.FLAGSHIP["n_heads"]
+    res = {"root": root, "port": os.path.dirname(ht.__file__), "card": smi, "ms": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn(8, H, 1024, DH, device=dev, generator=gen).to(dt)
+                         for _ in range(4))
+        out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+        dmb = tk._dmb(out, dout, None)
+        name = str(dt).split(".")[-1]
+        res["ms"][f"flash_bwd_dkv_{name}"] = cs.time_ms(
+            torch, lambda: tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=True))
+        res["ms"][f"flash_bwd_dq_{name}"] = cs.time_ms(
+            torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=True))
+        if dt == torch.bfloat16:
+            res["ms"]["flash_attention_bfloat16"] = cs.time_ms(
+                torch, lambda: tk.flash_attention(q, k, v, causal=True))
+        del q, k, v, dout, out, lse, dmb
+    x = torch.rand(cs.N_POINTS, cs.N_FEATURES, device=dev, generator=gen)
+    c = x[torch.randint(0, cs.N_POINTS, (cs.K,), device=dev, generator=gen)].clone()
+    res["ms"]["kmeans_step_2^23x64_k8"] = cs.time_ms(torch, lambda: tk.kmeans_step(x, c))
+    del x, c
+    torch.cuda.empty_cache()
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model32 = TransformerLM(grid, TransformerLMConfig(**cs.FLAGSHIP))
+    params = model32.init(0, dtype=torch.float32)
+    toks = model32.shard_batch(np.random.default_rng(0).integers(
+        0, cs.FLAGSHIP["vocab"], cs.TRAIN_BATCH).astype(np.int32))
+    lg32 = model32.loss_and_grad_fn()
+    res["f32_loss_and_grad_profiled"] = cs.device_share(torch, lambda: lg32(params, toks), 2,
+                                                        kinds=cs.TRAIN_KINDS)
+    cs.emit(res)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1]))

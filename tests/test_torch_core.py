@@ -127,6 +127,65 @@ def test_factory_round_trips():
         x[x.numpy() > 3]
 
 
+_PROMO_EPS = {"float64": 2.0 ** -52, "float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+
+
+@pytest.mark.parametrize("scalar_first", [False, True], ids=["array_op_scalar", "scalar_op_array"])
+@pytest.mark.parametrize("op", ["+", "**"])
+@pytest.mark.parametrize("scalar", [True, 3, 0.5], ids=["bool", "int", "float"])
+@pytest.mark.parametrize("name", ["bool", "int32", "int64", "float32", "bfloat16"])
+def test_scalar_promotion_matches_heat_tpu(name, scalar, op, scalar_first):
+    """An array with a python scalar takes heat_tpu's dtype (its
+    ``result_type``: a python float is float64, an int int64; bool ** bool
+    is int32, as ``jnp.power`` gives) and its values, in both orders.
+    Floats may differ by 4 ulp of the result type (another libm)."""
+    base = np.array([0, 1, 2, 3, 5])
+    data = base.astype(bool) if name == "bool" else base
+
+    def apply(lib):
+        a = lib.array(data).astype(getattr(lib, name))
+        if op == "+":
+            return scalar + a if scalar_first else a + scalar
+        return scalar ** a if scalar_first else a ** scalar
+
+    got, want = apply(ht), apply(hj)
+    assert got.dtype.__name__ == want.dtype.__name__
+    assert (got.gshape, got.split) == (want.gshape, want.split)
+    g, w = (np.asarray(r.numpy()).astype(np.float64) for r in (got, want))
+    np.testing.assert_allclose(g, w, rtol=4 * _PROMO_EPS.get(want.dtype.__name__, 0.0), atol=0)
+
+
+def _rt_operand(lib, kind, name):
+    if kind == "type":
+        return getattr(lib, name)
+    data = np.arange(3) if kind == "array" else np.array(1)
+    return lib.array(data).astype(getattr(lib, name))
+
+
+_RT_OTHERS = {"bool": True, "int": 3, "float": 0.5, "complex": 1j,
+              "int64_array": ("array", "int64"), "float16_type": ("type", "float16"),
+              "int8_0d": ("0d", "int8")}
+
+
+@pytest.mark.parametrize("other", list(_RT_OTHERS))
+@pytest.mark.parametrize("name", ["bool", "int32", "float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("kind", ["array", "0d", "type"])
+def test_result_type_matches_heat_tpu(kind, name, other):
+    """``types.result_type`` over an array, a 0-d array or a type with a
+    python scalar, an array, a type or a 0-d array: heat_tpu's answer, in
+    both orders."""
+    o = _RT_OTHERS[other]
+
+    def args(lib):
+        second = _rt_operand(lib, *o) if isinstance(o, tuple) else o
+        return _rt_operand(lib, kind, name), second
+
+    for order in (1, -1):
+        got = ttypes.result_type(*args(ht)[::order]).__name__
+        want = jtypes.result_type(*args(hj)[::order]).__name__
+        assert got == want, (order, got, want)
+
+
 def test_default_device_needs_cuda_or_cpu_opt_in(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ht.use_device(None)

@@ -258,11 +258,66 @@ def test_kmeans_kernel_matches_plain_on_card(card, dtype, k, d):
                                atol=rtol * float((tx.double() ** 2).sum()))
 
 
+# k*d past what the shared path holds (float32 k > 99 at d = 64) streams the
+# centroids in chunks and keeps each block's sums in its workspace row: k =
+# 128 and 1024 at d = 64 (one and two chunks), k = 64 at d = 1024 (tiles of
+# 16 rows, 8 threads a row); labels equal the plain version's, counts exact,
+# bitwise repeatable
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,d", [(128, 64), (1024, 64), (64, 1024)])
+def test_kmeans_kernel_streams_large_kd_on_card(card, dtype, k, d):
+    cs = _smoke_module()
+    n = 20011
+    x, c = _blobs(n, d, k, np.float64, seed=k + d)
+    tx, tc = torch.from_numpy(x).to(card, dtype), torch.from_numpy(c).to(card, dtype)
+    valid = torch.arange(n, device=card) < n - 101
+    before = tk.launches["kmeans_step"]
+    got = tk.kmeans_step(tx, tc, valid, return_labels=True)
+    again = tk.kmeans_step(tx, tc, valid, return_labels=True)
+    want = tk.kmeans_step_plain(tx, tc, valid, return_labels=True)
+    assert tk.launches["kmeans_step"] == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # no atomics: bitwise repeatable
+    if dtype == torch.float32:
+        cs.check_kmeans_step(torch, tx, tc, valid, got, want)
+    else:
+        torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-12, atol=1e-12 * 40)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-12,
+                                   atol=1e-12 * float((tx ** 2).sum()))
+
+
 @pytest.mark.cuda
 def test_kmeans_kernel_refuses_centroids_past_shared_memory(card):
-    x = torch.zeros(100, 64, device=card)
+    # only a row too wide for half a block's shared memory is refused
+    # (float32, d > ~29,000); any k*d below that runs
+    x = torch.zeros(100, 32768, device=card)
     with pytest.raises(ValueError, match="shared memory"):
-        tk.kmeans_step(x, torch.zeros(200, 64, device=card))
+        tk.kmeans_step(x, torch.zeros(2, 32768, device=card))
+    got = tk.kmeans_step(torch.zeros(100, 64, device=card), torch.zeros(200, 64, device=card))
+    assert float(got[1][0]) == 100  # every row ties at 0: the first index takes it
+
+
+@pytest.mark.cuda
+def test_kmeans_fit_128_clusters_on_card(card):
+    # KMeans(n_clusters=128) on (n, 64) float32 runs on the card (the
+    # streaming path) and follows a plain Lloyd loop from the same centroids
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster.kmeans import _finish_update
+
+    x, c = _blobs(30000, 64, 128, np.float32, seed=12)
+    X, init = ht.array(x, split=0, device="gpu"), ht.array(c, device="gpu")
+    before = tk.launches["kmeans_step"]
+    km = ht.cluster.KMeans(n_clusters=128, init=init, max_iter=6, tol=-1).fit(X)
+    assert tk.launches["kmeans_step"] == before + 6
+    cp = init.larray.clone()
+    for _ in range(6):
+        s, n_, _ = tk.kmeans_step_plain(X.larray, cp)
+        cp, _ = _finish_update(s, n_, cp)
+    assert km.n_iter_ == 6
+    torch.testing.assert_close(km.cluster_centers_.larray, cp, rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -345,35 +400,59 @@ def test_smoke_flash_bound_counts_tensor_core_passes():
 def test_smoke_flash_bound_f32_is_the_fma_floor_or_the_bytes():
     # the float32 forward's bound is the card's, not the FMA kernel's design
     # floor: on the bf16 tensor cores q·kᵀ and P·V, each of two float32
-    # operands split exactly into three bf16 terms, take nine passes of
-    # 2·D FLOPs per live pair (0.156 ms at (8, 16, 1024, 64) causal on an
-    # H100 SXM, under the 0.257 ms FMA floor), unless moving float32 Q, K,
-    # V, O and the lse takes longer
+    # operands split into bf16 terms, take four passes of 2·D FLOPs per live
+    # pair (the fewest check_flash takes, tests/test_torch_sm90_precision.py;
+    # 0.070 ms at (8, 16, 1024, 64) causal on an H100 SXM, under the 0.257
+    # ms FMA floor), unless moving float32 Q, K, V, O and the lse takes
+    # longer
     cs = _smoke_module()
     pairs = 8 * 16 * 1024 * 1025 // 2
     ms, by = cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 3.35e12, 989e12)
-    assert by == "operations"
-    assert ms == pytest.approx(18 * 2 * 64 * pairs / 989e12 * 1e3)
-    assert 0.156 < ms < 0.157
+    assert by == "operations" and cs.F32_PASSES_FWD == 4
+    assert ms == pytest.approx(8 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.069 < ms < 0.070
     assert ms < cs.flash_fma_floor(8, 16, 1024, 1024, 64, True, 67e12)
     nbytes = 4 * 8 * 16 * 1024 * 64 * 4 + 8 * 16 * 1024 * 4
     assert cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 1e11, 989e12) == (
         pytest.approx(nbytes / 1e11 * 1e3), "bytes")
 
 
+def test_smoke_kmeans_bound_counts_split_passes_on_the_tensor_cores():
+    # a float32 Lloyd partial on an H100 SXM: the n·k products x·c take
+    # three split-bf16 passes on the tensor cores (the fewest that hold
+    # check_kmeans_step, tests/test_torch_sm90_precision.py), so both
+    # streaming shapes of chip_smoke.py are bound by reading x: 0.080 ms at
+    # 2^20 x 64, k = 128 and 0.160 ms at 2^17 x 1024, k = 64
+    cs = _smoke_module()
+    assert cs.F32_PASSES_KMEANS == 3
+    for n, d, k, lo, hi in ((2**20, 64, 128, 0.080, 0.0805), (2**17, 1024, 64, 0.160, 0.161),
+                            (2**23, 64, 8, 0.641, 0.642)):
+        ms, by = cs.kmeans_bound(n, d, k, 3.35e12, 67e12, 989e12)
+        assert by == "bytes" and lo < ms < hi, (n, d, k, ms)
+    # with the bytes free, the products at three passes and the per-row work
+    n, d, k = 2**20, 64, 128
+    ms, by = cs.kmeans_bound(n, d, k, 1e18, 67e12, 989e12)
+    assert by == "operations"
+    assert ms == pytest.approx((3 * 2 * n * k * d / 989e12 + (3 * n * d + 3 * n * k) / 67e12)
+                               * 1e3)
+
+
 def test_smoke_flash_bwd_bounds_f32_count_nine_passes_a_product():
     # the float32 backward kernels' bounds at the training shape on an H100
-    # SXM: four float32 x float32 products per live pair for dK/dV (0.313
-    # ms) and three for dQ (0.235 ms), nine split-bf16 passes each; bytes as
-    # the bf16 bounds count them, every tensor four bytes an element
+    # SXM: four float32 x float32 products per live pair for dK/dV (0.209
+    # ms) and three for dQ (0.156 ms), six split-bf16 passes each (the
+    # fewest that hold check_flash_bwd, tests/test_torch_sm90_precision.py;
+    # nine, every cross term of two three-way splits, is the most a product
+    # could need); bytes as the bf16 bounds count them, every tensor four
+    # bytes an element
     cs = _smoke_module()
     pairs = 8 * 16 * 1024 * 1025 // 2
     (dkv, by_dkv), (dq, by_dq) = cs.flash_bwd_bounds_f32(8, 16, 1024, 1024, 64, True,
                                                          3.35e12, 989e12)
-    assert by_dkv == by_dq == "operations"
-    assert dkv == pytest.approx(4 * 9 * 2 * 64 * pairs / 989e12 * 1e3)
-    assert dq == pytest.approx(3 * 9 * 2 * 64 * pairs / 989e12 * 1e3)
-    assert 0.312 < dkv < 0.314 and 0.234 < dq < 0.236
+    assert by_dkv == by_dq == "operations" and cs.F32_PASSES_BWD == 6 < 9
+    assert dkv == pytest.approx(4 * 6 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert dq == pytest.approx(3 * 6 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.208 < dkv < 0.209 and 0.156 < dq < 0.157
     n = 8 * 16 * 1024 * 64 * 4
     (b_dkv, _), (b_dq, _) = cs.flash_bwd_bounds_f32(8, 16, 1024, 1024, 64, True, 1e9, 989e12)
     assert b_dkv == pytest.approx((6 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
@@ -521,9 +600,9 @@ def test_smoke_bf16_training_rules():
     assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
 
 
-# dK/dV and dQ in bf16 run on the tensor-core kernels
-# (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), in float32 and
-# float16 on the FMA kernels.
+# dK/dV and dQ in bf16 and float32 run on the tensor-core kernels
+# (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), in float16 on
+# the FMA kernels.
 # Head dims as in the forward's test (d = 20 stages through plain loads);
 # lengths ragged against the tiles; Sq > Sk (empty rows: with 300 vs 100
 # whole query tiles are skipped, and their NaN dmb reaches dK); Sq < Sk;
@@ -562,7 +641,7 @@ def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_on_card(card):
     # bf16 reaches the tensor-core kernels and nothing else; float32 and
-    # float16 the FMA kernels
+    # float16 the FMA forward
     from torch.profiler import ProfilerActivity, profile
 
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
@@ -577,10 +656,67 @@ def test_flash_routes_by_dtype_on_card(card):
         sm90 = dtype == torch.bfloat16
         assert ("flash_fwd_sm90_kernel" in names) == sm90, names
         assert ("flash_fwd_kernel" in names) == (not sm90), names
-        assert ("flash_bwd_dkv_sm90_kernel" in names) == sm90, names
-        assert ("flash_bwd_dkv_kernel" in names) == (not sm90), names
-        assert ("flash_bwd_dq_sm90_kernel" in names) == sm90, names
-        assert ("flash_bwd_dq_kernel" in names) == (not sm90), names
+        # the backward: bf16 and float32 on the tensor cores, float32 after
+        # its split pass; float16 on the FMA kernels
+        bwd90 = dtype != torch.float16
+        assert ("flash_bwd_dkv_sm90_kernel" in names) == bwd90, names
+        assert ("flash_bwd_dkv_kernel" in names) == (not bwd90), names
+        assert ("flash_bwd_dq_sm90_kernel" in names) == bwd90, names
+        assert ("flash_bwd_dq_kernel" in names) == (not bwd90), names
+        assert ("split_planes_kernel" in names) == (dtype == torch.float32), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_f32_backward_splits_once_on_card(card, d):
+    # flash_attention's float32 backward splits q, k, v and dout once: the
+    # dK/dV launch writes the planes and the dQ launch reads them, so it
+    # runs half the split-pass launches of the two wrappers, each of which
+    # splits for itself; its gradients are bitwise theirs
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _flash_case(card, 1, 3, 200, 260, d, torch.float32, seed=d)
+    g = torch.Generator().manual_seed(d + 1)
+    dout = torch.randn(q.shape, generator=g).to(card)
+    dlse = torch.randn(q.shape[:3], generator=g).to(card)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v), (dout, dlse))
+        torch.cuda.synchronize()
+    qd, kd, vd, od, ld = (t.detach() for t in (q, k, v, out, lse))
+    dmb = tk._dmb(od, dout, dlse)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof2:
+        want_dk, want_dv = tk.flash_bwd_dkv(qd, kd, vd, dout, ld, dmb, causal=True)
+        want_dq = tk.flash_bwd_dq(qd, kd, vd, dout, ld, dmb, causal=True)
+        torch.cuda.synchronize()
+    once, twice = (sum("split_planes_kernel" in e.name for e in p.events()) for p in (prof, prof2))
+    assert once > 0 and twice == 2 * once, (once, twice)
+    for a, b in zip((dq, dk, dv), (want_dq, want_dk, want_dv)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_f32_dp128_bitwise_repeatable_on_card(card, causal):
+    # the float32 kernels at head dim 128 (dK/dV: 32-row query tiles; dQ:
+    # 32-key tiles in a ring of 3), over streams that wrap their rings many
+    # times: no atomics, so dK, dV and dQ repeat bitwise, within
+    # check_flash_bwd of the plain versions
+    cs = _smoke_module()
+    q, k, v = _flash_case(card, 1, 4, 1000, 2100, 128, torch.float32, seed=6)
+    out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator().manual_seed(7)
+    dout = torch.randn(q.shape, generator=g).to(card)
+    dmb = tk._dmb(out, dout, torch.randn(lse.shape, generator=g).to(card))
+    first = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal) + (
+        tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal),)
+    for _ in range(3):
+        again = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal) + (
+            tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal),)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal,
+                       got=(first[2], first[0], first[1]))
 
 
 @pytest.mark.cuda
@@ -717,11 +853,11 @@ def test_flash_refused_launch_raises_on_card(card):
                    q.data_ptr(), lse.data_ptr(), 1, 8, 8, 136, 2, 0.1, 1)
     with pytest.raises(RuntimeError, match="flash_bwd_dkv launch failed: CUDA error"):
         tk._launch("flash_bwd_dkv", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 8,
-                   8, 136, 2, 0.1, 1)
+                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), None,
+                   1, 1, 8, 8, 136, 2, 0.1, 1)
     with pytest.raises(RuntimeError, match="flash_bwd_dq launch failed: CUDA error"):
         tk._launch("flash_bwd_dq", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), 1, 8, 8, 136, 2,
-                   0.1, 1)
+                   q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), None, 1, 1, 8, 8,
+                   136, 2, 0.1, 1)
     assert tk.launches == before  # a refused launch is not counted
     torch.cuda.synchronize()

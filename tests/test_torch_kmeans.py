@@ -152,6 +152,34 @@ def test_carried_state_predicts_like_heat_tpu():
                                   kj.predict(hj.array(x, split=0)).numpy())
 
 
+@pytest.mark.parametrize("k,d", [(128, 64), (64, 1024)])
+def test_large_kd_lloyd_partial_matches_heat_tpu(k, d):
+    """The plain ``kmeans_step`` at k·d past what the card's shared-memory
+    path holds (the kernel streams the centroids there) against heat_tpu's
+    Lloyd partial (its default XLA step, ``cluster/kmeans.py``
+    ``_lloyd_partial``) on the same data and centroids. Well-separated
+    blobs: labels and counts agree exactly; float32 sums rtol 1e-5."""
+    import jax.numpy as jnp
+    from heat_tpu.cluster.kmeans import _lloyd_partial
+    from heat_tpu_torch.core import kernels as tk
+
+    rng = np.random.default_rng(k + d)
+    n = 1501
+    centers = rng.standard_normal((k, d)) * 10
+    x = (centers[rng.integers(0, k, n)] + 0.1 * rng.standard_normal((n, d))).astype(np.float32)
+    c = (centers + 0.5 * rng.standard_normal((k, d))).astype(np.float32)
+    valid = np.arange(n) < n - 19
+    js, jc, ji = _lloyd_partial(jnp.asarray(x), jnp.asarray(c), jnp.asarray(valid[:, None]), k,
+                                jnp.float32, jnp.float32)
+    ts, tc, ti = tk.kmeans_step_plain(torch.from_numpy(x), torch.from_numpy(c),
+                                      torch.from_numpy(valid))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5 * np.abs(x).max())
+    # min(c² − 2·x·c) + x² per row cancels against x²: an absolute limit
+    np.testing.assert_allclose(float(ti), float(ji), rtol=1e-5,
+                               atol=1e-6 * float((x.astype(np.float64) ** 2).sum()))
+
+
 # --------------------------------------------------------------------------- #
 # one 2-rank gloo world for the module                                        #
 # --------------------------------------------------------------------------- #
@@ -190,6 +218,12 @@ res["randint"] = ht.random.randint(0, 1000, (70001,), split=0).numpy()
 res["arange_sum"] = ht.arange(13, split=0).sum().item()
 res["lshape_map"] = ht.zeros((13, 2), split=0).lshape_map
 res["rows"] = x[np.array([300, 0, 151, 150])].numpy()
+# a split operand of extent 1 along its split axis broadcasts (rank 1 holds
+# no row of it), in both operand orders
+A, A0 = ht.array(d["pow_a"], split=0), ht.array(d["pow_a"][:1], split=0)
+for key, r in (("pow_a_a0", A ** A0), ("pow_a0_a", A0 ** A)):
+    res[key] = r.numpy()
+    res[key + "_meta"] = np.array([r.split] + list(r.gshape))
 if rank == 0:
     np.savez(out, **res)
 dist.destroy_process_group()
@@ -210,7 +244,8 @@ def world2(tmp_path_factory):
     rng = np.random.default_rng(8)
     inputs = {"x": x, "c0": c0, "k": K,
               "a": rng.standard_normal((37, 5)).astype(np.float32),
-              "b": rng.standard_normal((29, 5)).astype(np.float32)}
+              "b": rng.standard_normal((29, 5)).astype(np.float32),
+              "pow_a": rng.uniform(0.5, 2.0, (4, 3)).astype(np.float32)}
     np.savez(tmp / "in.npz", **inputs)
     (tmp / "worker.py").write_text(_WORKER)
     port = str(_free_port())
@@ -270,3 +305,12 @@ def test_world2_random_and_layout_equal_world1(world2):
     assert int(res["arange_sum"]) == 78
     np.testing.assert_array_equal(res["lshape_map"], [[7, 2], [6, 2]])
     np.testing.assert_array_equal(res["rows"], inp["x"][[300, 0, 151, 150]])
+
+
+def test_world2_extent1_split_operand_broadcasts_like_heat_tpu(world2):
+    res, inp = world2
+    a = inp["pow_a"]
+    A, A0 = hj.array(a, split=0), hj.array(a[:1], split=0)
+    for key, want in (("pow_a_a0", A ** A0), ("pow_a0_a", A0 ** A)):
+        assert res[key + "_meta"].tolist() == [want.split] + list(want.gshape) == [0, 4, 3]
+        np.testing.assert_allclose(res[key], want.numpy(), rtol=4 * 2.0 ** -23, atol=0)
