@@ -47,19 +47,22 @@ Phases, one JSON line each:
    against a float32 copy of the model (``bf16_loss_tol``,
    ``bf16_grad_tol``).
 
-Phase 4 holds the flash forward (bf16 on the tensor cores,
+Phase 4 holds the flash forward (bf16 and float16 on the tensor cores,
 ``csrc/flash_fwd_sm90.cu``; float32 on fp32 FMA, ``csrc/flash_fwd.cu``)
-and the flash backward kernels (bf16 and float32 on the tensor cores,
-``csrc/flash_bwd_dkv_sm90.cu`` and ``csrc/flash_bwd_dq_sm90.cu``, float32
-after a split pass into three bf16 planes) against their plain versions
-(``check_flash``, ``check_flash_bwd``) at the serving and training paths'
-shapes in both dtypes, at ragged lengths, empty rows, 300 queries against
-4096 keys and (float32) head dim 128, with their times, bounds, the FMA
-forward's float32 times, SDPA's, the aten flash backward's (bf16) and the
-aten memory-efficient backward's (float32). At the prefill shape the
-forward's wrapper host time per call is measured apart from the kernel's
-device time. Phase 3's ``kmeans_step`` checks add two shapes whose k·d
-takes the streaming path (2^20 x 64 at k = 128, 2^17 x 1024 at k = 64).
+and the flash backward kernels (dK/dV in all three dtypes on the tensor
+cores, ``csrc/flash_bwd_dkv_sm90.cu``; dQ in bf16 and float32 there,
+``csrc/flash_bwd_dq_sm90.cu``, float32 after a split pass into three bf16
+planes, and float16 dQ on fp32 FMA, ``csrc/flash_bwd.cu``) against their
+plain versions (``check_flash``, ``check_flash_bwd``) at the serving and
+training paths' shapes in each dtype, at ragged lengths, empty rows, 300
+queries against 4096 keys, (float32) head dim 128, and (float16) wide
+scores, gradients of σ 2^-14 and score cotangents past float16's range,
+with their times, bounds, the FMA forward's float32 times, SDPA's, the
+aten flash backward's (bf16, float16) and the aten memory-efficient
+backward's (float32). At the prefill shape the forward's wrapper host time
+per call is measured apart from the kernel's device time. Phase 3's
+``kmeans_step`` checks add two shapes whose k·d takes the streaming path
+(2^20 x 64 at k = 128, 2^17 x 1024 at k = 64).
 
 Then the kernels line, the card's name and power limit, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -85,13 +88,23 @@ U_BF16 = 2.0**-8  # bfloat16 unit roundoff
 # its three bf16 terms (split3): the largest cross terms of the two splits,
 # (0,0), (0,1), (1,0), (1,1), (0,2), (2,0), ... The fewest that pass the
 # checks in every case of tests/test_torch_sm90_precision.py (which
-# emulates them, and refuses one fewer): six for the backward under
-# check_flash_bwd, which its float32 kernels run; four for a float32
-# forward under check_flash (not built yet: the bound's count); three for
-# the float32 scores x·c of a Lloyd step under check_kmeans_step.
+# emulates them with these constants, and refuses one fewer): six for the
+# backward, which its float32 kernels run (Layout::NP of
+# csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu), five refused on
+# the card tests' single query against 200 keys at head dim 16; four for a
+# float32 forward under check_flash (not built yet: the bound's count);
+# three for the float32 scores x·c of a Lloyd step under check_kmeans_step.
 F32_PASSES_BWD = 6
 F32_PASSES_FWD = 4
 F32_PASSES_KMEANS = 3
+# tensor-core passes of a product with one float32 operand against a
+# float16 one: the float32 operand, scaled by a power of two into float16's
+# range (P by 2^15, dS by its running exponent), split into float16 terms.
+# Two are the fewest that pass check_flash and check_flash_bwd in every case
+# of tests/test_torch_sm90_precision.py (one is refused); a bf16 product
+# takes three (split3).
+F16_PASSES_SPLIT = 2
+BF16_PASSES_SPLIT = 3
 
 # the flagship model (bench.py:204-206, 222-223, transformer_train_metrics
 # defaults; README's combined-parallelism model without the experts)
@@ -365,17 +378,19 @@ def flash_live_pairs(sq, sk, causal):
     return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
 
 
-def flash_bound(b, h, sq, sk, d, causal, bw, tc_rate):
-    """The least time of a bf16 flash forward at float32 accuracy: Q, K, V
-    (bf16) read once, O (bf16) and the float32 lse written once; per live
-    (query, key) pair, on the bf16 tensor cores with float32 accumulation,
-    2·D FLOPs for q·kᵀ in one pass (bf16 products are exact in float32, and
-    the scale 1/8 at D = 64 is a power of two) plus 3 × 2·D for P·V, where
-    the float32 P is split into three bf16 terms (24 significant bits, as
-    float32 has) against the bf16 V. The softmax's one exp per pair is
-    below this at these shapes (~4e12 exp/s on the H100's SFUs)."""
+def flash_bound(b, h, sq, sk, d, causal, bw, tc_rate, split_passes=BF16_PASSES_SPLIT):
+    """The least time of a bf16 (or float16) flash forward at float32
+    accuracy: Q, K, V read once, O and the float32 lse written once (two
+    bytes an element); per live (query, key) pair, on the tensor cores with
+    float32 accumulation, 2·D FLOPs for q·kᵀ in one pass (bf16 and float16
+    products are exact in float32, and the scale 1/8 at D = 64 is a power of
+    two) plus ``split_passes`` × 2·D for P·V, where the float32 P is split
+    into terms of V's type: three bf16 terms (24 significant bits, as
+    float32 has), or :data:`F16_PASSES_SPLIT` float16 terms of 2^15·P. The
+    softmax's one exp per pair is below this at these shapes (~4e12 exp/s on
+    the H100's SFUs)."""
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * 2 + b * h * sq * 4
-    flops = (1 + 3) * 2 * d * b * h * flash_live_pairs(sq, sk, causal)
+    flops = (1 + split_passes) * 2 * d * b * h * flash_live_pairs(sq, sk, causal)
     return bound(nbytes, flops, bw, tc_rate)
 
 
@@ -396,19 +411,22 @@ def flash_bound_f32(b, h, sq, sk, d, causal, bw, tc_rate):
     return bound(nbytes, flops, bw, tc_rate)
 
 
-def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate):
-    """The least times of the two bf16 flash backward kernels at float32
-    accuracy, by :func:`flash_bound`'s rule (a product of two bf16 operands
-    takes one tensor-core pass, one with a float32 operand three split-bf16
-    passes), per live pair: dK/dV recomputes q·kᵀ (1) and dO·vᵀ (1) and
-    forms Pᵀ·dO (3) and dSᵀ·q (3), 16·D FLOPs; dQ recomputes the same two
-    (1 + 1) and forms dS·k (3), 10·D. Bytes: q, k, v and dO (bf16) read
-    once, lse and dmb (float32) once, dK and dV, or dQ, (bf16) written once.
-    Returns ((ms, by) for dK/dV, (ms, by) for dQ)."""
+def flash_bwd_bounds(b, h, sq, sk, d, causal, bw, tc_rate, split_passes=BF16_PASSES_SPLIT):
+    """The least times of the two bf16 (or float16) flash backward kernels
+    at float32 accuracy, by :func:`flash_bound`'s rule (a product of two
+    bf16 or float16 operands takes one tensor-core pass, one with a float32
+    operand ``split_passes`` split passes: three bf16, or
+    :data:`F16_PASSES_SPLIT` float16), per live pair: dK/dV recomputes q·kᵀ
+    (1) and dO·vᵀ (1) and forms Pᵀ·dO and dSᵀ·q (a split product each), 16·D
+    FLOPs in bf16; dQ recomputes the same two (1 + 1) and forms dS·k, 10·D.
+    Bytes: q, k, v and dO read once, lse and dmb (float32) once, dK and dV,
+    or dQ, written once, two bytes an element. Returns ((ms, by) for dK/dV,
+    (ms, by) for dQ)."""
     pairs = b * h * flash_live_pairs(sq, sk, causal)
     inputs = (2 * b * h * sq * d + 2 * b * h * sk * d) * 2 + 2 * b * h * sq * 4
-    dkv = bound(inputs + 2 * b * h * sk * d * 2, (1 + 1 + 3 + 3) * 2 * d * pairs, bw, tc_rate)
-    dq = bound(inputs + b * h * sq * d * 2, (1 + 1 + 3) * 2 * d * pairs, bw, tc_rate)
+    dkv = bound(inputs + 2 * b * h * sk * d * 2, (2 + 2 * split_passes) * 2 * d * pairs, bw,
+                tc_rate)
+    dq = bound(inputs + b * h * sq * d * 2, (2 + split_passes) * 2 * d * pairs, bw, tc_rate)
     return dkv, dq
 
 
@@ -440,16 +458,22 @@ def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, go
     against the plain versions on the same inputs, everywhere: NaN at
     identical positions; elsewhere |Δg| <= 1e-4·A + (1e-5 + ``out_step``)·|g|,
     where A sums the absolute sizes of the terms that make up g: Pᵀ|dO| for
-    dV, and with W = P·(|dO·vᵀ| + |dmb|), scale·Wᵀ|q| for dK and scale·W|k|
-    for dQ; below the output type's smallest normal number its fixed
-    subnormal spacing takes the place of ``out_step``·|g|. Both versions recompute each score in float32 from the same
-    inputs, to within D·u·scale·|q||k| of exact (6e-5 for D = 64 and
+    dV, and with W = P·(|dO·vᵀ| + |dmb| + 2·√D·u·|dO|·|v|ᵀ / 1e-4),
+    scale·Wᵀ|q| for dK and scale·W|k| for dQ; below the output type's
+    smallest normal number its fixed subnormal spacing takes the place of
+    ``out_step``·|g|. Both versions recompute each score in float32 from the
+    same inputs, to within D·u·scale·|q||k| of exact (6e-5 for D = 64 and
     unit-variance inputs, |q|, |k| ≈ 8), so each probability agrees to about
-    that relative size, and each dO·vᵀ to D·u·|dO||v|; a float32 sum of n
+    that relative size, and each dO·vᵀ to D·u·|dO|·|v|; a float32 sum of n
     terms is within n·u of its absolute sum. These worst cases add up to
     about 1e-4 of A; the errors of real sums grow as their square roots.
-    ``out_step`` adds one rounding of a half-precision output. Returns
-    {name: (max abs err, largest ratio of error to limit)}."""
+    W's last term is the two versions' rounding of dO·vᵀ itself, at the
+    square-root size of a real sum's: where dO·vᵀ + dmb cancels (a causal
+    row whose one visible key takes all its probability, whose dS is
+    exactly zero) that rounding is all either version computes, and
+    |dO·vᵀ| + |dmb| would not cover it. ``out_step`` adds one rounding of a
+    half-precision output. Returns {name: (max abs err, largest ratio of
+    error to limit)}."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if got is None:
         dk, dv = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
@@ -458,10 +482,13 @@ def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, go
     want = (tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal), want_dk, want_dv)
     qf, kf, of, p, ds = tk._bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
     del ds
-    w_abs = p * ((of @ v.float().transpose(-1, -2)).abs() + dmb.float().abs()[..., None])
+    vf = v.float()
+    w_abs = p * ((of @ vf.transpose(-1, -2)).abs() + dmb.float().abs()[..., None]
+                 + (2 * math.sqrt(q.shape[-1]) * U32 / 1e-4)
+                 * (of.abs() @ vf.abs().transpose(-1, -2)))
     terms = ((w_abs @ kf.abs()) * scale, (w_abs.transpose(-1, -2) @ qf.abs()) * scale,
              p.transpose(-1, -2) @ of.abs())
-    del qf, kf, of, p, w_abs
+    del qf, kf, vf, of, p, w_abs
     res = {}
     for name, g, w, a in zip(("dq", "dk", "dv"), got, want, terms):
         assert g.dtype == w.dtype and g.shape == w.shape, (name, g.dtype, g.shape)
@@ -474,7 +501,11 @@ def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, go
         one_rounding = out_step * w.abs().clamp_min(tiny)
         lim = torch.where(nan, zero, 1e-4 * a + 1e-5 * w.abs() + one_rounding)
         bad = int((err > lim).sum())
-        assert bad == 0, f"flash backward {name}: {bad} elements beyond their tolerance"
+        if bad:
+            at = tuple(torch.nonzero(err - lim == (err - lim).max())[0].tolist())
+            raise AssertionError(f"flash backward {name}: {bad} elements beyond their tolerance "
+                                 f"(worst at {at}: {float(g[at])} against {float(w[at])}, "
+                                 f"limit {float(lim[at])})")
         res[name] = (float(err.max()), float((err / lim.clamp_min(1e-30)).max()))
         del g, w, a, err, lim
     return res
@@ -758,6 +789,10 @@ def serving_path(torch, ht, tk, dev, smi):
 
 
 BWD_PATH_CASE = "train_8x16x1024x64_bf16_causal"
+# where the float16 flash forward and dK/dV run (the C entry points route by
+# dtype alone)
+FWD_F16_SOURCE = "heat_tpu_torch/csrc/flash_fwd_sm90.cu"
+DKV_F16_SOURCE = "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu"
 # kernel kinds of a training step, by parts of their names
 TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
                "flash_bwd_dkv": ("flash_bwd_dkv",), "flash_bwd_split_f32": ("split_planes",),
@@ -765,41 +800,171 @@ TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bw
                "log_softmax": ("softmax",), "adam": ("adam",)}
 
 
+def flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
+    """Phase 4, the flash forward: the kernel against its plain version
+    (``check_flash``) in bf16, float32 and float16, then the times at the
+    serving path's shapes; returns (checks, times). bf16 and float16 run on
+    the tensor cores (csrc/flash_fwd_sm90.cu), float32 on the fp32-FMA
+    kernel (csrc/flash_fwd.cu). Each dtype at the serving path's shapes
+    (prefill: one request of 1024 rows, 16 heads of 64; the logits forward:
+    8 of them), at a length that is no multiple of any tile, at causal
+    Sq > Sk, whose first 100 rows see no key, and (bf16, float16) at Sk =
+    4096, which wraps the key ring many times; float16 also with q and k of
+    σ 3 (wide scores: most probabilities fall below float16's smallest
+    normal, 6.1e-5)."""
+    H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    fl_checks = {}
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    fl_cases = []
+    for tag, dt in (("bf16", bf16), ("f32", fp32), ("f16", fp16)):
+        fl_cases += [(f"prefill_1x16x1024x64_{tag}", 1, H, 1024, 1024, dt, True, 1.0),
+                     (f"logits_8x16x1024x64_{tag}", 8, H, 1024, 1024, dt, True, 1.0),
+                     (f"1x16x1000x64_{tag}", 1, H, 1000, 1000, dt, True, 1.0),
+                     (f"1x4x300x64_vs_200_{tag}", 1, 4, 300, 200, dt, True, 1.0)]
+        if dt != fp32:
+            fl_cases += [(f"1x4x300_vs_4096x64_{tag}_causal", 1, 4, 300, 4096, dt, True, 1.0),
+                         (f"1x4x300_vs_4096x64_{tag}_noncausal", 1, 4, 300, 4096, dt, False,
+                          1.0)]
+    fl_cases.append(("wide_scores_1x16x1024x64_f16", 1, H, 1024, 1024, fp16, True, 3.0))
+    for name, b, h, sq, sk, dt, causal, s_qk in fl_cases:
+        q = (torch.randn(b, h, sq, DH, device=dev, generator=gen) * s_qk).to(dt)
+        k = (torch.randn(b, h, sk, DH, device=dev, generator=gen) * s_qk).to(dt)
+        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+        step = {bf16: 2.0**-7, fp16: 2.0**-10}.get(dt, 0.0)
+        try:
+            err, ratio = check_flash(torch, tk, q, k, v, causal=causal, out_step=step)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+        fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step,
+                           "causal": causal, "sigma_qk": s_qk}
+        if s_qk != 1.0:
+            # the share of the first head's visible probabilities below
+            # float16's smallest normal
+            sc = (q[:, :1].float() @ k[:, :1].float().transpose(-1, -2)) / math.sqrt(DH)
+            vis = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+            if causal:
+                vis = vis.tril(sk - sq)
+            p = torch.softmax(sc.masked_fill(~vis, float("-inf")), dim=-1)[..., vis]
+            fl_checks[name]["share_p_below_f16_normal"] = float(
+                (p < torch.finfo(fp16).tiny).float().mean())
+            del sc, vis, p
+        if causal and sq > sk:
+            out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+            assert bool(torch.isnan(out[:, :, :sq - sk]).all())
+            assert bool(torch.isneginf(lse[:, :, :sq - sk]).all())
+            assert not bool(torch.isnan(out[:, :, sq - sk:]).any())
+            fl_checks[name]["empty_rows"] = sq - sk
+            del out, lse
+        del q, k, v
+        torch.cuda.empty_cache()
+    fl_times = {}
+    for name, b in (("prefill_1x16x1024x64_bf16", 1), ("logits_8x16x1024x64_bf16", 8)):
+        q, k, v = (torch.randn(b, H, 1024, DH, device=dev, generator=gen).bfloat16()
+                   for _ in range(3))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        qh, kh, vh = q.half(), k.half(), v.half()
+        fb = flash_bound(b, H, 1024, 1024, DH, True, bw, bf16_tc)
+        fb16 = flash_bound(b, H, 1024, 1024, DH, True, bw, bf16_tc,
+                           split_passes=F16_PASSES_SPLIT)
+        fb32 = flash_bound_f32(b, H, 1024, 1024, DH, True, bw, bf16_tc)
+        floor = flash_fma_floor(b, H, 1024, 1024, DH, True, f32)
+
+        def sdpa(q_, k_, v_):
+            return torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+
+        fl_times[name] = {
+            "kernel": time_ms(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
+            "plain": time_ms(torch, lambda: tk.flash_attention_plain(q, k, v, causal=True)),
+            "sdpa": time_ms(torch, lambda: sdpa(q, k, v)),
+            "bound": fb[0], "bound_by": fb[1], "fp32_fma_design_floor": floor,
+            "fma_f32": {
+                "kernel": time_ms(torch, lambda: tk.flash_attention(qf, kf, vf, causal=True)),
+                "plain": time_ms(torch, lambda: tk.flash_attention_plain(qf, kf, vf,
+                                                                         causal=True)),
+                "sdpa": time_ms(torch, lambda: sdpa(qf, kf, vf)),
+                "bound": fb32[0], "bound_by": fb32[1], "fp32_fma_design_floor": floor},
+            "f16": {
+                "kernel": time_ms(torch, lambda: tk.flash_attention(qh, kh, vh, causal=True)),
+                "plain": time_ms(torch, lambda: tk.flash_attention_plain(qh, kh, vh,
+                                                                         causal=True)),
+                "sdpa": time_ms(torch, lambda: sdpa(qh, kh, vh)),
+                "bound": fb16[0], "bound_by": fb16[1],
+                "passes_per_split_product": F16_PASSES_SPLIT}}
+        if b == 1:
+            # one prefill's work fills about one wave of the card, so the
+            # CUDA-event time of back-to-back calls may be the wrapper's host
+            # pace: the wall time per call of back-to-back calls apart from
+            # the kernel's own device time (torch.profiler); where the card
+            # idles over a tenth of the wall, the host sets the pace
+            for t, args in ((fl_times[name], (q, k, v)), (fl_times[name]["f16"], (qh, kh, vh))):
+                w = device_share(torch, lambda: tk.flash_attention(*args, causal=True), 200,
+                                 kinds={"kernel": ("flash_fwd",)})
+                dev_ms = (w.get("device_ms_per_call_by_kind") or {}).get("kernel")
+                host_bound = dev_ms is not None and dev_ms < 0.9 * w["host_ms_per_call"]
+                t.update(device_ms=dev_ms, host_ms=w["host_ms_per_call"],
+                         ms_is=("host-bound: the wrapper's host time per call; the kernel's "
+                                "own is device_ms" if host_bound else "the kernel's time"))
+        del q, k, v, qf, kf, vf, qh, kh, vh
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times,
+          "routes": {"bfloat16, float16": "heat_tpu_torch/csrc/flash_fwd_sm90.cu (wgmma, TMA)",
+                     "float32": "heat_tpu_torch/csrc/flash_fwd.cu (fp32 FMA)"}})
+    return fl_checks, fl_times
+
+
 def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     """Phase 4, the flash backward: both kernels against their plain
-    versions (``check_flash_bwd``), in bf16 and in float32 on the tensor
-    cores (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu; float32
-    after its split pass) and in float16 on fp32 FMA (csrc/flash_bwd.cu):
-    at the training path's shape (causal, no lse cotangent), at lengths that are no multiple of any tile with Sq < Sk,
-    causal and a nonzero lse cotangent, without the causal mask, at Sk =
-    4096 with 300 queries, causal and not, and (float32) at head dim 128;
-    each bitwise repeatable; then the times at the path's shape."""
+    versions (``check_flash_bwd``), in bf16, float16 and float32: at the
+    training path's shape (causal, no lse cotangent), at lengths that are no
+    multiple of any tile with Sq < Sk, causal and a nonzero lse cotangent,
+    without the causal mask, at Sk = 4096 with 300 queries, causal and not,
+    (float32) at head dim 128, and (float16) with gradients of σ 2^-14, as
+    float16 training without loss scaling feeds in, and with v and dO of σ
+    128, whose score cotangents dS pass float16's largest value while dK and
+    dV stay inside it; each bitwise repeatable; then the times at the path's
+    shape."""
     H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    small, large = (1.0, 1.0, 2.0**-14), (1.0, 128.0, 128.0)  # σ of q and k, of v, of dO and dlse
     cases = ((BWD_PATH_CASE, 8, H, 1024, 1024, DH, bf16, True, False),
              ("train_8x16x1024x64_f32_causal", 8, H, 1024, 1024, DH, fp32, True, False),
              ("train_8x16x1024x64_f16_causal", 8, H, 1024, 1024, DH, fp16, True, False),
              ("1x16x1000_vs_1090x64_f32_causal_dlse", 1, H, 1000, 1090, DH, fp32, True, True),
              ("1x16x1000_vs_1090x64_bf16_causal_dlse", 1, H, 1000, 1090, DH, bf16, True, True),
+             ("1x16x1000_vs_1090x64_f16_causal_dlse", 1, H, 1000, 1090, DH, fp16, True, True),
              ("2x16x1024x64_bf16_noncausal_dlse", 2, H, 1024, 1024, DH, bf16, False, True),
              ("2x16x1024x64_f32_noncausal_dlse", 2, H, 1024, 1024, DH, fp32, False, True),
              ("1x4x300_vs_4096x64_bf16_causal_dlse", 1, 4, 300, 4096, DH, bf16, True, True),
              ("1x4x300_vs_4096x64_bf16_noncausal_dlse", 1, 4, 300, 4096, DH, bf16, False, True),
+             ("1x4x300_vs_4096x64_f16_causal_dlse", 1, 4, 300, 4096, DH, fp16, True, True),
+             ("1x4x300_vs_4096x64_f16_noncausal_dlse", 1, 4, 300, 4096, DH, fp16, False, True),
              ("1x4x300_vs_4096x64_f32_causal_dlse", 1, 4, 300, 4096, DH, fp32, True, True),
              ("1x4x300_vs_4096x64_f32_noncausal_dlse", 1, 4, 300, 4096, DH, fp32, False, True),
-             ("1x16x1000_vs_1090x128_f32_causal_dlse", 1, H, 1000, 1090, 128, fp32, True, True))
+             ("1x16x1000_vs_1090x128_f32_causal_dlse", 1, H, 1000, 1090, 128, fp32, True, True),
+             ("1x16x1024x64_f16_causal_dlse_small_grad", 1, H, 1024, 1024, DH, fp16, True, small),
+             ("1x16x1024x64_f16_causal_dlse_large_ds", 1, H, 1024, 1024, DH, fp16, True, large))
     checks = {}
     for name, b, h, sq, sk, dh, dt, causal, with_dlse in cases:
-        q = torch.randn(b, h, sq, dh, device=dev, generator=gen).to(dt)
-        k = torch.randn(b, h, sk, dh, device=dev, generator=gen).to(dt)
-        v = torch.randn(b, h, sk, dh, device=dev, generator=gen).to(dt)
+        s_qk, s_v, s_do = with_dlse if isinstance(with_dlse, tuple) else (1.0, 1.0, 1.0)
+        q = (torch.randn(b, h, sq, dh, device=dev, generator=gen) * s_qk).to(dt)
+        k = (torch.randn(b, h, sk, dh, device=dev, generator=gen) * s_qk).to(dt)
+        v = (torch.randn(b, h, sk, dh, device=dev, generator=gen) * s_v).to(dt)
         out, lse = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
-        dout = torch.randn(q.shape, device=dev, generator=gen).to(dt)
-        dlse = torch.randn(lse.shape, device=dev, generator=gen) if with_dlse else None
+        dout = (torch.randn(q.shape, device=dev, generator=gen) * s_do).to(dt)
+        dlse = (torch.randn(lse.shape, device=dev, generator=gen) * s_do if with_dlse
+                else None)
         dmb = tk._dmb(out, dout, dlse)
+        # float16: the largest score cotangent |dS| of the plain backward
+        ds_max = None if dt != fp16 else float(tk._bwd_dense(
+            q, k, v, dout, lse, dmb, 1.0 / math.sqrt(dh), causal)[4].abs().nan_to_num(0.0).max())
+        if with_dlse is large:
+            assert ds_max > torch.finfo(fp16).max, f"{name}: max |dS| {ds_max}"
         step = {bf16: 2.0**-7, fp16: 2.0**-10}.get(dt, 0.0)
         before = dict(tk.launches)
-        res = check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=step)
+        try:
+            res = check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=step)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
         assert tk.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
         assert tk.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
         dk1, dv1 = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
@@ -811,7 +976,9 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
         checks[name] = {"dq_max_abs_err": res["dq"][0],
                         "dk_dv_max_abs_err": max(res["dk"][0], res["dv"][0]),
                         "max_err_over_limit": {g: r for g, (_, r) in res.items()},
-                        "out_step": step, "dlse": with_dlse, "bitwise_repeatable": True}
+                        "out_step": step, "dlse": bool(with_dlse),
+                        "sigma_qk_v_dout": [s_qk, s_v, s_do], "max_abs_ds": ds_max,
+                        "bitwise_repeatable": True}
         del q, k, v, out, lse, dout, dlse, dmb, dk1, dv1, dk2, dv2
         torch.cuda.empty_cache()
 
@@ -830,15 +997,21 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     out32, lse32 = tk.flash_attention(q32, k32, v32, causal=True, return_lse=True)
     dmb32 = tk._dmb(out32, do32, None)
     b32_dkv, b32_dq = flash_bwd_bounds_f32(b, H, s, s, DH, True, bw, bf16_tc)
-    # float16 copies for the FMA kernels' times, bounded by flash_bwd_bounds'
-    # rule (the float16 tensor-core rate is bf16's)
+    # float16 copies for the float16 kernels' times, bounded by
+    # flash_bwd_bounds' rule at F16_PASSES_SPLIT passes a split product (the
+    # float16 tensor-core rate is bf16's)
     q16, k16, v16, do16 = (t.half() for t in (q, k, v, dout))
     out16, lse16 = tk.flash_attention(q16, k16, v16, causal=True, return_lse=True)
     dmb16 = tk._dmb(out16, do16, None)
+    b16_dkv, b16_dq = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc,
+                                       split_passes=F16_PASSES_SPLIT)
 
-    def f16_times(fn, plain, b16, floor):
-        return {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain), "bound": b16,
-                "bound_by": by_dkv, "fp32_fma_design_floor": floor}
+    def f16_times(fn, plain, b16, floor=None):
+        res = {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain), "bound": b16[0],
+               "bound_by": b16[1], "passes_per_split_product": F16_PASSES_SPLIT}
+        if floor is not None:  # float16 dQ still runs on fp32 FMA
+            res["fp32_fma_design_floor"] = floor
+        return res
 
     def f32_times(fn, plain, b32, kernel_part):
         split = device_share(torch, fn, 20, kinds={"split_pass": ("split_planes",),
@@ -861,7 +1034,7 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                 "f16": f16_times(
                     lambda: tk.flash_bwd_dkv(q16, k16, v16, do16, lse16, dmb16, causal=True),
                     lambda: tk.flash_bwd_dkv_plain(q16, k16, v16, do16, lse16, dmb16,
-                                                   causal=True), b_dkv, floor_dkv)},
+                                                   causal=True), b16_dkv)},
         "dq": {"kernel": time_ms(torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb,
                                                                 causal=True)),
                "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb,
@@ -875,8 +1048,7 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                "f16": f16_times(
                    lambda: tk.flash_bwd_dq(q16, k16, v16, do16, lse16, dmb16, causal=True),
                    lambda: tk.flash_bwd_dq_plain(q16, k16, v16, do16, lse16, dmb16,
-                                                 causal=True), b_dq, floor_dq)}}
-    times["dq"]["f16"]["bound_by"] = by_dq
+                                                 causal=True), b16_dq, floor_dq)}}
     # the float32 yardstick: PyTorch's memory-efficient attention backward
     # (aten's flash backward takes no float32), fed by its own forward on
     # the float32 copies; one call computes dq, dk and dv
@@ -904,11 +1076,13 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     del q, k, v, dout, out, lse, dmb, q16, k16, v16, do16, out16, lse16, dmb16
     torch.cuda.empty_cache()
     res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
-           "routes": {"dkv bfloat16, float32": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu "
-                                               "(wgmma, TMA; float32 as three bf16 planes)",
+           "routes": {"dkv bfloat16, float16, float32":
+                          "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu (wgmma, TMA; float16 with dS "
+                          "scaled by a running exponent per key row; float32 as three bf16 "
+                          "planes)",
                       "dq bfloat16, float32": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu "
                                               "(wgmma, TMA; float32 as three bf16 planes)",
-                      "float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
+                      "dq float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
            "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
                    "NaN at the same places (check_flash_bwd)"}
     emit(res)
@@ -1047,13 +1221,14 @@ def main():
     clean = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
     spills = [ln.strip() for ln in info["log"].splitlines()
               if "bytes stack frame" in ln and ln.strip() != clean]
-    # ptxas's lines for the tensor-core kernels: registers at the launch
+    # ptxas's lines for the tensor-core kernels (keyed by name and mangled
+    # template arguments, e.g. ILi64E6__halfE): registers at the launch
     # value (the consumers raise theirs with setmaxnreg), stack and spills
     sm90, entry = {}, None
     for ln in info["log"].splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_sm90_kernel)ILi(\d+)E", ln)
+        m = re.search(r"Compiling entry function '.*?(flash_[a-z_]+_sm90_kernelI.*?E)Ev", ln)
         if m:
-            entry = f"{m.group(1)}<{m.group(2)}>"
+            entry = m.group(1)
         elif "Compiling entry function" in ln:
             entry = None
         elif entry and ("bytes stack frame" in ln or "Used" in ln):
@@ -1163,83 +1338,7 @@ def main():
     del c
     torch.cuda.empty_cache()
 
-    # flash attention: bf16 runs on the tensor cores (csrc/flash_fwd_sm90.cu),
-    # float32 on the fp32-FMA kernel (csrc/flash_fwd.cu). Both at the serving
-    # path's shapes (prefill: one request of 1024 rows, 16 heads of 64; the
-    # logits forward: 8 of them), at a length that is no multiple of any
-    # tile, at causal Sq > Sk, whose first 100 rows see no key, and (bf16)
-    # at Sk = 4096, which wraps the key ring many times
-    H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
-    fl_checks = {}
-    bf16, fp32 = torch.bfloat16, torch.float32
-    for name, b, h, sq, sk, dt, causal in (
-            ("prefill_1x16x1024x64_bf16", 1, H, 1024, 1024, bf16, True),
-            ("logits_8x16x1024x64_bf16", 8, H, 1024, 1024, bf16, True),
-            ("prefill_1x16x1024x64_f32", 1, H, 1024, 1024, fp32, True),
-            ("logits_8x16x1024x64_f32", 8, H, 1024, 1024, fp32, True),
-            ("1x16x1000x64_bf16", 1, H, 1000, 1000, bf16, True),
-            ("1x16x1000x64_f32", 1, H, 1000, 1000, fp32, True),
-            ("1x4x300x64_vs_200_bf16", 1, 4, 300, 200, bf16, True),
-            ("1x4x300x64_vs_200_f32", 1, 4, 300, 200, fp32, True),
-            ("1x4x300_vs_4096x64_bf16_causal", 1, 4, 300, 4096, bf16, True),
-            ("1x4x300_vs_4096x64_bf16_noncausal", 1, 4, 300, 4096, bf16, False)):
-        q = torch.randn(b, h, sq, DH, device=dev, generator=gen).to(dt)
-        k = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
-        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
-        step = 2.0**-7 if dt == bf16 else 0.0
-        err, ratio = check_flash(torch, tk, q, k, v, causal=causal, out_step=step)
-        fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step,
-                           "causal": causal}
-        if causal and sq > sk:
-            out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
-            assert bool(torch.isnan(out[:, :, :sq - sk]).all())
-            assert bool(torch.isneginf(lse[:, :, :sq - sk]).all())
-            assert not bool(torch.isnan(out[:, :, sq - sk:]).any())
-            fl_checks[name]["empty_rows"] = sq - sk
-            del out, lse
-        del q, k, v
-        torch.cuda.empty_cache()
-    fl_times = {}
-    for name, b in (("prefill_1x16x1024x64_bf16", 1), ("logits_8x16x1024x64_bf16", 8)):
-        q, k, v = (torch.randn(b, H, 1024, DH, device=dev, generator=gen).bfloat16()
-                   for _ in range(3))
-        qf, kf, vf = q.float(), k.float(), v.float()
-        fb = flash_bound(b, H, 1024, 1024, DH, True, bw, bf16_tc)
-        fb32 = flash_bound_f32(b, H, 1024, 1024, DH, True, bw, bf16_tc)
-        fl_times[name] = {
-            "kernel": time_ms(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
-            "plain": time_ms(torch, lambda: tk.flash_attention_plain(q, k, v, causal=True)),
-            "sdpa": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True)),
-            "bound": fb[0], "bound_by": fb[1],
-            "fp32_fma_design_floor": flash_fma_floor(b, H, 1024, 1024, DH, True, f32),
-            "fma_f32": {
-                "kernel": time_ms(torch, lambda: tk.flash_attention(qf, kf, vf, causal=True)),
-                "plain": time_ms(torch, lambda: tk.flash_attention_plain(qf, kf, vf,
-                                                                         causal=True)),
-                "sdpa": time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qf, kf, vf, is_causal=True)),
-                "bound": fb32[0], "bound_by": fb32[1],
-                "fp32_fma_design_floor": flash_fma_floor(b, H, 1024, 1024, DH, True, f32)}}
-        if b == 1:
-            # one prefill's work fills about one wave of the card, so the
-            # CUDA-event time of back-to-back calls may be the wrapper's host
-            # pace: the wall time per call of back-to-back calls apart from
-            # the kernel's own device time (torch.profiler); where the card
-            # idles over a tenth of the wall, the host sets the pace
-            w = device_share(torch, lambda: tk.flash_attention(q, k, v, causal=True), 200,
-                             kinds={"kernel": ("flash_fwd_sm90",)})
-            dev_ms = (w.get("device_ms_per_call_by_kind") or {}).get("kernel")
-            host_bound = dev_ms is not None and dev_ms < 0.9 * w["host_ms_per_call"]
-            fl_times[name].update(
-                device_ms=dev_ms, host_ms=w["host_ms_per_call"],
-                ms_is=("host-bound: the wrapper's host time per call; the kernel's own is "
-                       "device_ms" if host_bound else "the kernel's time"))
-        del q, k, v, qf, kf, vf
-        torch.cuda.empty_cache()
-    emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times,
-          "routes": {"bfloat16": "heat_tpu_torch/csrc/flash_fwd_sm90.cu (wgmma, TMA)",
-                     "float32, float16": "heat_tpu_torch/csrc/flash_fwd.cu (fp32 FMA)"}})
+    fl_checks, fl_times = flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
     bwd = flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
 
     # 5. the KMeans path, through the entry points a user calls ---------- #
@@ -1369,6 +1468,15 @@ def main():
               "fp32_fma_design_floor": t["fma_f32"]["fp32_fma_design_floor"],
               "library_ms": t["fma_f32"]["sdpa"]}
              for key, shape, t in (("prefill_1x16x1024x64", "1x16x1024x64", fp),
+                                   ("logits_8x16x1024x64", "8x16x1024x64", fl))] + [
+             {"source": FWD_F16_SOURCE, "dtype": "float16",
+              "shape": f"{shape} float16, causal",
+              "max_abs_err": fl_checks[f"{key}_f16"]["max_abs_err"],
+              "ms": t["f16"]["kernel"], "plain_ms": t["f16"]["plain"],
+              "bound_ms": t["f16"]["bound"], "bound_by": t["f16"]["bound_by"],
+              "library_ms": t["f16"]["sdpa"],
+              **{x: t["f16"][x] for x in ("device_ms", "host_ms", "ms_is") if x in t["f16"]}}
+             for key, shape, t in (("prefill_1x16x1024x64", "1x16x1024x64", fp),
                                    ("logits_8x16x1024x64", "8x16x1024x64", fl))]},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
@@ -1391,7 +1499,7 @@ def main():
                        "device_ms_by_kind": bt["dkv"]["f32"]["device_ms_by_kind"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"},
-                      {"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float16",
+                      {"source": DKV_F16_SOURCE, "dtype": "float16",
                        "shape": "8x16x1024x64 float16, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f16_causal"][
                            "dk_dv_max_abs_err"],
@@ -1399,7 +1507,7 @@ def main():
                        "plain_ms": bt["dkv"]["f16"]["plain"],
                        "bound_ms": bt["dkv"]["f16"]["bound"],
                        "bound_by": bt["dkv"]["f16"]["bound_by"],
-                       "fp32_fma_design_floor": bt["dkv"]["f16"]["fp32_fma_design_floor"],
+                       "passes_per_split_product": F16_PASSES_SPLIT,
                        "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "flash_bwd_dq", "route": "cuda",

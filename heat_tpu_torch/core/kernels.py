@@ -9,17 +9,19 @@ Each kernel sits beside a plain PyTorch version of the same function:
   :func:`kmeans_step_plain`;
 * :func:`flash_attention` for heat_tpu's ``flash_attention`` forward
   (``_flash_impl``, ``pallas_kernels.py:348``), and
-  :func:`flash_attention_plain`: bf16 on the tensor cores
-  (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, float32 accuracy by split-bf16
-  passes), float32 and float16 on fp32 FMA (``csrc/flash_fwd.cu``);
+  :func:`flash_attention_plain`: bf16 and float16 on the tensor cores
+  (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, float32 accuracy by splitting
+  the probabilities into bf16 terms, or float16 terms of 2^15·P), float32
+  on fp32 FMA (``csrc/flash_fwd.cu``);
 * :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` for heat_tpu's
   ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
   (``pallas_kernels.py:412``, ``:488``, launched by ``_flash_bwd_impl``
   ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`:
-  bf16 and float32 on the tensor cores (``csrc/flash_bwd_dkv_sm90.cu``,
-  ``csrc/flash_bwd_dq_sm90.cu``; float32 through three bf16 planes per
-  input that a split pass writes into a workspace the wrapper allocates),
-  float16 on fp32 FMA (``csrc/flash_bwd.cu``);
+  dK/dV in every dtype and dQ in bf16 and float32 on the tensor cores
+  (``csrc/flash_bwd_dkv_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``; float32
+  through three bf16 planes per input that a split pass writes into a
+  workspace the wrapper allocates; float16 with dS scaled per key row by a
+  running power of two), float16 dQ on fp32 FMA (``csrc/flash_bwd.cu``);
   :func:`flash_attention`'s backward runs both (float32: one split pass,
   written by the dK/dV launch and read by the dQ launch), and
   :func:`flash_attention_bwd_plain` is the whole backward's plain version
@@ -61,7 +63,7 @@ _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 
 _KERNEL_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_GRID_Y = 65535
 _CDIST_TILE_N = 64  # output columns per block of the wide cdist tile (n > 8)
-_FLASH_TILE = 64    # query rows (keys for dK/dV) per block of the FMA flash kernels
+_FLASH_TILE = 64    # the fewest query rows (keys for dK/dV) a flash kernel block takes
 _FLASH_MAX_D = 128
 _NEG_BIG = -1e30    # heat_tpu's masked score (pallas_kernels.py:55)
 
@@ -409,10 +411,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU), so no ``(Sq, Sk)`` matrix is kept between the passes.
 
     On the card the kernels take float32, bfloat16 and float16, contiguous
-    inputs and head dims up to 128; float64 raises (ROADMAP). bfloat16 runs
-    on the tensor cores, float32 and float16 on fp32 FMA, both at float32
+    inputs and head dims up to 128; float64 raises (ROADMAP). bfloat16 and
+    float16 run on the tensor cores, float32 on fp32 FMA, all at float32
     accuracy; the backward runs float32 on the tensor cores too (six
-    split-bf16 passes a product). The card uses its own tiles and ignores
+    split-bf16 passes a product), and float16 there except its dQ, which
+    stays on fp32 FMA. The card uses its own tiles and ignores
     ``block_q``/``block_k``, which stay for heat_tpu's signature: results do
     not depend on tile sizes. Where no gradient can flow (grad mode off, or
     no input requires grad) the call skips the autograd machinery: the same

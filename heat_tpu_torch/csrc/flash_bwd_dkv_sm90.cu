@@ -1,21 +1,22 @@
-// flash_bwd_dkv_sm90: dK and dV of the bf16 and float32 flash-attention
-// backward on Hopper's tensor cores, recomputing the probabilities from the
-// forward's saved log-sum-exp (lse).
+// flash_bwd_dkv_sm90: dK and dV of the bf16, float16 and float32
+// flash-attention backward on Hopper's tensor cores, recomputing the
+// probabilities from the forward's saved log-sum-exp (lse).
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:412
 // _flash_bwd_dkv_kernel (pallas_call :592, launched by _flash_bwd_impl
-// :549) for bf16 and float32 inputs; float16 stays on the fp32-FMA kernel of
-// flash_bwd.cu, which routes here by dtype only. For q, dout (BH, Sq, D),
-// k, v (BH, Sk, D), lse and dmb (BH, Sq) float32, with s = scale * k . q:
+// :549); heat_flash_bwd_dkv (flash_bwd.cu) routes every dtype it takes here.
+// For q, dout (BH, Sq, D), k, v (BH, Sk, D), lse and dmb (BH, Sq) float32,
+// with s = scale * k . q:
 //   p  = exp(s - lse) where the pair is visible and lse is finite, else 0,
 //   dp = v . dout,   ds = p * (dp + dmb),
 //   dV = P^T dout,   dK = scale * dS^T q.
-// The rules of the FMA kernel stay (flash_bwd.cu): only the Sk real keys
-// count, the causal diagonal is end-aligned, the finite-lse gate, query
-// tiles wholly below a key tile's diagonal are skipped, and a skipped query
-// row with a non-finite dmb makes the key tile's dK NaN, as the dense
-// backward's 0 x dmb does there. No atomics: each dK and dV row is written
-// once by the block that owns it, so runs are bitwise repeatable.
+// The rules of heat_tpu's dense backward (pallas_kernels.py:668-686) stay:
+// only the Sk real keys count, the causal diagonal is end-aligned, the
+// finite-lse gate, query tiles wholly below a key tile's diagonal are
+// skipped, and a skipped query row with a non-finite dmb makes the key
+// tile's dK NaN, as the dense backward's 0 x dmb does there. No atomics:
+// each dK and dV row is written once by the block that owns it, so runs are
+// bitwise repeatable.
 //
 // Precision (heat_tpu runs the products at HIGHEST with float32
 // accumulation, pallas_kernels.py:445-472): S^T = K Q^T and dP^T = V dO^T
@@ -23,6 +24,16 @@
 // and dK += dS^T Q split the fp32 P^T and dS^T into three bf16 terms
 // (sm90_common.cuh, split3) and take three passes each, smallest term
 // first; the scale is applied to the fp32 scores and to dK at the end.
+// float16 inputs: S^T and dP^T take one float16 pass each, as bf16's; dV
+// splits 2^15 P^T (P <= 1) into two float16 terms (split2h) and takes two
+// passes, the 2^15 divided out at the end; dS^T has no bound in either
+// direction (gradients of 2^-14 and below, or past 65,504), so each key row
+// keeps a running power-of-two exponent E of its largest |dS^T| so far, as
+// the forward keeps its running max: per query tile E grows to the tile's
+// row maximum's exponent, the row's fp32 dK accumulator is multiplied by
+// 2^(E_old - E) (exact), and the row times 2^(14 - E), below 2^15, splits
+// into two float16 terms; dK = scale * 2^(E - 14) * the accumulator. The row
+// maximum is a max over the 4 threads of a quad.
 // float32 inputs (F32): every product has two float32 operands. A split pass
 // (sm90_common.cuh, split_inputs) first writes each of q, k, v and dout as
 // its three split3 planes into the caller's workspace, padded to whole
@@ -56,12 +67,13 @@
 // from the same tiles, splitting dS^T while dV's passes run: nothing is
 // transposed in memory. Head dims pad to DP in {64, 128} with zeros in
 // shared memory only; at DP = 128 query tiles shrink to 32 rows so the
-// accumulators fit the registers. float32 runs 24 passes per live pair, 3x
-// the bf16 kernel's work, plus the split pass's traffic (its inputs read
-// once, three bf16 planes written once); three planes per tile triple the
-// shared memory, so its ring has 2 stages and at DP = 128 a block holds 64
-// keys with one consumer warpgroup (256 threads, no register hand-over):
-// 192 KB either way.
+// accumulators fit the registers. float16 runs 6 passes per live pair
+// (bf16 8). float32 runs 24 passes per live pair, 3x the bf16 kernel's
+// work, plus the split pass's traffic (its inputs read once, three bf16
+// planes written once); three planes per tile triple the shared memory, so
+// its ring has 2 stages and at DP = 128 a block holds 64 keys with one
+// consumer warpgroup (256 threads, no register hand-over): 192 KB either
+// way.
 #include "sm90_common.cuh"
 
 namespace {
@@ -69,44 +81,59 @@ namespace {
 using namespace sm90;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kPScale = 32768.f;  // float16: P^T's scale, 2^15, before its split
+constexpr int kEMin = -110;         // float16: the running exponent's floor
 
-// F32: float32 inputs as three bf16 planes (TERMS = 3), float32 output
-template <int DP, bool F32>
+// 2^n as a float32 for an integer n <= 127, and zero below 2^-126: a rescale
+// by it is exact, or drops less than 2^-126 of what it scales.
+__device__ __forceinline__ float pow2(int n) {
+  return n < -126 ? 0.f : __int_as_float((n + 127) << 23);
+}
+// The unbiased exponent of a float32 x >= 0 (-127 for zero and subnormals,
+// 128 for inf).
+__device__ __forceinline__ int exponent_of(float x) {
+  return ((__float_as_int(x) >> 23) & 0xff) - 127;
+}
+
+// T: the inputs' and outputs' type: __nv_bfloat16, __half, or float (F32:
+// the inputs as three bf16 planes, TERMS = 3); W: the wgmma operand type
+template <int DP, typename T>
 struct Layout {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr bool H = kIsHalf<T>;
+  using W = typename std::conditional<H, __half, __nv_bfloat16>::type;
   static constexpr int NC = F32 && DP == 128 ? 1 : 2;  // consumer warpgroups
   static constexpr int NT = 128 * (NC + 1);            // and one producer warpgroup
   static constexpr int BKB = 64 * NC;                  // keys per block
   static constexpr int NS = F32 ? 2 : 3;               // query-tile ring stages
   static constexpr int BQ = DP == 64 ? 64 : 32;        // query rows per streamed tile
-  static constexpr int TERMS = F32 ? 3 : 1;            // bf16 planes per input tile
+  static constexpr int TERMS = F32 ? 3 : 1;            // planes per input tile
   static constexpr int NP = F32 ? 6 : 1;               // passes of a product
   static constexpr int KV_BYTES = BKB * DP * 2;        // one plane of the K or V tile
   static constexpr int Q_BYTES = BQ * DP * 2;          // one plane of a Q or dO tile
   static constexpr int STAGE = 2 * TERMS * Q_BYTES;    // Q's planes then dO's
   static constexpr int SMEM = 2 * TERMS * KV_BYTES + NS * STAGE + 1024;  // + alignment slack
-  using Out = typename std::conditional<F32, float, __nv_bfloat16>::type;
 };
 
-template <int DP, bool F32>
-__global__ void __launch_bounds__(Layout<DP, F32>::NT, 1)
-flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
-                          const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ dmb, void* __restrict__ dk_out,
-                          void* __restrict__ dv_out, int sq, int sk, int d, float scale,
-                          int causal, int use_tma) {
-  using L = Layout<DP, F32>;
-  typename L::Out* dk = static_cast<typename L::Out*>(dk_out);  // bf16, or float32 (F32)
-  typename L::Out* dv = static_cast<typename L::Out*>(dv_out);
+template <int DP, typename T>
+__global__ void __launch_bounds__(Layout<DP, T>::NT, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps, const void* __restrict__ q,
+                          const void* __restrict__ k, const void* __restrict__ v,
+                          const void* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ dmb, T* __restrict__ dk,
+                          T* __restrict__ dv, int sq, int sk, int d, float scale, int causal,
+                          int use_tma) {
+  using L = Layout<DP, T>;
+  using W = typename L::W;
+  constexpr bool F32 = L::F32, H = L::H;
   constexpr int BQ = L::BQ, BKB = L::BKB, NS = L::NS, NC = L::NC;
-  constexpr int T = L::TERMS;
+  constexpr int TM = L::TERMS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ RingBars<NS> bars;  // once: the K and V tiles; the ring: Q/dO tiles
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* ks = smem;                       // K's planes, then V's
-  uint8_t* ring = smem + 2 * T * L::KV_BYTES;
+  uint8_t* ring = smem + 2 * TM * L::KV_BYTES;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -127,15 +154,15 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
     if constexpr (NC == 2) setmaxnreg_dec<40>();
     // maps: q's planes, k's, v's, dout's; a float32 plane is never staged by
     // plain loads (use_tma is set), so its pointer is not read
-    Src kv[2 * T], qdo[2 * T];
+    Src kv[2 * TM], qdo[2 * TM];
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
-      kv[j] = {&maps.m[T + j], k, sk};
-      kv[T + j] = {&maps.m[2 * T + j], v, sk};
+    for (int j = 0; j < TM; ++j) {
+      kv[j] = {&maps.m[TM + j], k, sk};
+      kv[TM + j] = {&maps.m[2 * TM + j], v, sk};
       qdo[j] = {&maps.m[j], q, sq};
-      qdo[T + j] = {&maps.m[3 * T + j], dout, sq};
+      qdo[TM + j] = {&maps.m[3 * TM + j], dout, sq};
     }
-    produce<DP, NS, BKB, 2 * T, BQ, 2 * T>(bars, use_tma, tid - 128 * NC, bh, d, ks, kv, k0,
+    produce<DP, NS, BKB, 2 * TM, BQ, 2 * TM>(bars, use_tma, tid - 128 * NC, bh, d, ks, kv, k0,
                                            ring, qdo, qt0, ntiles);
     return;
   }
@@ -160,11 +187,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
   float acc_k[DP / 2], acc_v[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  int ek[2] = {kEMin, kEMin};  // float16: the running exponents of keys key0, key0 + 8
 
   mbar_wait(&bars.once, 0);
   // plane j of this warpgroup's 64 keys of K and of V
   auto k_addr = [&](int j) { return smem_u32(ks) + j * L::KV_BYTES + wg * 64 * 128; };
-  auto v_addr = [&](int j) { return smem_u32(ks) + (T + j) * L::KV_BYTES + wg * 64 * 128; };
+  auto v_addr = [&](int j) { return smem_u32(ks) + (TM + j) * L::KV_BYTES + wg * 64 * 128; };
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % NS;
@@ -185,10 +213,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
       // plane j of the stage's Q and dO tiles
       const uint32_t stage = smem_u32(ring + s * L::STAGE);
       auto q_addr = [&](int j) { return stage + j * L::Q_BYTES; };
-      auto o_addr = [&](int j) { return stage + (T + j) * L::Q_BYTES; };
+      auto o_addr = [&](int j) { return stage + (TM + j) * L::Q_BYTES; };
 
-      // S^T = K Q^T and dP^T = V dO^T: one pass (bf16), or six of the two
-      // float32 operands' planes
+      // S^T = K Q^T and dP^T = V dO^T: one pass (bf16, float16), or six of
+      // the two float32 operands' planes
       float st[BQ / 2], dpt[BQ / 2];
       wgmma_fence();
 #pragma unroll
@@ -196,18 +224,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
-          Wgmma<BQ>::ss(st, kmajor_desc(k_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
-                        kmajor_desc(q_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
-                        p > 6 - L::NP || kk > 0);
+          Wgmma<BQ, W>::ss(st, kmajor_desc(k_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
+                           kmajor_desc(q_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
+                           p > 6 - L::NP || kk > 0);
         }
 #pragma unroll
       for (int p = 6 - L::NP; p < 6; ++p)
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk) {
           const uint32_t off = (kk & 3) * 32;
-          Wgmma<BQ>::ss(dpt, kmajor_desc(v_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
-                        kmajor_desc(o_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
-                        p > 6 - L::NP || kk > 0);
+          Wgmma<BQ, W>::ss(dpt, kmajor_desc(v_addr(pass_a(p)) + (kk >> 2) * BKB * 128 + off),
+                           kmajor_desc(o_addr(pass_b(p)) + (kk >> 2) * BQ * 128 + off),
+                           p > 6 - L::NP || kk > 0);
         }
       wgmma_commit();
       wgmma_wait<0>();
@@ -230,8 +258,61 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
 
       // dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
       // fragments: bf16, their three split3 terms against dO's (Q's) one
-      // plane; float32, the six passes of their terms and dO's (Q's) planes
-      if constexpr (F32) {
+      // plane; float16, two float16 terms of 2^15 P^T and of dS^T scaled by
+      // its row's running exponent; float32, the six passes of their terms
+      // and dO's (Q's) planes
+      if constexpr (H) {
+        uint32_t a[2][BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split2h(st[8 * kk + 2 * j] * kPScale, st[8 * kk + 2 * j + 1] * kPScale, a[0][kk][j],
+                    a[1][kk][j]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 1; j >= 0; --j)
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<DP, W>::rs(acc_v, a[j][kk], sw128_desc(o_addr(0) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        if constexpr (DP > 64) wgmma_wait<0>();  // frees the P^T terms' registers
+
+        // the running exponent of each key row (register i holds row
+        // (i / 2) % 2 of this thread's two): the row's largest |dS^T| over
+        // the quad, NaN aside
+        float mx[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], fabsf(dpt[i]));
+        float up[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const int e = max(ek[h], exponent_of(mx[h]));
+          const float shrink = pow2(ek[h] - e);  // the accumulator to the new exponent
+          ek[h] = e;
+          up[h] = pow2(14 - e);                  // this tile's row below 2^15
+#pragma unroll
+          for (int i = 0; i < DP / 2; ++i)
+            if (((i >> 1) & 1) == h) acc_k[i] *= shrink;
+        }
+        uint32_t b[2][BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)  // registers 8kk + 2j, + 1 lie on row j % 2
+            split2h(dpt[8 * kk + 2 * j] * up[j & 1], dpt[8 * kk + 2 * j + 1] * up[j & 1],
+                    b[0][kk][j], b[1][kk][j]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 1; j >= 0; --j)
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<DP, W>::rs(acc_k, b[j][kk], sw128_desc(q_addr(0) + kk * 2048, BQ * 128));
+        wgmma_commit();
+        wgmma_wait<0>();
+      } else if constexpr (F32) {
         uint32_t a[3][BQ / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
@@ -244,7 +325,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
         for (int p = 0; p < 6; ++p)
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<DP>::rs(acc_v, a[pass_a(p)][kk],
+            Wgmma<DP, W>::rs(acc_v, a[pass_a(p)][kk],
                           sw128_desc(o_addr(pass_b(p)) + kk * 2048, BQ * 128));
         wgmma_commit();
         if constexpr (DP > 64) wgmma_wait<0>();  // frees the P^T terms' registers
@@ -261,7 +342,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
         for (int p = 0; p < 6; ++p)
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<DP>::rs(acc_k, b[pass_a(p)][kk],
+            Wgmma<DP, W>::rs(acc_k, b[pass_a(p)][kk],
                           sw128_desc(q_addr(pass_b(p)) + kk * 2048, BQ * 128));
         wgmma_commit();
         wgmma_wait<0>();
@@ -311,55 +392,64 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ TMaps maps,
   }
 
   // ---- epilogue: dK (times scale, NaN where poisoned) and dV -------------
+  // float16: dK times 2^(E - 14) of its row, dV times 2^-15 (both exact)
   const float nan = __int_as_float(0x7fc00000);
-  constexpr uintptr_t pair_align = 2 * sizeof(typename L::Out) - 1;
+  float kmul[2] = {scale, scale};
+  if constexpr (H) {
+    kmul[0] = pow2(ek[0] - 14) * scale;
+    kmul[1] = pow2(ek[1] - 14) * scale;
+  }
+  const float vmul = H ? 1.f / kPScale : 1.f;
+  constexpr uintptr_t pair_align = 2 * sizeof(T) - 1;
   const bool pairs = (d & 1) == 0 && (reinterpret_cast<uintptr_t>(dk) & pair_align) == 0 &&
                      (reinterpret_cast<uintptr_t>(dv) & pair_align) == 0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
-    const int key = key0 + 8 * ((i >> 1) & 1);
+    const int h = (i >> 1) & 1;
+    const int key = key0 + 8 * h;
     const int col = acc_col(i, lane);
     if (key >= sk || col >= d) continue;
     const int64_t at = (static_cast<int64_t>(bh) * sk + key) * d + col;
-    const float k0v = poison ? nan : acc_k[i] * scale;
-    const float k1v = poison ? nan : acc_k[i + 1] * scale;
+    const float k0v = poison ? nan : acc_k[i] * kmul[h];
+    const float k1v = poison ? nan : acc_k[i + 1] * kmul[h];
+    const float v0v = acc_v[i] * vmul, v1v = acc_v[i + 1] * vmul;
     if (pairs) {
       if constexpr (F32) {
         *reinterpret_cast<float2*>(dk + at) = make_float2(k0v, k1v);
-        *reinterpret_cast<float2*>(dv + at) = make_float2(acc_v[i], acc_v[i + 1]);
+        *reinterpret_cast<float2*>(dv + at) = make_float2(v0v, v1v);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(k0v, k1v);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-            __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + at) = pack2<T>(k0v, k1v);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack2<T>(v0v, v1v);
       }
     } else {
-      dk[at] = from_acc<typename L::Out>(k0v);
-      dv[at] = from_acc<typename L::Out>(acc_v[i]);
+      dk[at] = from_acc<T>(k0v);
+      dv[at] = from_acc<T>(v0v);
       if (col + 1 < d) {
-        dk[at + 1] = from_acc<typename L::Out>(k1v);
-        dv[at + 1] = from_acc<typename L::Out>(acc_v[i + 1]);
+        dk[at + 1] = from_acc<T>(k1v);
+        dv[at + 1] = from_acc<T>(v1v);
       }
     }
   }
 }
 
-// The bf16 kernel on q, k, v, dout as they are (TMA where it can address
-// them, else plain loads), or the float32 kernel on their split planes.
-template <int DP, bool F32>
+// The bf16 and float16 kernels on q, k, v, dout as they are (TMA where it
+// can address them, else plain loads), or the float32 kernel on their split
+// planes.
+template <int DP, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* dmb, void* dk, void* dv, void* ws, int split,
                    int64_t bh, int sq, int sk, int d, float scale, int causal,
                    cudaStream_t stream) {
-  using L = Layout<DP, F32>;
+  using L = Layout<DP, T>;
   constexpr int smem = L::SMEM, BKB = L::BKB;
   static std::atomic<uint32_t> smem_raised{0};
   cudaError_t err = raise_smem_limit(
-      reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<DP, F32>), smem, smem_raised);
+      reinterpret_cast<const void*>(flash_bwd_dkv_sm90_kernel<DP, T>), smem, smem_raised);
   if (err != cudaSuccess) return err;
   TMaps maps{};
   const void* src[4] = {q, k, v, dout};
   int use_tma;
-  if constexpr (F32) {
+  if constexpr (L::F32) {
     SplitInputs planes;
     err = split_inputs(q, k, v, dout, ws, split, bh, sq, sk, d, stream, &planes);
     if (err != cudaSuccess) return err;
@@ -374,46 +464,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d) && tma_ok(dout, d);
     if (use_tma)
       for (int i = 0; i < 4; ++i)
-        if ((err = make_tmap(&maps.m[i], src[i], bh, i == 1 || i == 2 ? sk : sq, d,
-                             i == 1 || i == 2 ? BKB : L::BQ)) != cudaSuccess)
+        if ((err = make_tmap<T>(&maps.m[i], src[i], bh, i == 1 || i == 2 ? sk : sq, d,
+                                i == 1 || i == 2 ? BKB : L::BQ)) != cudaSuccess)
           return err;
   }
   dim3 grid(static_cast<unsigned>(bh), (sk + BKB - 1) / BKB);
-  flash_bwd_dkv_sm90_kernel<DP, F32><<<grid, L::NT, smem, stream>>>(
-      maps, static_cast<const __nv_bfloat16*>(src[0]), static_cast<const __nv_bfloat16*>(src[1]),
-      static_cast<const __nv_bfloat16*>(src[2]), static_cast<const __nv_bfloat16*>(src[3]), lse,
-      dmb, dk, dv, sq, sk, d, scale, causal, use_tma);
+  flash_bwd_dkv_sm90_kernel<DP, T><<<grid, L::NT, smem, stream>>>(
+      maps, src[0], src[1], src[2], src[3], lse, dmb, static_cast<T*>(dk), static_cast<T*>(dv),
+      sq, sk, d, scale, causal, use_tma);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* dmb, void* dk, void* dv, void* ws, int split,
+                     int64_t bh, int sq, int sk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 64)
+    return launch<64, T>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                         causal, s);
+  if (d <= 128)
+    return launch<128, T>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                          causal, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The bf16 case of heat_flash_bwd_dkv (flash_bwd.cu): the same arguments.
+// heat_flash_bwd_dkv (flash_bwd.cu) for every dtype it takes: the same
+// arguments; for float32 the workspace of the split planes, 12 * bh * d8 *
+// (sq + sk) bytes (d8: d rounded up to 8), and whether to write them
+// (split) or read them as the other kernel wrote them; ws is unused
+// otherwise.
 cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
-                               const float* lse, const float* dmb, void* dk, void* dv,
-                               int64_t bh, int sq, int sk, int d, float scale, int causal,
-                               cudaStream_t s) {
-  if (d <= 64)
-    return launch<64, false>(q, k, v, dout, lse, dmb, dk, dv, nullptr, 0, bh, sq, sk, d,
-                             scale, causal, s);
-  if (d <= 128)
-    return launch<128, false>(q, k, v, dout, lse, dmb, dk, dv, nullptr, 0, bh, sq, sk, d,
-                              scale, causal, s);
-  return cudaErrorInvalidValue;
-}
-
-// The float32 case: the same arguments, the workspace of the split planes,
-// 12 * bh * d8 * (sq + sk) bytes (d8: d rounded up to 8), and whether to
-// write them (split) or read them as the other kernel wrote them.
-cudaError_t flash_bwd_dkv_sm90_f32(const void* q, const void* k, const void* v, const void* dout,
-                                   const float* lse, const float* dmb, void* dk, void* dv,
-                                   void* ws, int split, int64_t bh, int sq, int sk, int d,
-                                   float scale, int causal, cudaStream_t s) {
-  if (d <= 64)
-    return launch<64, true>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
-                            causal, s);
-  if (d <= 128)
-    return launch<128, true>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                               const float* lse, const float* dmb, void* dk, void* dv, void* ws,
+                               int split, int64_t bh, int sq, int sk, int d, int dtype,
+                               float scale, int causal, cudaStream_t s) {
+  switch (dtype) {
+    case kBF16:
+      return launch_d<__nv_bfloat16>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d,
+                                     scale, causal, s);
+    case kF16:
+      return launch_d<__half>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+                              causal, s);
+    case kF32:
+      return launch_d<float>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
                              causal, s);
-  return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,7 +1,7 @@
 // flash_fwd: blockwise attention forward with online softmax, returning the
 // output and the per-row log-sum-exp (lse); the fp32-FMA kernel for float32
-// and float16 inputs. heat_flash_fwd routes bf16, by dtype alone, to the
-// tensor-core kernel of flash_fwd_sm90.cu.
+// inputs. heat_flash_attention routes bf16 and float16, by dtype alone, to
+// the tensor-core kernel of flash_fwd_sm90.cu.
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:348 _flash_impl
 // (body _flash_kernel :234, pallas_call :374): for q (BH, Sq, D) and k, v
@@ -25,16 +25,16 @@
 // intermediate (scores, probabilities, running max and sum, the output
 // accumulator) on chip and reads each K/V tile once per query tile.
 //
-// Design (fp32 FMA on the CUDA cores, for the dtypes that take no exact
-// bf16 split): one block of 128 threads per (batch*head, 64-row query
-// tile), the heaviest causal tiles scheduled first. The query tile is
-// staged in shared memory once, as fp32 multiplied by scale; K and V tiles
-// of 64 keys follow in turn, converted to fp32. Threads form 16 row groups
-// of 8 lanes: each thread owns 4 query rows, 8 of the tile's keys (scores
-// in registers) and 4*(DP/32) output columns (the accumulator in
-// registers). Row max and row sum are
-// shuffle reductions over the 8 lanes of a row, so every lane of a row holds
-// the same running max and sum. Probabilities go through shared memory for
+// Design (fp32 FMA on the CUDA cores, for float32, whose two float32
+// operands the tensor-core kernel does not split yet): one block of 128
+// threads per (batch*head, 64-row query tile), the heaviest causal tiles
+// scheduled first. The query tile is staged in shared memory once, as fp32
+// multiplied by scale; K and V tiles of 64 keys follow in turn. Threads form
+// 16 row groups of 8 lanes: each thread owns 4 query rows, 8 of the tile's
+// keys (scores in registers) and 4*(DP/32) output columns (the accumulator
+// in registers). Row max and row sum are shuffle reductions over the 8
+// lanes of a row, so every lane of a row holds the same running max and
+// sum. Probabilities go through shared memory for
 // the P.V product. Head dims are padded to DP in {32, 64, 128} with zeros in
 // shared memory; nothing is padded in device memory. Rows and keys past the
 // ends are masked in the kernel.
@@ -218,14 +218,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, flo
 }  // namespace
 
 cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
-                           int64_t bh, int sq, int sk, int d, float scale, int causal,
+                           int64_t bh, int sq, int sk, int d, int dtype, float scale, int causal,
                            cudaStream_t s);
 
 // q (bh, sq, d), k and v (bh, sk, d), contiguous and of one dtype (f32, bf16
 // or f16) on card `device`; out (bh, sq, d) in that dtype and lse (bh, sq)
 // float32. The wrapper guarantees bh >= 1, 1 <= sq <= 65535 * 64 and
-// 1 <= d <= 128. bf16 runs on the tensor cores (flash_fwd_sm90.cu), f32 and
-// f16 here. Returns the launch's cudaError_t.
+// 1 <= d <= 128. bf16 and f16 run on the tensor cores (flash_fwd_sm90.cu),
+// f32 here. Returns the launch's cudaError_t.
 extern "C" int heat_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     void* lse, int64_t bh, int sq, int sk, int d, int dtype,
                                     float scale, int causal, int device, void* stream) {
@@ -235,8 +235,8 @@ extern "C" int heat_flash_attention(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   switch (dtype) {
     case kF32: return launch_d<float>(q, k, v, out, l, bh, sq, sk, d, scale, causal, s);
-    case kBF16: return flash_fwd_sm90(q, k, v, out, l, bh, sq, sk, d, scale, causal, s);
-    case kF16: return launch_d<__half>(q, k, v, out, l, bh, sq, sk, d, scale, causal, s);
+    case kBF16:
+    case kF16: return flash_fwd_sm90(q, k, v, out, l, bh, sq, sk, d, dtype, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,9 @@
-// flash_fwd_sm90: the bf16 flash-attention forward on Hopper's tensor cores,
-// returning the output and the per-row log-sum-exp (lse).
+// flash_fwd_sm90: the bf16 and float16 flash-attention forward on Hopper's
+// tensor cores, returning the output and the per-row log-sum-exp (lse).
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:348 _flash_impl
-// (body _flash_kernel :234, pallas_call :374) for bf16 inputs; float32 and
-// float16 stay on the fp32-FMA kernel of flash_fwd.cu, which routes here by
+// (body _flash_kernel :234, pallas_call :374) for bf16 and float16 inputs;
+// float32 stays on the fp32-FMA kernel of flash_fwd.cu, which routes here by
 // dtype only. For q (BH, Sq, D) and k, v (BH, Sk, D), out = softmax(scale *
 // q k^T) v and lse = log sum exp of the scores, per row. The rules of the
 // FMA kernel stay: only the Sk real keys count; the causal diagonal is
@@ -15,17 +15,22 @@
 //
 // Precision (heat_tpu runs both products at HIGHEST with float32
 // accumulation, pallas_kernels.py:277-278, :292-293): S = Q K^T takes one
-// bf16 wgmma pass (exact products, fp32 sums) and the scale is applied to
-// the fp32 scores (bitwise (q * scale) k at D = 64, where the scale is
-// 1/8); O += P V splits the fp32 probabilities into three bf16 terms
-// (sm90_common.cuh, split3) and takes three passes, smallest term first.
+// wgmma pass (bf16 and float16 products are exact in fp32, summed in fp32)
+// and the scale is applied to the fp32 scores (bitwise (q * scale) k at
+// D = 64, where the scale is 1/8); O += P V splits the fp32 probabilities
+// into terms of V's type, smallest term first: three bf16 terms (split3),
+// or, for float16, two float16 terms of 2^15 P (split2h; P <= 1, so 2^15 P
+// stays below float16's 65,504, and its terms keep 22 bits down to P ~
+// 2^-18 and P within 2^-40 below), the 2^15 divided out with the row sum
+// at the end (exact).
 //
 // What bounds it on an H100: at the paths' shapes (16 heads of 64, 1024
-// rows, causal) the four bf16 passes per live (query, key) pair, 8 * D
-// FLOPs, over the 989 TFLOP/s tensor-core rate take ~2x the time of moving
-// Q, K, V and O once, so the card's bound is tensor-core operations. Per
-// 64 x 64 tile a warpgroup also spends ~10 ALU instructions and one exp2 a
-// score (scale, max, exp2, sum, the three-way split) between its wgmmas.
+// rows, causal) the four bf16 passes (three float16) per live (query, key)
+// pair, 8 * D FLOPs (6 * D), over the 989 TFLOP/s tensor-core rate take
+// ~2x the time of moving Q, K, V and O once, so the card's bound is
+// tensor-core operations. Per 64 x 64 tile a warpgroup also spends ~10 ALU
+// instructions and one exp2 a score (scale, max, exp2, sum, the split)
+// between its wgmmas.
 // The design keeps every intermediate in registers (scores, probabilities,
 // running max and sum, the output accumulator), reads each K/V tile once per
 // 128-row query tile, keeps the tensor cores fed from shared memory that TMA
@@ -48,7 +53,8 @@
 // accumulator with m64n{DP}k16 wgmmas whose V operand is read MN-major from
 // the same K/V tile layout: nothing is transposed in memory. Head dims pad
 // to DP in {64, 128} with zeros in shared memory only; nothing is padded in
-// device memory.
+// device memory. One template serves both types (T = __nv_bfloat16 or
+// __half): only the wgmma type, the split and the output rounding differ.
 #include "sm90_common.cuh"
 
 namespace {
@@ -62,6 +68,7 @@ constexpr int NT = 384;  // two consumer warpgroups and one producer warpgroup
 constexpr float kNegBig = -1e30f;  // the TPU kernel's _NEG_BIG (pallas_kernels.py:55)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kPScale = 32768.f;  // float16: P's scale, 2^15, before its split
 
 template <int DP>
 struct Layout {
@@ -71,14 +78,17 @@ struct Layout {
   static constexpr int SMEM = Q_BYTES + NS * STAGE + 1024;  // + alignment slack
 };
 
-template <int DP>
+// T: the inputs' and output's type, __nv_bfloat16 or __half
+template <typename T, int DP>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                      int d, float scale_log2, int causal, int use_tma) {
+                      const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
+                      const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int sq, int sk, int d, float scale_log2, int causal,
+                      int use_tma) {
   using L = Layout<DP>;
+  constexpr bool H = kIsHalf<T>;
+  constexpr int TERMS = H ? 2 : 3;  // P's terms: float16 (of 2^15 P), or bf16
   extern __shared__ uint8_t smem_raw[];
   __shared__ RingBars<NS> bars;  // once: the Q tile; the ring: K/V tiles
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -128,7 +138,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   float m[2] = {kNegBig, kNegBig};  // running max, log2 domain
   float l[2] = {0.f, 0.f};          // this thread's share of the running sum
   float sc[BK / 2];                 // scores, then probabilities, of one tile
-  uint32_t a1[BK / 16][4], a2[BK / 16][4], a3[BK / 16][4];  // P's split terms
+  uint32_t a[TERMS][BK / 16][4];    // P's split terms, the largest first
 
   if (ntiles > 0) mbar_wait(&bars.once, 0);
   const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
@@ -139,8 +149,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
-      Wgmma<BK>::ss(sc, kmajor_desc(q_addr + (kk >> 2) * BQ * 128 + off),
-                    kmajor_desc(k_addr(t) + (kk >> 2) * BK * 128 + off), kk > 0);
+      Wgmma<BK, T>::ss(sc, kmajor_desc(q_addr + (kk >> 2) * BQ * 128 + off),
+                       kmajor_desc(k_addr(t) + (kk >> 2) * BK * 128 + off), kk > 0);
     }
     wgmma_commit();
   };
@@ -148,14 +158,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   auto issue_pv = [&](int t) {
     const uint32_t v_addr = k_addr(t) + L::KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(o, a3[kk], sw128_desc(v_addr + kk * 2048, BK * 128));
+    for (int j = TERMS - 1; j >= 0; --j)
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(o, a2[kk], sw128_desc(v_addr + kk * 2048, BK * 128));
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<DP>::rs(o, a1[kk], sw128_desc(v_addr + kk * 2048, BK * 128));
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<DP, T>::rs(o, a[j][kk], sw128_desc(v_addr + kk * 2048, BK * 128));
     wgmma_commit();
   };
   // the online softmax of tile t in sc: scores in the log2 domain, masked
@@ -193,13 +199,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       l[(i >> 1) & 1] += p;
     }
   };
-  // P as three bf16 A fragments per k16 step
+  // P as TERMS A fragments per k16 step: three bf16, or two float16 of 2^15 P
   auto split = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split3(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1], a1[kk][j], a2[kk][j], a3[kk][j]);
+      for (int j = 0; j < 4; ++j) {
+        const float p0 = sc[8 * kk + 2 * j], p1 = sc[8 * kk + 2 * j + 1];
+        if constexpr (H)
+          split2h(p0 * kPScale, p1 * kPScale, a[0][kk][j], a[1][kk][j]);
+        else
+          split3(p0, p1, a[0][kk][j], a[1][kk][j], a[2][kk][j]);
+      }
   };
 
   // Software pipeline: tile t's scores and softmax run while tile t - 1's
@@ -246,7 +257,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     empty[h] = l[h] == 0.f;
-    inv[h] = empty[h] ? nan : 1.f / l[h];
+    inv[h] = empty[h] ? nan : (H ? 1.f / kPScale : 1.f) / l[h];  // the 2^15 out too (exact)
     const int row = r0 + 8 * h;
     if ((lane & 3) == 0 && row < sq)
       lse[static_cast<int64_t>(bh) * sq + row] = empty[h] ? neg_inf : m[h] * kLn2 + logf(l[h]);
@@ -258,49 +269,59 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     const int row = r0 + 8 * h;
     const int col = acc_col(i, lane);
     if (row >= sq || col >= d) continue;
-    __nv_bfloat16* orow = out + (static_cast<int64_t>(bh) * sq + row) * d;
+    T* orow = out + (static_cast<int64_t>(bh) * sq + row) * d;
     const float x0 = empty[h] ? nan : o[i] * inv[h];
     const float x1 = empty[h] ? nan : o[i + 1] * inv[h];
     if (pairs) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+      *reinterpret_cast<uint32_t*>(orow + col) = pack2<T>(x0, x1);
     } else {
-      orow[col] = __float2bfloat16(x0);
-      if (col + 1 < d) orow[col + 1] = __float2bfloat16(x1);
+      orow[col] = from_acc<T>(x0);
+      if (col + 1 < d) orow[col + 1] = from_acc<T>(x1);
     }
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int64_t bh, int sq, int sk, int d, float scale, int causal,
                    cudaStream_t stream) {
   constexpr int smem = Layout<DP>::SMEM;
   static std::atomic<uint32_t> smem_raised{0};
-  cudaError_t err = raise_smem_limit(reinterpret_cast<const void*>(flash_fwd_sm90_kernel<DP>),
-                                     smem, smem_raised);
+  cudaError_t err = raise_smem_limit(
+      reinterpret_cast<const void*>(flash_fwd_sm90_kernel<T, DP>), smem, smem_raised);
   if (err != cudaSuccess) return err;
   const int use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d);
   CUtensorMap tq{}, tk{}, tv{};
   if (use_tma) {
-    if ((err = make_tmap(&tq, q, bh, sq, d, BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tk, k, bh, sk, d, BK)) != cudaSuccess) return err;
-    if ((err = make_tmap(&tv, v, bh, sk, d, BK)) != cudaSuccess) return err;
+    if ((err = make_tmap<T>(&tq, q, bh, sq, d, BQ)) != cudaSuccess) return err;
+    if ((err = make_tmap<T>(&tk, k, bh, sk, d, BK)) != cudaSuccess) return err;
+    if ((err = make_tmap<T>(&tv, v, bh, sk, d, BK)) != cudaSuccess) return err;
   }
   dim3 grid(static_cast<unsigned>(bh), (sq + BQ - 1) / BQ);
-  flash_fwd_sm90_kernel<DP><<<grid, NT, smem, stream>>>(
-      tq, tk, tv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, sq, sk, d,
-      scale * kLog2e, causal, use_tma);
+  flash_fwd_sm90_kernel<T, DP><<<grid, NT, smem, stream>>>(
+      tq, tk, tv, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, sq, sk, d, scale * kLog2e, causal, use_tma);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse,
+                     int64_t bh, int sq, int sk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 64) return launch<T, 64>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The bf16 case of heat_flash_fwd (flash_fwd.cu): the same arguments.
+// The bf16 and float16 cases of heat_flash_attention (flash_fwd.cu): the
+// same arguments.
 cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
-                           int64_t bh, int sq, int sk, int d, float scale, int causal,
+                           int64_t bh, int sq, int sk, int d, int dtype, float scale, int causal,
                            cudaStream_t s) {
-  if (d <= 64) return launch<64>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
-  if (d <= 128) return launch<128>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
-  return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kBF16: return launch_d<__nv_bfloat16>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+    case kF16: return launch_d<__half>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
 // (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu):
 // mbarriers, TMA tensor maps and loads, wgmma descriptors and instructions in
-// raw PTX, the 128-byte swizzled tile layout, and the exact three-way bf16
-// split of a float32 operand.
+// raw PTX (bf16 x bf16 and float16 x float16, both into fp32), the 128-byte
+// swizzled tile layout, the exact three-way bf16 split of a float32 operand
+// and the two-way float16 split of a scaled one.
 //
-// Tile layout in shared memory: a (ROWS, DP) bf16 tile is DP / 64 column
-// blocks of ROWS rows x 128 bytes, each block 1024-byte aligned, with the
+// Tile layout in shared memory: a (ROWS, DP) bf16 or float16 tile is DP / 64
+// column blocks of ROWS rows x 128 bytes, each block 1024-byte aligned, with the
 // 16-byte chunk c of row r stored at chunk c ^ (r % 8) of its row: the
 // layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads through
 // a 128B-swizzle descriptor. Columns past the head dim are zeros.
@@ -18,8 +19,13 @@
 // of two float32 operands (the float32 backward kernels) splits both the
 // same way and takes the six passes a_i x b_j with i + j <= 2 (terms 0, 1,
 // 2 from the largest), smallest first: the three it drops are below 2^-24
-// of |a||b|. Six are the fewest that hold the backward's float32 check
-// (tests/test_torch_sm90_precision.py; five are refused).
+// of |a||b|. float16 (the forward and dK/dV): a product of two float16
+// operands takes one pass (11 x 11 significant bits, exact in fp32); a
+// float32 operand x is first scaled by a power of two s into float16's range
+// (|s x| < 2^15 < 65,504) and split into h1 = f16(s x), h2 = f16(s x - h1),
+// 22 significant bits down to float16's subnormals, two passes; the product
+// is divided by s in fp32 (exact). Both counts are the fewest that hold the
+// checks in tests/test_torch_sm90_precision.py, which emulates them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
@@ -145,8 +151,34 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// the element types of the tensor-core kernels' 16-bit operands
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t half2_bits(__half2 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two float32 values rounded to a pair of T (bf16 or float16), low half the
+// first: an A fragment register, or two outputs written at once.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x0, float x1) {
+  if constexpr (kIsHalf<T>)
+    return half2_bits(__floats2half2_rn(x0, x1));
+  else
+    return bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// The split of two float32 values of magnitude below 2^15 (already scaled)
+// into two float16 pairs (low half the first value): x - h1 - h2 is within
+// 2^-22 |x|, or within 2^-25 where h2 falls among float16's subnormals.
+__device__ __forceinline__ void split2h(float x0, float x1, uint32_t& h1, uint32_t& h2) {
+  const __half2 a = __floats2half2_rn(x0, x1);
+  h1 = half2_bits(a);
+  h2 = half2_bits(__floats2half2_rn(x0 - __low2float(a), x1 - __high2float(a)));
 }
 
 // The exact split of two float32 values into three bf16 pairs (low half
@@ -173,23 +205,23 @@ __device__ __forceinline__ constexpr int pass_b(int p) {
   return p == 1 ? 2 : (p == 2 || p == 4) ? 1 : 0;
 }
 
-// Stage rows [0, rows) of a row-major (rows, d) bf16 source into a swizzled
+// Stage rows [0, rows) of a row-major (rows, d) source of 16-bit elements
+// (bf16 or float16: their bits are moved as they are) into a swizzled
 // (ROWS, DP) tile with plain loads, zeros elsewhere: the path for sources
 // TMA cannot address (d * 2 bytes not a multiple of 16, or a base that is
 // not 16-byte aligned). The NT threads numbered `t` share the work; each
 // writes 16-byte chunks.
 template <int ROWS, int DP, int NT>
-__device__ __forceinline__ void stage_tile(uint8_t* dst, const __nv_bfloat16* __restrict__ src,
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const uint16_t* __restrict__ src,
                                            int rows, int d, int t) {
   constexpr int CPR = DP / 8;  // 16-byte chunks per row
   for (int e = t; e < ROWS * CPR; e += NT) {
     const int r = e / CPR, ch = e % CPR;
-    alignas(16) __nv_bfloat16 buf[8];
+    alignas(16) uint16_t buf[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = ch * 8 + j;
-      buf[j] = (r < rows && c < d) ? src[static_cast<int64_t>(r) * d + c]
-                                   : __ushort_as_bfloat16(static_cast<unsigned short>(0));
+      buf[j] = (r < rows && c < d) ? src[static_cast<int64_t>(r) * d + c] : uint16_t{0};
     }
     uint8_t* blk = dst + (ch / 8) * ROWS * 128;
     *reinterpret_cast<uint4*>(blk + r * 128 + (((ch & 7) ^ (r & 7)) << 4)) =
@@ -200,10 +232,11 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const __nv_bfloat16* __
 // ---- the producer warpgroup's ring ----------------------------------------
 
 // A tensor a producer stages: its TMA map, and for the plain-load path its
-// base and rows per batch*head (a contiguous (BH, rows, d) bf16 tensor).
+// base and rows per batch*head (a contiguous (BH, rows, d) bf16 or float16
+// tensor).
 struct Src {
   const CUtensorMap* map;
-  const __nv_bfloat16* ptr;
+  const void* ptr;
   int rows;
 };
 
@@ -247,7 +280,8 @@ __device__ __forceinline__ void load_tiles(uint8_t* dst, const Src (&src)[N], in
 #pragma unroll
     for (int j = 0; j < N; ++j)
       stage_tile<ROWS, DP, 128>(dst + j * BYTES,
-                                src[j].ptr + (static_cast<int64_t>(bh) * src[j].rows + row0) * d,
+                                static_cast<const uint16_t*>(src[j].ptr) +
+                                    (static_cast<int64_t>(bh) * src[j].rows + row0) * d,
                                 min(ROWS, src[j].rows - row0), d, ptid);
     fence_proxy_async();
     mbar_arrive(bar);
@@ -275,104 +309,65 @@ __device__ __forceinline__ void produce(RingBars<NS>& bars, bool use_tma, int pt
   }
 }
 
-// ---- wgmma instructions (m64nNk16, bf16 x bf16 -> fp32) ---------------------
+// ---- wgmma instructions (m64nNk16, bf16 x bf16 or f16 x f16 -> fp32) --------
 
-template <int N>
+// The accumulator operands of m64nNk16 (N / 2 fp32 registers a thread) and
+// their register lists in the instruction text.
+#define SM90_D8(d, i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_D16(d) SM90_D8(d, 0), SM90_D8(d, 8)
+#define SM90_D32(d) SM90_D16(d), SM90_D8(d, 16), SM90_D8(d, 24)
+#define SM90_D64(d) SM90_D32(d), SM90_D8(d, 32), SM90_D8(d, 40), SM90_D8(d, 48), SM90_D8(d, 56)
+#define SM90_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define SM90_R32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_R64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D (64 x N, fp32) (+)= A (64 x 16, smem) * B (16 x N, smem), both K-major,
+// D kept where acc != 0; TY the operands' type ("bf16" or "f16"), PRED and
+// TAIL the operand numbers of acc and of the two descriptors.
+#define SM90_SS_ASM(N, TY, REGS, PRED, TAIL, DEFS)                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " " REGS ", " \
+               TAIL ", p, 1, 1, 0, 0;\n}\n"                                               \
+               : DEFS(d)                                                                  \
+               : "l"(da), "l"(db), "r"(acc))
+// D (64 x N, fp32) += A (64 x 16, TY pairs in registers) * B (16 x N, smem,
+// MN-major).
+#define SM90_RS_ASM(N, TY, REGS, PRED, TAIL, DEFS)                                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " " REGS ", " \
+               TAIL ", p, 1, 1, 1;\n}\n"                                                  \
+               : DEFS(d)                                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define SM90_WGMMA(N, R, REGS, DEFS, SS_PRED, SS_TAIL, RS_PRED, RS_TAIL)                      \
+  template <typename T>                                                                       \
+  struct Wgmma<N, T> {                                                                        \
+    static constexpr int kRegs = R;                                                           \
+    static __device__ __forceinline__ void ss(float (&d)[R], uint64_t da, uint64_t db,       \
+                                              int acc) {                                      \
+      if constexpr (kIsHalf<T>)                                                               \
+        SM90_SS_ASM(N, "f16", REGS, SS_PRED, SS_TAIL, DEFS);                                  \
+      else                                                                                    \
+        SM90_SS_ASM(N, "bf16", REGS, SS_PRED, SS_TAIL, DEFS);                                 \
+    }                                                                                         \
+    static __device__ __forceinline__ void rs(float (&d)[R], const uint32_t (&a)[4],         \
+                                              uint64_t db) {                                  \
+      if constexpr (kIsHalf<T>)                                                               \
+        SM90_RS_ASM(N, "f16", REGS, RS_PRED, RS_TAIL, DEFS);                                  \
+      else                                                                                    \
+        SM90_RS_ASM(N, "bf16", REGS, RS_PRED, RS_TAIL, DEFS);                                 \
+    }                                                                                         \
+  };
+
+// m64nNk16 products of T (bf16 or float16) operands into fp32; the A
+// fragment of k16 step kk (4 x b32, T pairs) takes accumulator registers
+// 8kk .. 8kk + 7 in order (see acc_col).
+template <int N, typename T = __nv_bfloat16>
 struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  static constexpr int kRegs = 16;
-  // D (64 x 32, fp32) (+)= A (64 x 16, smem) * B (16 x 32, smem); both K-major.
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // D (64 x 32, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 32,
-  // smem, MN-major).
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static constexpr int kRegs = 32;
-  // D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem); both K-major.
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64,
-  // smem, MN-major).
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static constexpr int kRegs = 64;
-  // D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem); both K-major.
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // D (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 128,
-  // smem, MN-major).
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
+SM90_WGMMA(32, 16, SM90_R16, SM90_D16, "%18", "%16, %17", "%21", "{%16, %17, %18, %19}, %20")
+SM90_WGMMA(64, 32, SM90_R32, SM90_D32, "%34", "%32, %33", "%37", "{%32, %33, %34, %35}, %36")
+SM90_WGMMA(128, 64, SM90_R64, SM90_D64, "%66", "%64, %65", "%69", "{%64, %65, %66, %67}, %68")
 
 // ---- the float32 kernels' split pass ---------------------------------------
 
@@ -475,14 +470,16 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-// Tensor map of a contiguous (outer, rows, d) bf16 tensor read in boxes of
-// 64 columns x box_rows rows x 1, 128-byte swizzled, zeros past every end.
+// Tensor map of a contiguous (outer, rows, d) tensor of T (bf16, the
+// default, or float16) read in boxes of 64 columns x box_rows rows x 1,
+// 128-byte swizzled, zeros past every end.
 // TMA needs d % 8 == 0 (16-byte row strides) and a 16-byte aligned base;
 // tma_ok says whether a tensor qualifies.
 inline bool tma_ok(const void* base, int d) {
   return d % 8 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
 
+template <typename T = __nv_bfloat16>
 inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int64_t outer, int rows, int d,
                              int box_rows) {
   EncodeTiledFn encode;
@@ -494,7 +491,9 @@ inline cudaError_t make_tmap(CUtensorMap* map, const void* base, int64_t outer, 
                                  static_cast<cuuint64_t>(rows) * d * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult res = encode(map, type, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

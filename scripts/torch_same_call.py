@@ -5,8 +5,9 @@ checkouts in one call.
     python3 scripts/torch_same_call.py DIR
 
 imports ``heat_tpu_torch`` from checkout ``DIR`` and prints one JSON line:
-the times of the flash backward pair in float32 and bf16 at the training
-shape (8 x 16 heads of 64, 1024 rows, causal), the bf16 forward there,
+the times of the flash backward pair in float32, bf16 and float16 at the
+training shape (8 x 16 heads of 64, 1024 rows, causal), the forward there
+in each,
 ``kmeans_step`` at 2^23 x 64 float32, k = 8, and the device time by kind of
 one float32 ``loss_and_grad_fn`` of the flagship model, all with
 ``chip_smoke.py``'s timers and shapes. Run it for two checkouts in turns
@@ -45,7 +46,7 @@ def main(root):
     gen.manual_seed(2)
     H, DH = cs.FLAGSHIP["n_heads"], cs.FLAGSHIP["d_model"] // cs.FLAGSHIP["n_heads"]
     res = {"root": root, "port": os.path.dirname(ht.__file__), "card": smi, "ms": {}}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, dout = (torch.randn(8, H, 1024, DH, device=dev, generator=gen).to(dt)
                          for _ in range(4))
         out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
@@ -55,9 +56,8 @@ def main(root):
             torch, lambda: tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=True))
         res["ms"][f"flash_bwd_dq_{name}"] = cs.time_ms(
             torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=True))
-        if dt == torch.bfloat16:
-            res["ms"]["flash_attention_bfloat16"] = cs.time_ms(
-                torch, lambda: tk.flash_attention(q, k, v, causal=True))
+        res["ms"][f"flash_attention_{name}"] = cs.time_ms(
+            torch, lambda: tk.flash_attention(q, k, v, causal=True))
         del q, k, v, dout, out, lse, dmb
     x = torch.rand(cs.N_POINTS, cs.N_FEATURES, device=dev, generator=gen)
     c = x[torch.randint(0, cs.N_POINTS, (cs.K,), device=dev, generator=gen)].clone()

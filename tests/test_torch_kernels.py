@@ -14,6 +14,8 @@ the inertia one of rtol·Σ|x|²; a bf16 output may differ by one bf16
 rounding step (rtol 2⁻⁷).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -440,12 +442,16 @@ def test_smoke_kmeans_bound_counts_split_passes_on_the_tensor_cores():
 def test_smoke_flash_bwd_bounds_f32_count_nine_passes_a_product():
     # the float32 backward kernels' bounds at the training shape on an H100
     # SXM: four float32 x float32 products per live pair for dK/dV (0.209
-    # ms) and three for dQ (0.156 ms), six split-bf16 passes each (the
-    # fewest that hold check_flash_bwd, tests/test_torch_sm90_precision.py;
-    # nine, every cross term of two three-way splits, is the most a product
-    # could need); bytes as the bf16 bounds count them, every tensor four
-    # bytes an element
+    # ms) and three for dQ (0.156 ms), six split-bf16 passes each, the count
+    # both kernels run (their Layout::NP) and the fewest that hold
+    # check_flash_bwd (tests/test_torch_sm90_precision.py; nine, every cross
+    # term of two three-way splits, is the most a product could need); bytes
+    # as the bf16 bounds count them, every tensor four bytes an element
     cs = _smoke_module()
+    csrc = pathlib.Path(cs.__file__).parent / "heat_tpu_torch" / "csrc"
+    for src in ("flash_bwd_dkv_sm90.cu", "flash_bwd_dq_sm90.cu"):
+        text = (csrc / src).read_text()
+        assert f"int NP = F32 ? {cs.F32_PASSES_BWD} : 1;" in text, src
     pairs = 8 * 16 * 1024 * 1025 // 2
     (dkv, by_dkv), (dq, by_dq) = cs.flash_bwd_bounds_f32(8, 16, 1024, 1024, 64, True,
                                                          3.35e12, 989e12)
@@ -464,8 +470,8 @@ def _flash_case(card, b, h, sq, sk, d, dtype, seed):
     return tuple(torch.randn(b, h, s, d, generator=g).to(card, dtype) for s in (sq, sk, sk))
 
 
-# bf16 runs on the tensor-core kernel (csrc/flash_fwd_sm90.cu), float32 and
-# float16 on the FMA kernel (csrc/flash_fwd.cu). Head dims 8 to 64 pad to 64
+# bf16 and float16 run on the tensor-core kernel (csrc/flash_fwd_sm90.cu),
+# float32 on the FMA kernel (csrc/flash_fwd.cu). Head dims 8 to 64 pad to 64
 # columns in the tensor-core kernel's shared memory (to 32 or 64 in the FMA
 # kernel's), 128 fills its own; d = 24 has 48-byte rows, which TMA
 # addresses, and d = 20 has 40-byte rows, which it cannot, so those stage
@@ -567,6 +573,37 @@ def test_smoke_flash_bwd_check_rejects_wrong_results():
         cs.check_flash_bwd(torch, tk, qs, k, v, dout, lse, dmb, causal=True, got=filled)
 
 
+def test_smoke_flash_bwd_check_takes_the_exact_backward_where_ds_cancels():
+    # a causal row's first query sees one key, so P = 1 there and dS =
+    # dO·v0 + dmb = dO·v0 − dO·out = 0 exactly: what either version computes
+    # is its rounding of dO·v0. With dO·v0 small that rounding exceeds
+    # 1e-4·P·(|dO·vᵀ| + |dmb|), so without W's rounding term the check
+    # refused the exact backward (float64, rounded once) on all 64 columns
+    # of dQ's first row; with it the exact backward passes
+    cs = _smoke_module()
+    g = torch.Generator().manual_seed(5)
+    q, k, v, dout = (torch.randn(1, 4, 64, 64, generator=g) for _ in range(4))
+    v0 = v[..., 0, :]
+    dout[..., 0, :] -= (((dout[..., 0, :] * v0).sum(-1, keepdim=True) - 0.005)
+                        / (v0 * v0).sum(-1, keepdim=True) * v0)
+    out, lse = tk.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    dmb = tk._dmb(out, dout, None)
+    qd, kd, vd, od = (t.double() for t in (q, k, v, dout))
+    vis = torch.ones(64, 64, dtype=torch.bool).tril()
+    p = torch.softmax(((qd / 8) @ kd.transpose(-1, -2)).masked_fill(~vis, float("-inf")), -1)
+    ds = p * (od @ vd.transpose(-1, -2) - (od * (p @ vd)).sum(-1)[..., None])
+    exact = tuple(t.float() for t in ((ds @ kd) / 8, (ds.transpose(-1, -2) @ qd) / 8,
+                                      p.transpose(-1, -2) @ od))
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, got=exact)
+    assert all(r <= 1.0 for _, r in res.values()), res
+    # the plain version's own first row of dQ lies further from the exact
+    # one than the limit without the rounding term
+    want = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=True)[..., 0, :]
+    dp0 = (dout[..., 0, :] * v0).sum(-1, keepdim=True)
+    former = 1e-4 * (dp0.abs() + dmb[..., :1].abs()) * k[..., 0, :].abs() / 8
+    assert bool(((want - exact[0][..., 0, :]).abs() > former).any())
+
+
 def test_smoke_flash_bwd_bounds_at_the_training_shape():
     # (8, 16, 1024, 64) bf16 causal on an H100 SXM: 67,174,400 live pairs;
     # dK/dV takes 16·D FLOPs per pair on the tensor cores (68.8 GFLOP,
@@ -590,6 +627,35 @@ def test_smoke_flash_bwd_bounds_at_the_training_shape():
     assert f_dkv == pytest.approx(0.513, abs=1e-3) and f_dq == pytest.approx(0.385, abs=1e-3)
 
 
+def test_smoke_flash_bounds_count_two_f16_passes_a_split_product():
+    # float16 at the training shape on an H100 SXM: the float32 operand of
+    # P·V, Pᵀ·dO, dSᵀ·q and dS·k splits into F16_PASSES_SPLIT = 2 float16
+    # terms (three bf16 ones for bf16, which keep their bounds): the forward
+    # takes 1 + 2 passes per live pair (0.026 ms at B = 8, 0.0033 ms at
+    # B = 1), dK/dV 2 + 2·2 (0.052 ms), dQ 2 + 2 (0.035 ms); bytes as bf16's
+    cs = _smoke_module()
+    assert cs.F16_PASSES_SPLIT == 2 and cs.BF16_PASSES_SPLIT == 3
+    pairs = 8 * 16 * 1024 * 1025 // 2
+    ms, by = cs.flash_bound(8, 16, 1024, 1024, 64, True, 3.35e12, 989e12,
+                            split_passes=cs.F16_PASSES_SPLIT)
+    assert by == "operations" and ms == pytest.approx(3 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.026 < ms < 0.0261
+    ms1, _ = cs.flash_bound(1, 16, 1024, 1024, 64, True, 3.35e12, 989e12, split_passes=2)
+    assert 0.0032 < ms1 < 0.0033
+    assert cs.flash_bound(8, 16, 1024, 1024, 64, True, 3.35e12, 989e12)[0] == pytest.approx(
+        4 * 2 * 64 * pairs / 989e12 * 1e3)
+    (dkv, by_dkv), (dq, by_dq) = cs.flash_bwd_bounds(8, 16, 1024, 1024, 64, True, 3.35e12,
+                                                     989e12, split_passes=2)
+    assert by_dkv == by_dq == "operations"
+    assert dkv == pytest.approx(6 * 2 * 64 * pairs / 989e12 * 1e3) and 0.052 < dkv < 0.0522
+    assert dq == pytest.approx(4 * 2 * 64 * pairs / 989e12 * 1e3) and 0.0347 < dq < 0.0348
+    n = 8 * 16 * 1024 * 64 * 2
+    (b_dkv, _), (b_dq, _) = cs.flash_bwd_bounds(8, 16, 1024, 1024, 64, True, 1e9, 989e12,
+                                                split_passes=2)
+    assert b_dkv == pytest.approx((6 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+    assert b_dq == pytest.approx((5 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
+
+
 def test_smoke_bf16_training_rules():
     # the loss rule is twice the mean per-position logit limit; the gradient
     # rule 2·u·sqrt(24·L) in relative norm (0.108 at the flagship's 8 layers)
@@ -600,9 +666,9 @@ def test_smoke_bf16_training_rules():
     assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
 
 
-# dK/dV and dQ in bf16 and float32 run on the tensor-core kernels
-# (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), in float16 on
-# the FMA kernels.
+# dK/dV in every dtype and dQ in bf16 and float32 run on the tensor-core
+# kernels (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), float16
+# dQ on the FMA kernel (csrc/flash_bwd.cu).
 # Head dims as in the forward's test (d = 20 stages through plain loads);
 # lengths ragged against the tiles; Sq > Sk (empty rows: with 300 vs 100
 # whole query tiles are skipped, and their NaN dmb reaches dK); Sq < Sk;
@@ -640,8 +706,9 @@ def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_on_card(card):
-    # bf16 reaches the tensor-core kernels and nothing else; float32 and
-    # float16 the FMA forward
+    # bf16 reaches the tensor-core kernels and nothing else; float16 the
+    # tensor-core forward and dK/dV and the FMA dQ; float32 the FMA forward
+    # and the tensor-core backward after its split pass
     from torch.profiler import ProfilerActivity, profile
 
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
@@ -653,16 +720,13 @@ def test_flash_routes_by_dtype_on_card(card):
             tk.flash_bwd_dq(q, k, v, q, lse, dmb, causal=True)
             torch.cuda.synchronize()
         names = " ".join(e.name for e in prof.events())
-        sm90 = dtype == torch.bfloat16
-        assert ("flash_fwd_sm90_kernel" in names) == sm90, names
-        assert ("flash_fwd_kernel" in names) == (not sm90), names
-        # the backward: bf16 and float32 on the tensor cores, float32 after
-        # its split pass; float16 on the FMA kernels
-        bwd90 = dtype != torch.float16
-        assert ("flash_bwd_dkv_sm90_kernel" in names) == bwd90, names
-        assert ("flash_bwd_dkv_kernel" in names) == (not bwd90), names
-        assert ("flash_bwd_dq_sm90_kernel" in names) == bwd90, names
-        assert ("flash_bwd_dq_kernel" in names) == (not bwd90), names
+        fwd90 = dtype != torch.float32
+        assert ("flash_fwd_sm90_kernel" in names) == fwd90, names
+        assert ("flash_fwd_kernel" in names) == (not fwd90), names
+        assert "flash_bwd_dkv_sm90_kernel" in names and "flash_bwd_dkv_kernel" not in names
+        dq90 = dtype != torch.float16
+        assert ("flash_bwd_dq_sm90_kernel" in names) == dq90, names
+        assert ("flash_bwd_dq_kernel" in names) == (not dq90), names
         assert ("split_planes_kernel" in names) == (dtype == torch.float32), names
 
 

@@ -18,12 +18,21 @@ they guard the rule.
 
 The float32 backward kernels (the same two files, float32 instantiations)
 multiply two float32 operands: both split into their three bf16 terms, and
-a product takes the largest cross terms (the pairs i + j <= 2 of the nine),
-summed smallest first. Six passes are the fewest that ``check_flash_bwd``
-takes at ``out_step = 0`` in every case below, the training path's length
-and a single query against 200 keys included; five are refused. A float32
-forward (not built yet; ``chip_smoke.flash_bound_f32`` counts its passes)
-holds ``check_flash`` with four, and three are refused.
+a product takes the ``chip_smoke.F32_PASSES_BWD`` largest cross terms, six
+(the pairs i + j <= 2 of the nine), summed smallest first: the fewest that
+``check_flash_bwd`` takes at ``out_step = 0`` in every case below, the
+training path's length and a single query against 200 keys included. Five
+are refused on the card tests' own inputs of a single query against 200
+keys at head dim 16, where the card refused three (and this emulation
+three to five); at head dims 64 and 128 three would pass. A float32 forward (not built yet; ``chip_smoke.flash_bound_f32``
+counts its passes) holds ``check_flash`` with four, and three are refused.
+
+The float16 kernels (the forward and dK/dV, float16 instantiations) multiply
+float16 operands in one pass, as bf16's; the float32 operand of a product
+(P, Pᵀ, dSᵀ) is scaled by a power of two into float16's range and split
+into ``chip_smoke.F16_PASSES_SPLIT`` float16 terms: P by 2^15, dSᵀ by a
+running exponent per key row. One term fewer is refused, and so is the
+split of dSᵀ without its scale at gradients of σ 2^-14.
 
 The bound of ``kmeans_step`` (``chip_smoke.kmeans_bound``) counts the
 float32 scores x·c the same way: three passes a product are the fewest that
@@ -59,6 +68,11 @@ def _smoke():
     return cs
 
 
+# chip_smoke.py: the checks, and the pass counts (F32_PASSES_BWD, the float32
+# backward kernels'; F32_PASSES_FWD, a float32 forward's) that they settle
+CS = _smoke()
+
+
 def split3(x):
     """The kernels' split of a float32 tensor into three bf16 terms (as
     float32): x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2)."""
@@ -71,8 +85,6 @@ def split3(x):
 # the cross terms of two float32 operands, each split into its three split3
 # terms (0 the largest), largest first
 F32_TERMS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0), (1, 2), (2, 1), (2, 2))
-F32_BWD_PASSES = 6  # the float32 backward kernels' passes a product
-F32_FWD_PASSES = 4  # what a float32 forward needs (chip_smoke.F32_PASSES_FWD)
 
 
 def _split_product(a, b, passes, split_b=False):
@@ -248,7 +260,7 @@ def test_f32_forward_four_passes_pass_check_flash(b, h, sq, sk, d, causal):
     # rule): four passes of S and of P·V pass check_flash
     cs = _smoke()
     q, k, v, _, _ = (torch.from_numpy(a) for a in _case(b, h, sq, sk, d, seed=sq + 9))
-    got = emulate_fwd(q, k, v, causal, passes=F32_FWD_PASSES, split_b=True)
+    got = emulate_fwd(q, k, v, causal, passes=CS.F32_PASSES_FWD, split_b=True)
     assert cs.check_flash(torch, tk, q, k, v, causal, got=got)[1] <= 1.0
 
 
@@ -257,11 +269,11 @@ def test_check_flash_refuses_one_f32_forward_pass_fewer():
     # hold, three are refused
     cs = _smoke()
     q, k, v = _card_inputs(150, 70, 128, seed=128 + 150 + 1)
-    got = emulate_fwd(q, k, v, True, passes=F32_FWD_PASSES, split_b=True)
+    got = emulate_fwd(q, k, v, True, passes=CS.F32_PASSES_FWD, split_b=True)
     assert cs.check_flash(torch, tk, q, k, v, True, got=got)[1] <= 1.0
     with pytest.raises(AssertionError, match="beyond their tolerance"):
         cs.check_flash(torch, tk, q, k, v, True,
-                       got=emulate_fwd(q, k, v, True, passes=F32_FWD_PASSES - 1, split_b=True))
+                       got=emulate_fwd(q, k, v, True, passes=CS.F32_PASSES_FWD - 1, split_b=True))
 
 
 def test_check_flash_refuses_one_bf16_pass_of_p():
@@ -369,7 +381,7 @@ def test_check_flash_bwd_refuses_one_bf16_pass_of_ds():
                            got=(emulate_dq(q, k, v, dout, lse, dmb, True, passes=1), dk, dv))
 
 
-def emulate_dkv_f32(q, k, v, dout, lse, dmb, causal, passes=F32_BWD_PASSES):
+def emulate_dkv_f32(q, k, v, dout, lse, dmb, causal, passes=CS.F32_PASSES_BWD):
     """The float32 dK/dV kernel's arithmetic: :func:`emulate_dkv` with every
     product of two float32 operands (Sᵀ = K Qᵀ, dPᵀ = V dOᵀ, dV = Pᵀ dO,
     dK = dSᵀ Q) in ``passes`` split-bf16 passes; float32 out."""
@@ -391,7 +403,7 @@ def emulate_dkv_f32(q, k, v, dout, lse, dmb, causal, passes=F32_BWD_PASSES):
     return dk, dv
 
 
-def emulate_dq_f32(q, k, v, dout, lse, dmb, causal, passes=F32_BWD_PASSES):
+def emulate_dq_f32(q, k, v, dout, lse, dmb, causal, passes=CS.F32_PASSES_BWD):
     """The float32 dQ kernel's arithmetic: :func:`emulate_dq` with S = Q Kᵀ,
     dP = dO Vᵀ and dQ = dS K in ``passes`` split-bf16 passes; float32 out."""
     Sq, D = q.shape[2], q.shape[3]
@@ -418,11 +430,26 @@ def _f32_case(b, h, sq, sk, d, causal, seed):
     return (qn, kn, vn, don, dlse), (q, k, v, dout, lse, dmb)
 
 
-# the bf16 cases, the same at head dim 128, the training path's length, and
-# one query against 200 keys (each dK row then sums a single term)
+def _card_f32_case(sq, sk, d, causal):
+    """The float32 inputs of ``tests/test_torch_kernels.py``'s
+    ``test_flash_bwd_kernels_match_plain_on_card`` (B 2, H 3), made on the
+    CPU as that test makes them; lse and dmb from the plain forward."""
+    g = torch.Generator().manual_seed(d + sq + 1)
+    q, k, v = (torch.randn(2, 3, s, d, generator=g) for s in (sq, sk, sk))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator().manual_seed(sq + sk)
+    dout = torch.randn(q.shape, generator=g)
+    dmb = tk._dmb(out, dout, torch.randn(lse.shape, generator=g))
+    return q, k, v, dout, lse, dmb
+
+
+# the bf16 cases, the same at head dim 128, the training path's length, one
+# query against 200 keys (each dK row then sums a single term) at the head
+# dims where three passes failed on the card (8 to 24) and at 64 and 128,
+# and 300 queries against 4096 keys at head dim 16
 F32_CASES = CASES + [(1, 2, 77, 130, 128, True), (1, 2, 96, 70, 128, False),
-                     (1, 2, 1024, 1024, 64, True), (2, 3, 1, 200, 64, True),
-                     (2, 3, 1, 200, 128, True)]
+                     (1, 2, 1024, 1024, 64, True)] + [
+    (2, 3, 1, 200, d, True) for d in (8, 16, 20, 24, 64, 128)] + [(2, 3, 300, 4096, 16, True)]
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", F32_CASES)
@@ -465,18 +492,268 @@ def test_sm90_f32_backward_arithmetic_matches_pallas(b, h, sq, sk, d, causal):
 
 
 def test_check_flash_bwd_refuses_one_f32_pass_fewer():
-    # five passes a product are refused where six pass: a single query
-    # against 200 keys at head dim 128, five passes in the dK/dV kernel
+    # one pass a product fewer than the kernels' F32_PASSES_BWD, in the
+    # dK/dV kernel, is refused where theirs pass: a single query against
+    # 200 keys at head dim 16, on the card test's own inputs
     cs = _smoke()
-    _, (q, k, v, dout, lse, dmb) = _f32_case(2, 3, 1, 200, 128, True, seed=1)
-    dq6 = emulate_dq_f32(q, k, v, dout, lse, dmb, True)
-    dk6, dv6 = emulate_dkv_f32(q, k, v, dout, lse, dmb, True)
-    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, got=(dq6, dk6, dv6))
-    assert all(r <= 1.0 for _, r in res.values())
-    fewer = F32_BWD_PASSES - 1
+    n = cs.F32_PASSES_BWD
+    q, k, v, dout, lse, dmb = _card_f32_case(1, 200, 16, True)
+    dq = emulate_dq_f32(q, k, v, dout, lse, dmb, True, passes=n)
+    dk, dv = emulate_dkv_f32(q, k, v, dout, lse, dmb, True, passes=n)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values()), res
     with pytest.raises(AssertionError, match="beyond their tolerance"):
         cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, got=(
-            (dq6,) + emulate_dkv_f32(q, k, v, dout, lse, dmb, True, passes=fewer)))
+            (dq,) + emulate_dkv_f32(q, k, v, dout, lse, dmb, True, passes=n - 1)))
+
+
+# --------------------------------------------------------------------------- #
+# float16: operands scaled into float16's range, split into float16 terms     #
+# --------------------------------------------------------------------------- #
+
+F16_STEP = 2.0 ** -10
+P_SCALE = 2.0 ** 15  # the probabilities' scale: 2^15·P < 65,504 for P <= 1
+E_MIN = -110         # the running exponent's floor (csrc/flash_bwd_dkv_sm90.cu)
+
+
+def split_f16(x, passes):
+    """The kernels' split of a float32 tensor into ``passes`` float16 terms
+    (as float32), largest first: x1 = f16(x), x2 = f16(x - x1)."""
+    x1 = x.half().float()
+    return (x1,) if passes == 1 else (x1, (x - x1).half().float())
+
+
+def _f16_product(a, b, passes):
+    """a @ b with the float32 ``a`` split into float16 terms against the
+    float16 ``b``, smallest term first."""
+    out = None
+    for t in reversed(split_f16(a, passes)):
+        out = t @ b if out is None else out + t @ b
+    return out
+
+
+def pow2(n):
+    """2^n as float32 for integer tensors n <= 127, zero below 2^-126 (the
+    kernels' rescale factor, exact)."""
+    return torch.where(n < -126, torch.zeros(()), torch.pow(2.0, n.clamp_min(-126).double())
+                       .float())
+
+
+def exponent(x):
+    """The unbiased float32 exponent of |x| (-127 for zero and subnormals,
+    128 for inf), from its bits, as the kernels read it."""
+    return ((x.abs().view(torch.int32) >> 23) & 0xFF) - 127
+
+
+def emulate_fwd_f16(q, k, v, causal, passes=2):
+    """The float16 forward kernel's arithmetic: :func:`emulate_fwd`'s tile
+    order and online softmax, S = Q Kᵀ in one pass (float16 products are
+    exact in float32), and O += (2^15·P) V with 2^15·P split into
+    ``passes`` float16 terms; the 2^15 is divided out with l at the end."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale_log2 = np.float32(1.0 / math.sqrt(D) * LOG2E)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), NEG_BIG)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, BK):
+        cols = torch.arange(k0, min(k0 + BK, Sk))[None, :]
+        s2 = (qf @ kf[:, :, k0:k0 + BK].transpose(-1, -2)) * float(scale_log2)
+        ok = (cols <= rows + (Sk - Sq)) if causal else torch.ones_like(cols <= rows)
+        s2 = torch.where(ok, s2, torch.full((), NEG_BIG))
+        m_new = torch.maximum(m, s2.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s2 - m_new), torch.zeros(()))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _f16_product(p * P_SCALE, vf[:, :, k0:k0 + BK], passes)
+        m = m_new
+    empty = l == 0
+    inv = torch.full((), 1.0 / P_SCALE) / torch.where(empty, 1.0, l)
+    out = torch.where(empty, torch.full((), float("nan")), o * inv)
+    lse = torch.where(empty, torch.full((), float("-inf")),
+                      m * math.log(2.0) + torch.log(torch.where(empty, 1.0, l)))
+    return out.half(), lse[..., 0]
+
+
+def emulate_dkv_f16(q, k, v, dout, lse, dmb, causal, passes=2, scaled=True):
+    """The float16 dK/dV kernel's arithmetic: :func:`emulate_dkv`'s Pᵀ and
+    dSᵀ from one-pass Sᵀ and dPᵀ, then dV = 2^-15·(2^15·Pᵀ) dO with 2^15·Pᵀ
+    split into ``passes`` float16 terms, and dK by query tiles in the
+    kernel's order (64 rows at D <= 64, else 32): per key row a running
+    exponent E of its largest |dSᵀ| so far (never below -110), the float32
+    accumulator rescaled by 2^(E_old - E) where E grows, the tile's row
+    times 2^(14 - E) (below 2^15) split into float16 terms; dK = scale ·
+    2^(E - 14) · the accumulator. ``scaled=False`` splits dSᵀ as it is."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of = q.float(), k.float(), v.float(), dout.float()
+    st = kf @ qf.transpose(-1, -2)
+    dpt = vf @ of.transpose(-1, -2)
+    ls = (lse * np.float32(LOG2E))[..., None, :]
+    ok = torch.isfinite(ls)
+    if causal:
+        ok = ok & (torch.arange(Sk)[:, None] <= torch.arange(Sq)[None, :] + (Sk - Sq))
+    c = float(np.float32(scale * LOG2E))
+    arg = (st.double() * c - ls.double()).float()
+    pt = torch.where(ok, torch.exp2(arg), torch.zeros(()))
+    dst = pt * (dpt + dmb[..., None, :])
+    dv = _f16_product(pt * P_SCALE, of, passes) * (1.0 / P_SCALE)
+    if not scaled:
+        return (_f16_product(dst, qf, passes) * scale).half(), dv.half()
+    bq = 64 if D <= 64 else 32
+    e = torch.full(dst.shape[:-1] + (1,), E_MIN, dtype=torch.int32)
+    acc = torch.zeros(dst.shape[:-1] + (D,))
+    for q0 in range(0, Sq, bq):
+        blk = dst[..., q0:q0 + bq]
+        mx = blk.abs().nan_to_num(nan=0.0, posinf=float("inf")).amax(-1, keepdim=True)
+        e_new = torch.maximum(e, exponent(mx))
+        acc = acc * pow2(e - e_new)
+        e = e_new
+        acc = acc + _f16_product(blk * pow2(14 - e), qf[..., q0:q0 + bq, :], passes)
+    dk = acc * (pow2(e - 14) * np.float32(scale))
+    return dk.half(), dv.half()
+
+
+def _f16_case(b, h, sq, sk, d, causal, seed, sigma=(1.0, 1.0, 1.0)):
+    """Float16 inputs from :func:`_case`, q and k times sigma[0], v times
+    sigma[1], dout and the lse cotangent times sigma[2]; the plain forward's
+    lse and dmb."""
+    qn, kn, vn, don, dlse = _case(b, h, sq, sk, d, seed)
+    s_qk, s_v, s_do = sigma
+    qn, kn, vn, don = ((a * s).astype(np.float16) for a, s in
+                       ((qn, s_qk), (kn, s_qk), (vn, s_v), (don, s_do)))
+    dlse = (dlse * s_do).astype(np.float32)
+    q, k, v, dout = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    dmb = tk._dmb(out, dout, torch.from_numpy(dlse))
+    return (qn, kn, vn, don, dlse), (q, k, v, dout, lse, dmb)
+
+
+SMALL_GRAD = (1.0, 1.0, 2.0 ** -14)  # float16 training without loss scaling
+LARGE_DS = (1.0, 128.0, 128.0)       # |dS| past float16's 65,504, dK and dV inside it
+# the bf16 cases; q and k of σ 3 (most probabilities below float16's
+# smallest normal); head dim 128
+F16_FWD_CASES = [c + (1.0,) for c in CASES] + [(1, 2, 200, 200, 64, True, 3.0),
+                                                (1, 2, 77, 130, 128, True, 1.0)]
+# the bf16 cases; gradients of σ 2^-14; v and dO of σ 128; head dim 128
+F16_BWD_CASES = [c + ((1.0, 1.0, 1.0),) for c in CASES] + [
+    (1, 2, 200, 200, 64, True, SMALL_GRAD), (1, 4, 256, 300, 64, True, LARGE_DS),
+    (1, 2, 77, 130, 128, True, (1.0, 1.0, 1.0))]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,s_qk", F16_FWD_CASES)
+def test_sm90_f16_forward_arithmetic_passes_check_flash(b, h, sq, sk, d, causal, s_qk):
+    cs = _smoke()
+    assert cs.F16_PASSES_SPLIT == 2
+    qn, kn, vn, _, _ = _case(b, h, sq, sk, d, seed=sq + 7)
+    q, k, v = (torch.from_numpy((a * s).astype(np.float16)) for a, s in
+               ((qn, s_qk), (kn, s_qk), (vn, 1.0)))
+    got = emulate_fwd_f16(q, k, v, causal, passes=cs.F16_PASSES_SPLIT)
+    assert cs.check_flash(torch, tk, q, k, v, causal, out_step=F16_STEP, got=got)[1] <= 1.0
+    if s_qk > 1.0:  # most visible probabilities lie below float16's smallest normal
+        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+        vis = torch.ones(sq, sk, dtype=torch.bool).tril(sk - sq)
+        p = torch.softmax(s.masked_fill(~vis, float("-inf")), -1)[..., vis]
+        assert float((p < torch.finfo(torch.float16).tiny).float().mean()) > 0.5
+    if causal and sq > sk:
+        assert bool(torch.isnan(got[0][:, :, :sq - sk]).all())
+        assert bool(torch.isneginf(got[1][:, :, :sq - sk]).all())
+
+
+def test_check_flash_refuses_one_f16_pass_of_p():
+    cs = _smoke()
+    qn, kn, vn, _, _ = _case(1, 2, 77, 130, 64, seed=77)
+    q, k, v = (torch.from_numpy(a.astype(np.float16)) for a in (qn, kn, vn))
+    assert cs.check_flash(torch, tk, q, k, v, True, out_step=F16_STEP,
+                          got=emulate_fwd_f16(q, k, v, True))[1] <= 1.0
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        cs.check_flash(torch, tk, q, k, v, True, out_step=F16_STEP,
+                       got=emulate_fwd_f16(q, k, v, True, passes=cs.F16_PASSES_SPLIT - 1))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,sigma", F16_BWD_CASES)
+def test_sm90_f16_dkv_arithmetic_passes_check_flash_bwd(b, h, sq, sk, d, causal, sigma):
+    cs = _smoke()
+    _, (q, k, v, dout, lse, dmb) = _f16_case(b, h, sq, sk, d, causal, seed=sq + 8,
+                                             sigma=sigma)
+    dk, dv = emulate_dkv_f16(q, k, v, dout, lse, dmb, causal, passes=cs.F16_PASSES_SPLIT)
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=F16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values()), res
+    if sigma is LARGE_DS:  # dS passes float16's range; dK and dV stay inside it
+        ds = tk._bwd_dense(q, k, v, dout, lse, dmb, 1.0 / math.sqrt(d), causal)[4]
+        assert float(ds.abs().max()) > torch.finfo(torch.float16).max
+        assert bool(torch.isfinite(dk).all()) and bool(torch.isfinite(dv).all())
+    if causal and sq > sk:
+        assert bool(torch.isnan(dk).all()) and not bool(torch.isnan(dv).any())
+
+
+def _f16_dkv_check(sigma, seed, **kw):
+    """check_flash_bwd of :func:`emulate_dkv_f16` (options ``kw``) on the
+    causal 200 x 200 float16 case of inputs ``sigma``."""
+    cs = _smoke()
+    _, (q, k, v, dout, lse, dmb) = _f16_case(1, 2, 200, 200, 64, True, seed=seed, sigma=sigma)
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=True)
+    return cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=F16_STEP,
+                              got=(dq,) + emulate_dkv_f16(q, k, v, dout, lse, dmb, True, **kw))
+
+
+def test_check_flash_bwd_refuses_one_f16_pass_fewer():
+    # one float16 term of 2^15·Pᵀ and of the scaled dSᵀ, at unit-size inputs
+    cs = _smoke()
+    assert all(r <= 1.0 for _, r in _f16_dkv_check((1.0, 1.0, 1.0), 9).values())
+    with pytest.raises(AssertionError, match="beyond their tolerance"):
+        _f16_dkv_check((1.0, 1.0, 1.0), 9, passes=cs.F16_PASSES_SPLIT - 1)
+
+
+def test_check_flash_bwd_refuses_the_unscaled_ds_split():
+    # two float16 terms of dSᵀ as it is, at gradients of σ 2^-14: dS lies in
+    # float16's subnormals, where two terms keep few of its bits
+    assert all(r <= 1.0 for _, r in _f16_dkv_check(SMALL_GRAD, 9).values())
+    with pytest.raises(AssertionError, match="dk: .* beyond their tolerance"):
+        _f16_dkv_check(SMALL_GRAD, 9, scaled=False)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [(1, 2, 77, 130, 64, True),
+                                                (1, 2, 96, 70, 64, False)])
+def test_sm90_f16_arithmetic_matches_pallas(b, h, sq, sk, d, causal):
+    # heat_tpu's Pallas forward and backward at float16 (interpret mode):
+    # float16 out, dq, dk and dv, float32 lse. Both they and the emulations
+    # hold check_flash and check_flash_bwd; and they agree within one
+    # float16 rounding of each and 1e-5 of the largest
+    cs = _smoke()
+    (qn, kn, vn, don, dlse), (q, k, v, dout, _, _) = _f16_case(b, h, sq, sk, d, causal,
+                                                               seed=sq + 10)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (qn, kn, vn, don))
+    jo, jl = pk.flash_attention(jq, jk, jv, causal=causal, return_lse=True)
+    assert jo.dtype == jnp.float16 and jl.dtype == jnp.float32
+    _, wk, wv = pk._flash_bwd_impl(jq, jk, jv, jo, jl, jdo, jnp.asarray(dlse),
+                                   1.0 / math.sqrt(d), causal, 128, 128)
+    assert wk.dtype == wv.dtype == jnp.float16
+    jo, jl = (torch.from_numpy(np.array(t)) for t in (jo, jl))
+    got = emulate_fwd_f16(q, k, v, causal)
+    for g in (got, (jo, jl)):
+        assert cs.check_flash(torch, tk, q, k, v, causal, out_step=F16_STEP, got=g)[1] <= 1.0
+    vmax = float(v.float().abs().max())
+    err = (got[0].float() - jo.float()).abs()
+    assert bool((err <= 1e-5 * vmax + (2e-5 + 2 * F16_STEP) * jo.float().abs()).all())
+    # the backward on heat_tpu's forward outputs
+    dmb = tk._dmb(jo, dout, torch.from_numpy(dlse))
+    want = tuple(torch.from_numpy(np.array(w)) for w in (wk, wv))
+    mine = emulate_dkv_f16(q, k, v, dout, jl, dmb, causal)
+    dq = tk.flash_bwd_dq_plain(q, k, v, dout, jl, dmb, causal=causal)
+    for g in (want, mine):
+        res = cs.check_flash_bwd(torch, tk, q, k, v, dout, jl, dmb, causal, out_step=F16_STEP,
+                                 got=(dq,) + g)
+        assert all(r <= 1.0 for _, r in res.values()), res
+    for g, w in zip(mine, want):
+        g, w = g.float(), w.float()
+        lim = 2 * F16_STEP * w.abs() + 1e-5 * w.abs().max()
+        assert bool(((g - w).abs() <= lim).all()), float(((g - w).abs() / lim).max())
 
 
 # --------------------------------------------------------------------------- #
