@@ -47,20 +47,20 @@ Phases, one JSON line each:
    against a float32 copy of the model (``bf16_loss_tol``,
    ``bf16_grad_tol``).
 
-Phase 4 holds the flash forward (bf16 and float16 on the tensor cores,
-``csrc/flash_fwd_sm90.cu``; float32 on fp32 FMA, ``csrc/flash_fwd.cu``)
-and the flash backward kernels (dK/dV in all three dtypes on the tensor
-cores, ``csrc/flash_bwd_dkv_sm90.cu``; dQ in bf16 and float32 there,
-``csrc/flash_bwd_dq_sm90.cu``, float32 after a split pass into three bf16
-planes, and float16 dQ on fp32 FMA, ``csrc/flash_bwd.cu``) against their
-plain versions (``check_flash``, ``check_flash_bwd``) at the serving and
-training paths' shapes in each dtype, at ragged lengths, empty rows, 300
-queries against 4096 keys, (float32) head dim 128, and (float16) wide
+Phase 4 holds the flash forward (``csrc/flash_fwd_sm90.cu``) and the flash
+backward kernels (``csrc/flash_bwd_dkv_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu``), all three on the tensor cores in bf16,
+float16 and float32 (float32 after a split pass into three bf16 planes a
+tensor), against their plain versions (``check_flash``,
+``check_flash_bwd``) at the serving and training paths' shapes in each
+dtype, at ragged lengths, empty rows, 300 queries against 4096 keys,
+(float32) head dim 128 and one query against 200 keys, and (float16) wide
 scores, gradients of σ 2^-14 and score cotangents past float16's range,
-with their times, bounds, the FMA forward's float32 times, SDPA's, the
-aten flash backward's (bf16, float16) and the aten memory-efficient
-backward's (float32). At the prefill shape the forward's wrapper host time
-per call is measured apart from the kernel's device time. Phase 3's
+each bitwise repeatable, with their times, bounds, the float32 split
+pass's share, SDPA's times, the aten flash backward's (bf16, float16) and
+the aten memory-efficient backward's (float32). At the prefill shape the
+forward's wrapper host time per call is measured apart from the kernel's
+device time. Phase 3's
 ``kmeans_step`` checks add two shapes whose k·d takes the streaming path
 (2^20 x 64 at k = 128, 2^17 x 1024 at k = 64).
 
@@ -88,14 +88,15 @@ U_BF16 = 2.0**-8  # bfloat16 unit roundoff
 # its three bf16 terms (split3): the largest cross terms of the two splits,
 # (0,0), (0,1), (1,0), (1,1), (0,2), (2,0), ... The fewest that pass the
 # checks in every case of tests/test_torch_sm90_precision.py (which
-# emulates them with these constants, and refuses one fewer): six for the
-# backward, which its float32 kernels run (Layout::NP of
-# csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu), five refused on
-# the card tests' single query against 200 keys at head dim 16; four for a
-# float32 forward under check_flash (not built yet: the bound's count);
-# three for the float32 scores x·c of a Lloyd step under check_kmeans_step.
+# emulates them with these constants, and refuses one fewer), and that the
+# float32 kernels run (Layout::NP of csrc/flash_fwd_sm90.cu,
+# csrc/flash_bwd_dkv_sm90.cu and csrc/flash_bwd_dq_sm90.cu): six for the
+# backward, five refused on the card tests' single query against 200 keys at
+# head dim 16; six for the forward, five refused on 16,384 causal rows that
+# see one key (each lse is one score); three for the float32 scores x·c of a
+# Lloyd step under check_kmeans_step.
 F32_PASSES_BWD = 6
-F32_PASSES_FWD = 4
+F32_PASSES_FWD = 6
 F32_PASSES_KMEANS = 3
 # tensor-core passes of a product with one float32 operand against a
 # float16 one: the float32 operand, scaled by a power of two into float16's
@@ -207,8 +208,8 @@ def host_breakdown(torch, tk, lib, dev, gen):
     out_p, out = torch.empty_like(x), torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(idx)
-    flash_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), H,
-                  1024, 1024, DH, 2, scale, 1)
+    flash_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), None,
+                  H, 1024, 1024, DH, 2, scale, 1)
 
     def probe_checks():
         return (x.dtype != torch.float32, x.is_cpu, tk._on_card(x), x.numel(),
@@ -394,12 +395,6 @@ def flash_bound(b, h, sq, sk, d, causal, bw, tc_rate, split_passes=BF16_PASSES_S
     return bound(nbytes, flops, bw, tc_rate)
 
 
-def flash_fma_floor(b, h, sq, sk, d, causal, f32):
-    """The floor of the kernel's own design, fp32 FMA on the CUDA cores:
-    4·D FLOPs per live pair at the float32 rate (not a bound of the card)."""
-    return 4 * d * b * h * flash_live_pairs(sq, sk, causal) / f32 * 1e3
-
-
 def flash_bound_f32(b, h, sq, sk, d, causal, bw, tc_rate):
     """The least time of a float32 flash forward at float32 accuracy: Q, K,
     V read and O written once as float32, the lse once; per live pair, on
@@ -443,14 +438,6 @@ def flash_bwd_bounds_f32(b, h, sq, sk, d, causal, bw, tc_rate):
                 tc_rate)
     dq = bound(inputs + b * h * sq * d * 4, 3 * F32_PASSES_BWD * 2 * d * pairs, bw, tc_rate)
     return dkv, dq
-
-
-def flash_bwd_fma_floors(b, h, sq, sk, d, causal, f32):
-    """The floors of the backward kernels' own design, fp32 FMA on the CUDA
-    cores: 4 dot products of length D per live pair for dK/dV, 3 for dQ, at
-    the float32 rate (not bounds of the card)."""
-    pairs = b * h * flash_live_pairs(sq, sk, causal)
-    return 8 * d * pairs / f32 * 1e3, 6 * d * pairs / f32 * 1e3
 
 
 def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, got=None):
@@ -789,58 +776,77 @@ def serving_path(torch, ht, tk, dev, smi):
 
 
 BWD_PATH_CASE = "train_8x16x1024x64_bf16_causal"
-# where the float16 flash forward and dK/dV run (the C entry points route by
-# dtype alone)
-FWD_F16_SOURCE = "heat_tpu_torch/csrc/flash_fwd_sm90.cu"
-DKV_F16_SOURCE = "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu"
-# kernel kinds of a training step, by parts of their names
+# the flash kernels' sources (each C entry point picks its kernel's
+# instantiation by dtype alone)
+FWD_SOURCE = "heat_tpu_torch/csrc/flash_fwd_sm90.cu"
+DKV_SOURCE = "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu"
+DQ_SOURCE = "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu"
+# the float32 flash forward's device time: its split pass and its kernel
+F32_FWD_KINDS = {"split_pass": ("split_planes",), "kernel": ("flash_fwd",)}
+# kernel kinds of a training step, by parts of their names (the split
+# passes of the float32 forward and backward together)
 TRAIN_KINDS = {"flash_attention_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
-               "flash_bwd_dkv": ("flash_bwd_dkv",), "flash_bwd_split_f32": ("split_planes",),
+               "flash_bwd_dkv": ("flash_bwd_dkv",), "flash_split_f32": ("split_planes",),
                "gemm": ("nvjet", "gemm", "xmma", "cutlass", "gemv"),
                "log_softmax": ("softmax",), "adam": ("adam",)}
 
 
-def flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
+def same_bits(torch, a, b):
+    """Whether two tensors of one 16- or 32-bit float dtype hold the same
+    bits (NaN included, where ``torch.equal`` is False)."""
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def flash_fwd_phase(torch, tk, dev, gen, smi, bw, bf16_tc):
     """Phase 4, the flash forward: the kernel against its plain version
-    (``check_flash``) in bf16, float32 and float16, then the times at the
-    serving path's shapes; returns (checks, times). bf16 and float16 run on
-    the tensor cores (csrc/flash_fwd_sm90.cu), float32 on the fp32-FMA
-    kernel (csrc/flash_fwd.cu). Each dtype at the serving path's shapes
-    (prefill: one request of 1024 rows, 16 heads of 64; the logits forward:
-    8 of them), at a length that is no multiple of any tile, at causal
-    Sq > Sk, whose first 100 rows see no key, and (bf16, float16) at Sk =
-    4096, which wraps the key ring many times; float16 also with q and k of
-    σ 3 (wide scores: most probabilities fall below float16's smallest
-    normal, 6.1e-5)."""
+    (``check_flash``) in bf16, float32 and float16, each case bitwise
+    repeatable, then the times at the serving path's shapes; returns
+    (checks, times). Every dtype runs on the tensor cores
+    (csrc/flash_fwd_sm90.cu; float32 after its split pass). Each dtype at the
+    serving path's shapes (prefill: one request of 1024 rows, 16 heads of
+    64; the logits forward: 8 of them), at a length that is no multiple of
+    any tile, at causal Sq > Sk, whose first 100 rows see no key, and at
+    Sk = 4096, causal and not, which wraps the key ring many times; float32
+    also at head dim 128 (its narrow block of 64 rows and 32-key tiles) and
+    with one query against 200 keys; float16 also with q and k of σ 3 (wide
+    scores: most probabilities fall below float16's smallest normal,
+    6.1e-5)."""
     H, DH = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
     fl_checks = {}
     bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
     fl_cases = []
     for tag, dt in (("bf16", bf16), ("f32", fp32), ("f16", fp16)):
-        fl_cases += [(f"prefill_1x16x1024x64_{tag}", 1, H, 1024, 1024, dt, True, 1.0),
-                     (f"logits_8x16x1024x64_{tag}", 8, H, 1024, 1024, dt, True, 1.0),
-                     (f"1x16x1000x64_{tag}", 1, H, 1000, 1000, dt, True, 1.0),
-                     (f"1x4x300x64_vs_200_{tag}", 1, 4, 300, 200, dt, True, 1.0)]
-        if dt != fp32:
-            fl_cases += [(f"1x4x300_vs_4096x64_{tag}_causal", 1, 4, 300, 4096, dt, True, 1.0),
-                         (f"1x4x300_vs_4096x64_{tag}_noncausal", 1, 4, 300, 4096, dt, False,
-                          1.0)]
-    fl_cases.append(("wide_scores_1x16x1024x64_f16", 1, H, 1024, 1024, fp16, True, 3.0))
-    for name, b, h, sq, sk, dt, causal, s_qk in fl_cases:
-        q = (torch.randn(b, h, sq, DH, device=dev, generator=gen) * s_qk).to(dt)
-        k = (torch.randn(b, h, sk, DH, device=dev, generator=gen) * s_qk).to(dt)
-        v = torch.randn(b, h, sk, DH, device=dev, generator=gen).to(dt)
+        fl_cases += [(f"prefill_1x16x1024x64_{tag}", 1, H, 1024, 1024, DH, dt, True, 1.0),
+                     (f"logits_8x16x1024x64_{tag}", 8, H, 1024, 1024, DH, dt, True, 1.0),
+                     (f"1x16x1000x64_{tag}", 1, H, 1000, 1000, DH, dt, True, 1.0),
+                     (f"1x4x300x64_vs_200_{tag}", 1, 4, 300, 200, DH, dt, True, 1.0),
+                     (f"1x4x300_vs_4096x64_{tag}_causal", 1, 4, 300, 4096, DH, dt, True, 1.0),
+                     (f"1x4x300_vs_4096x64_{tag}_noncausal", 1, 4, 300, 4096, DH, dt, False,
+                      1.0)]
+    fl_cases += [("1x16x1024x128_f32", 1, H, 1024, 1024, 128, fp32, True, 1.0),
+                 ("1x16x1_vs_200x64_f32", 1, H, 1, 200, DH, fp32, True, 1.0),
+                 ("wide_scores_1x16x1024x64_f16", 1, H, 1024, 1024, DH, fp16, True, 3.0)]
+    for name, b, h, sq, sk, dh, dt, causal, s_qk in fl_cases:
+        q = (torch.randn(b, h, sq, dh, device=dev, generator=gen) * s_qk).to(dt)
+        k = (torch.randn(b, h, sk, dh, device=dev, generator=gen) * s_qk).to(dt)
+        v = torch.randn(b, h, sk, dh, device=dev, generator=gen).to(dt)
         step = {bf16: 2.0**-7, fp16: 2.0**-10}.get(dt, 0.0)
+        got = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
         try:
-            err, ratio = check_flash(torch, tk, q, k, v, causal=causal, out_step=step)
+            err, ratio = check_flash(torch, tk, q, k, v, causal=causal, out_step=step, got=got)
         except AssertionError as e:
             raise AssertionError(f"{name}: {e}") from None
+        again = tk.flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert same_bits(torch, got[0], again[0]) and same_bits(torch, got[1], again[1]), (
+            f"{name}: the flash forward is not bitwise repeatable")
         fl_checks[name] = {"max_abs_err": err, "max_err_over_limit": ratio, "out_step": step,
-                           "causal": causal, "sigma_qk": s_qk}
+                           "causal": causal, "head_dim": dh, "sigma_qk": s_qk,
+                           "bitwise_repeatable": True}
         if s_qk != 1.0:
             # the share of the first head's visible probabilities below
             # float16's smallest normal
-            sc = (q[:, :1].float() @ k[:, :1].float().transpose(-1, -2)) / math.sqrt(DH)
+            sc = (q[:, :1].float() @ k[:, :1].float().transpose(-1, -2)) / math.sqrt(dh)
             vis = torch.ones(sq, sk, dtype=torch.bool, device=dev)
             if causal:
                 vis = vis.tril(sk - sq)
@@ -849,13 +855,13 @@ def flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                 (p < torch.finfo(fp16).tiny).float().mean())
             del sc, vis, p
         if causal and sq > sk:
-            out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+            out, lse = got
             assert bool(torch.isnan(out[:, :, :sq - sk]).all())
             assert bool(torch.isneginf(lse[:, :, :sq - sk]).all())
             assert not bool(torch.isnan(out[:, :, sq - sk:]).any())
             fl_checks[name]["empty_rows"] = sq - sk
             del out, lse
-        del q, k, v
+        del q, k, v, got, again
         torch.cuda.empty_cache()
     fl_times = {}
     for name, b in (("prefill_1x16x1024x64_bf16", 1), ("logits_8x16x1024x64_bf16", 8)):
@@ -867,22 +873,27 @@ def flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
         fb16 = flash_bound(b, H, 1024, 1024, DH, True, bw, bf16_tc,
                            split_passes=F16_PASSES_SPLIT)
         fb32 = flash_bound_f32(b, H, 1024, 1024, DH, True, bw, bf16_tc)
-        floor = flash_fma_floor(b, H, 1024, 1024, DH, True, f32)
 
         def sdpa(q_, k_, v_):
             return torch.nn.functional.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
 
+        # the float32 call's device time by kind: its split pass and kernel
+        w32 = device_share(torch, lambda: tk.flash_attention(qf, kf, vf, causal=True),
+                           200 if b == 1 else 20, kinds=F32_FWD_KINDS)
+        by32 = w32.get("device_ms_per_call_by_kind")
         fl_times[name] = {
             "kernel": time_ms(torch, lambda: tk.flash_attention(q, k, v, causal=True)),
             "plain": time_ms(torch, lambda: tk.flash_attention_plain(q, k, v, causal=True)),
             "sdpa": time_ms(torch, lambda: sdpa(q, k, v)),
-            "bound": fb[0], "bound_by": fb[1], "fp32_fma_design_floor": floor,
-            "fma_f32": {
+            "bound": fb[0], "bound_by": fb[1],
+            "f32": {
                 "kernel": time_ms(torch, lambda: tk.flash_attention(qf, kf, vf, causal=True)),
                 "plain": time_ms(torch, lambda: tk.flash_attention_plain(qf, kf, vf,
                                                                          causal=True)),
                 "sdpa": time_ms(torch, lambda: sdpa(qf, kf, vf)),
-                "bound": fb32[0], "bound_by": fb32[1], "fp32_fma_design_floor": floor},
+                "bound": fb32[0], "bound_by": fb32[1], "passes_per_product": F32_PASSES_FWD,
+                "device_ms_by_kind": by32, "split_pass_share": None if by32 is None else
+                by32["split_pass"] / (by32["split_pass"] + by32["kernel"])},
             "f16": {
                 "kernel": time_ms(torch, lambda: tk.flash_attention(qh, kh, vh, causal=True)),
                 "plain": time_ms(torch, lambda: tk.flash_attention_plain(qh, kh, vh,
@@ -894,25 +905,31 @@ def flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
             # one prefill's work fills about one wave of the card, so the
             # CUDA-event time of back-to-back calls may be the wrapper's host
             # pace: the wall time per call of back-to-back calls apart from
-            # the kernel's own device time (torch.profiler); where the card
-            # idles over a tenth of the wall, the host sets the pace
-            for t, args in ((fl_times[name], (q, k, v)), (fl_times[name]["f16"], (qh, kh, vh))):
-                w = device_share(torch, lambda: tk.flash_attention(*args, causal=True), 200,
-                                 kinds={"kernel": ("flash_fwd",)})
-                dev_ms = (w.get("device_ms_per_call_by_kind") or {}).get("kernel")
+            # the call's own device time (torch.profiler; float32: its split
+            # pass and kernel); where the card idles over a tenth of the
+            # wall, the host sets the pace
+            for t, args in ((fl_times[name], (q, k, v)), (fl_times[name]["f16"], (qh, kh, vh)),
+                            (fl_times[name]["f32"], None)):
+                if args is None:
+                    w = w32
+                else:
+                    w = device_share(torch, lambda: tk.flash_attention(*args, causal=True), 200,
+                                     kinds=F32_FWD_KINDS)
+                by = w.get("device_ms_per_call_by_kind")
+                dev_ms = None if by is None else by["split_pass"] + by["kernel"]
                 host_bound = dev_ms is not None and dev_ms < 0.9 * w["host_ms_per_call"]
                 t.update(device_ms=dev_ms, host_ms=w["host_ms_per_call"],
-                         ms_is=("host-bound: the wrapper's host time per call; the kernel's "
+                         ms_is=("host-bound: the wrapper's host time per call; the call's "
                                 "own is device_ms" if host_bound else "the kernel's time"))
         del q, k, v, qf, kf, vf, qh, kh, vh
         torch.cuda.empty_cache()
     emit({"phase": "kernels_flash", "card": smi, "checks": fl_checks, "timings_ms": fl_times,
-          "routes": {"bfloat16, float16": "heat_tpu_torch/csrc/flash_fwd_sm90.cu (wgmma, TMA)",
-                     "float32": "heat_tpu_torch/csrc/flash_fwd.cu (fp32 FMA)"}})
+          "routes": {"bfloat16, float16, float32": FWD_SOURCE + " (wgmma, TMA; float32 as "
+                                                                 "three bf16 planes)"}})
     return fl_checks, fl_times
 
 
-def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
+def flash_bwd_phase(torch, tk, dev, gen, smi, bw, bf16_tc):
     """Phase 4, the flash backward: both kernels against their plain
     versions (``check_flash_bwd``), in bf16, float16 and float32: at the
     training path's shape (causal, no lse cotangent), at lengths that are no
@@ -988,7 +1005,6 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
     dmb = tk._dmb(out, dout, None)
     (b_dkv, by_dkv), (b_dq, by_dq) = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc)
-    floor_dkv, floor_dq = flash_bwd_fma_floors(b, H, s, s, DH, True, f32)
     # float32 copies for the float32 kernels' times (their split pass
     # included), bounded by the card's tensor cores at float32 accuracy
     # (flash_bwd_bounds_f32); the device time of one call by kernel says
@@ -1006,12 +1022,9 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     b16_dkv, b16_dq = flash_bwd_bounds(b, H, s, s, DH, True, bw, bf16_tc,
                                        split_passes=F16_PASSES_SPLIT)
 
-    def f16_times(fn, plain, b16, floor=None):
-        res = {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain), "bound": b16[0],
-               "bound_by": b16[1], "passes_per_split_product": F16_PASSES_SPLIT}
-        if floor is not None:  # float16 dQ still runs on fp32 FMA
-            res["fp32_fma_design_floor"] = floor
-        return res
+    def f16_times(fn, plain, b16):
+        return {"kernel": time_ms(torch, fn), "plain": time_ms(torch, plain), "bound": b16[0],
+                "bound_by": b16[1], "passes_per_split_product": F16_PASSES_SPLIT}
 
     def f32_times(fn, plain, b32, kernel_part):
         split = device_share(torch, fn, 20, kinds={"split_pass": ("split_planes",),
@@ -1025,7 +1038,7 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                                                                   causal=True)),
                 "plain": time_ms(torch, lambda: tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb,
                                                                        causal=True)),
-                "bound": b_dkv, "bound_by": by_dkv, "fp32_fma_design_floor": floor_dkv,
+                "bound": b_dkv, "bound_by": by_dkv,
                 "f32": f32_times(
                     lambda: tk.flash_bwd_dkv(q32, k32, v32, do32, lse32, dmb32, causal=True),
                     lambda: tk.flash_bwd_dkv_plain(q32, k32, v32, do32, lse32, dmb32,
@@ -1039,7 +1052,7 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                                                                 causal=True)),
                "plain": time_ms(torch, lambda: tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb,
                                                                      causal=True)),
-               "bound": b_dq, "bound_by": by_dq, "fp32_fma_design_floor": floor_dq,
+               "bound": b_dq, "bound_by": by_dq,
                "f32": f32_times(
                    lambda: tk.flash_bwd_dq(q32, k32, v32, do32, lse32, dmb32, causal=True),
                    lambda: tk.flash_bwd_dq_plain(q32, k32, v32, do32, lse32, dmb32,
@@ -1048,7 +1061,7 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
                "f16": f16_times(
                    lambda: tk.flash_bwd_dq(q16, k16, v16, do16, lse16, dmb16, causal=True),
                    lambda: tk.flash_bwd_dq_plain(q16, k16, v16, do16, lse16, dmb16,
-                                                 causal=True), b16_dq, floor_dq)}}
+                                                 causal=True), b16_dq)}}
     # the float32 yardstick: PyTorch's memory-efficient attention backward
     # (aten's flash backward takes no float32), fed by its own forward on
     # the float32 copies; one call computes dq, dk and dv
@@ -1077,12 +1090,11 @@ def flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc):
     torch.cuda.empty_cache()
     res = {"phase": "kernels_flash_bwd", "card": smi, "checks": checks, "timings_ms": times,
            "routes": {"dkv bfloat16, float16, float32":
-                          "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu (wgmma, TMA; float16 with dS "
-                          "scaled by a running exponent per key row; float32 as three bf16 "
-                          "planes)",
-                      "dq bfloat16, float32": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu "
-                                              "(wgmma, TMA; float32 as three bf16 planes)",
-                      "dq float16": "heat_tpu_torch/csrc/flash_bwd.cu (fp32 FMA)"},
+                          DKV_SOURCE + " (wgmma, TMA; float16 with dS scaled by a running "
+                                       "exponent per key row; float32 as three bf16 planes)",
+                      "dq bfloat16, float16, float32":
+                          DQ_SOURCE + " (wgmma, TMA; float16 with dS scaled by a running "
+                                      "exponent per query row; float32 as three bf16 planes)"},
            "rule": "|dg| <= 1e-4 * (sum of |terms| of g) + (1e-5 + out_step) * |g|, "
                    "NaN at the same places (check_flash_bwd)"}
     emit(res)
@@ -1127,7 +1139,13 @@ def training_path(torch, ht, tk, smi, bf16_tc):
     assert max(grad_ratios.values()) <= 1.0, f"bf16 gradients beyond bf16_grad_tol: {grad_ratios}"
     del g16, g32, h16, h32, leaves
     # the float32 reference's device time by kind: the default compute dtype
-    # runs both float32 backward kernels 8 + 8 times a call
+    # runs the float32 flash forward and both backward kernels 8 + 8 + 8
+    # times a call, each on the tensor cores after its split pass
+    before = dict(tk.launches)
+    lg32(params, toks)
+    ref32_launches = {n: tk.launches[n] - before[n] for n in tk.launches}
+    for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert ref32_launches[name] == L, (name, ref32_launches)
     ref32 = device_share(torch, lambda: lg32(params, toks), 2, kinds=TRAIN_KINDS)
     del lg32, model32
     torch.cuda.empty_cache()
@@ -1184,7 +1202,7 @@ def training_path(torch, ht, tk, smi, bf16_tc):
           "bf16_vs_f32": {"loss_bf16": float(loss16), "loss_f32": float(loss32),
                           "loss_err_over_tol": loss_ratio, "loss_tol": loss_tol,
                           "grad_relnorm_over_tol": grad_ratios, "grad_tol": grad_tol},
-          "f32_loss_and_grad_profiled": ref32})
+          "f32_loss_and_grad_launches": ref32_launches, "f32_loss_and_grad_profiled": ref32})
     return launches
 
 
@@ -1338,8 +1356,8 @@ def main():
     del c
     torch.cuda.empty_cache()
 
-    fl_checks, fl_times = flash_fwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
-    bwd = flash_bwd_phase(torch, tk, dev, gen, smi, bw, f32, bf16_tc)
+    fl_checks, fl_times = flash_fwd_phase(torch, tk, dev, gen, smi, bw, bf16_tc)
+    bwd = flash_bwd_phase(torch, tk, dev, gen, smi, bw, bf16_tc)
 
     # 5. the KMeans path, through the entry points a user calls ---------- #
     del x, y
@@ -1445,8 +1463,7 @@ def main():
                        "ms": r["kernel"], "plain_ms": r["plain"], "bound_ms": r["bound"],
                        "bound_by": r["bound_by"], "library_ms": None}
                       for name, r in km_large.items()]},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "heat_tpu_torch/csrc/flash_fwd_sm90.cu",
+        {"name": "flash_attention", "route": "cuda", "source": FWD_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
          "launches": serve_launches["flash_attention"],
          "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
@@ -1460,16 +1477,18 @@ def main():
               "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
               "ms": fl["kernel"], "plain_ms": fl["plain"], "bound_ms": fl["bound"],
               "bound_by": fl["bound_by"], "library_ms": fl["sdpa"]}] + [
-             {"source": "heat_tpu_torch/csrc/flash_fwd.cu", "dtype": "float32",
+             {"source": FWD_SOURCE, "dtype": "float32",
               "shape": f"{shape} float32, causal",
               "max_abs_err": fl_checks[f"{key}_f32"]["max_abs_err"],
-              "ms": t["fma_f32"]["kernel"], "plain_ms": t["fma_f32"]["plain"],
-              "bound_ms": t["fma_f32"]["bound"], "bound_by": t["fma_f32"]["bound_by"],
-              "fp32_fma_design_floor": t["fma_f32"]["fp32_fma_design_floor"],
-              "library_ms": t["fma_f32"]["sdpa"]}
+              "ms": t["f32"]["kernel"], "plain_ms": t["f32"]["plain"],
+              "bound_ms": t["f32"]["bound"], "bound_by": t["f32"]["bound_by"],
+              "library_ms": t["f32"]["sdpa"],
+              **{x: t["f32"][x] for x in ("passes_per_product", "device_ms_by_kind",
+                                          "split_pass_share", "device_ms", "host_ms", "ms_is")
+                 if x in t["f32"]}}
              for key, shape, t in (("prefill_1x16x1024x64", "1x16x1024x64", fp),
                                    ("logits_8x16x1024x64", "8x16x1024x64", fl))] + [
-             {"source": FWD_F16_SOURCE, "dtype": "float16",
+             {"source": FWD_SOURCE, "dtype": "float16",
               "shape": f"{shape} float16, causal",
               "max_abs_err": fl_checks[f"{key}_f16"]["max_abs_err"],
               "ms": t["f16"]["kernel"], "plain_ms": t["f16"]["plain"],
@@ -1478,8 +1497,7 @@ def main():
               **{x: t["f16"][x] for x in ("device_ms", "host_ms", "ms_is") if x in t["f16"]}}
              for key, shape, t in (("prefill_1x16x1024x64", "1x16x1024x64", fp),
                                    ("logits_8x16x1024x64", "8x16x1024x64", fl))]},
-        {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": DKV_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:412",
          "launches": train_launches["flash_bwd_dkv"],
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
@@ -1487,7 +1505,7 @@ def main():
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
          "shape": "8x16x1024x64 bf16, causal (training step)",
-         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd_dkv_sm90.cu", "dtype": "float32",
+         "variants": [{"source": DKV_SOURCE, "dtype": "float32",
                        "shape": "8x16x1024x64 float32, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
                            "dk_dv_max_abs_err"],
@@ -1499,7 +1517,7 @@ def main():
                        "device_ms_by_kind": bt["dkv"]["f32"]["device_ms_by_kind"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"},
-                      {"source": DKV_F16_SOURCE, "dtype": "float16",
+                      {"source": DKV_SOURCE, "dtype": "float16",
                        "shape": "8x16x1024x64 float16, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f16_causal"][
                            "dk_dv_max_abs_err"],
@@ -1510,8 +1528,7 @@ def main():
                        "passes_per_split_product": F16_PASSES_SPLIT,
                        "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
-        {"name": "flash_bwd_dq", "route": "cuda",
-         "source": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+        {"name": "flash_bwd_dq", "route": "cuda", "source": DQ_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
          "launches": train_launches["flash_bwd_dq"],
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
@@ -1519,7 +1536,7 @@ def main():
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
          "library_covers": "dq, dk and dv together",
          "shape": "8x16x1024x64 bf16, causal (training step)",
-         "variants": [{"source": "heat_tpu_torch/csrc/flash_bwd_dq_sm90.cu", "dtype": "float32",
+         "variants": [{"source": DQ_SOURCE, "dtype": "float32",
                        "shape": "8x16x1024x64 float32, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f32_causal"][
                            "dq_max_abs_err"],
@@ -1531,7 +1548,7 @@ def main():
                        "device_ms_by_kind": bt["dq"]["f32"]["device_ms_by_kind"],
                        "library_ms": bt["aten_efficient_backward_f32_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"},
-                      {"source": "heat_tpu_torch/csrc/flash_bwd.cu", "dtype": "float16",
+                      {"source": DQ_SOURCE, "dtype": "float16",
                        "shape": "8x16x1024x64 float16, causal",
                        "max_abs_err": bwd["checks"]["train_8x16x1024x64_f16_causal"][
                            "dq_max_abs_err"],
@@ -1539,7 +1556,7 @@ def main():
                        "plain_ms": bt["dq"]["f16"]["plain"],
                        "bound_ms": bt["dq"]["f16"]["bound"],
                        "bound_by": bt["dq"]["f16"]["bound_by"],
-                       "fp32_fma_design_floor": bt["dq"]["f16"]["fp32_fma_design_floor"],
+                       "passes_per_split_product": F16_PASSES_SPLIT,
                        "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",

@@ -87,7 +87,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.heat_kmeans_step.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, i, i, i, p]
     lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
                                           ctypes.POINTER(i), i]
-    lib.heat_flash_attention.argtypes = [p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
+    lib.heat_flash_attention.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
     lib.heat_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i64, i, i, i, i, f, i, i,
                                        p]
     lib.heat_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i64, i, i, i, i, f, i, i, p]

@@ -9,31 +9,31 @@ Each kernel sits beside a plain PyTorch version of the same function:
   :func:`kmeans_step_plain`;
 * :func:`flash_attention` for heat_tpu's ``flash_attention`` forward
   (``_flash_impl``, ``pallas_kernels.py:348``), and
-  :func:`flash_attention_plain`: bf16 and float16 on the tensor cores
-  (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, float32 accuracy by splitting
-  the probabilities into bf16 terms, or float16 terms of 2^15·P), float32
-  on fp32 FMA (``csrc/flash_fwd.cu``);
+  :func:`flash_attention_plain`;
 * :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` for heat_tpu's
   ``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``
   (``pallas_kernels.py:412``, ``:488``, launched by ``_flash_bwd_impl``
-  ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`:
-  dK/dV in every dtype and dQ in bf16 and float32 on the tensor cores
-  (``csrc/flash_bwd_dkv_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``; float32
-  through three bf16 planes per input that a split pass writes into a
-  workspace the wrapper allocates; float16 with dS scaled per key row by a
-  running power of two), float16 dQ on fp32 FMA (``csrc/flash_bwd.cu``);
+  ``:549``), and :func:`flash_bwd_dkv_plain`, :func:`flash_bwd_dq_plain`;
   :func:`flash_attention`'s backward runs both (float32: one split pass,
   written by the dK/dV launch and read by the dQ launch), and
   :func:`flash_attention_bwd_plain` is the whole backward's plain version
-  (heat_tpu's dense fallback, ``:668-686``);
+  (heat_tpu's dense fallback, ``:668-686``).
+
+  The three flash kernels run on the tensor cores in bf16, float16 and
+  float32 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``,
+  ``csrc/flash_bwd_dq_sm90.cu``: wgmma, TMA, float32 accumulation): a
+  float32 operand of a product splits into bf16 terms, or float16 terms
+  scaled by a power of two (2^15 for P, a running exponent per row for dS);
+  float32 inputs go through three bf16 planes each, which a split pass
+  writes into a workspace the wrapper allocates;
 * :func:`probe` (``csrc/probe.cu``) for heat_tpu's Mosaic probe
   (``_mosaic_available._probe``, ``pallas_kernels.py:85``), and
   :func:`probe_plain`.
 
 A wrapper takes the plain version only for tensors that lie on the CPU. A
 CUDA tensor launches the kernel, or the call raises: there is no fallback
-and no switch that turns a kernel off. Where two kernels serve one function,
-the C entry point picks one by dtype alone, never on a failure. Every
+and no switch that turns a kernel off. A flash entry point picks its
+kernel's instantiation by dtype alone, never on a failure. Every
 wrapper launches through :func:`_launch`, on its tensors' card and that
 card's current stream. ``launches`` counts each wrapper's kernel launches;
 calling a plain version directly, as the card-side comparisons do, launches
@@ -342,12 +342,17 @@ def _check_card_attention(q, k, v) -> int:
 
 def _flash_launch(q, k, v, scale: float, causal: bool, index: int):
     B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     out = torch.empty_like(q)
     lse = q.new_empty((B, H, Sq), dtype=torch.float32)
     if out.numel() == 0:
         return out, lse
+    if Sk == 0:  # no key: every row is empty
+        return out.fill_(float("nan")), lse.fill_(float("-inf"))
+    ws = _split_workspace(q, k, backward=False)
     _launch("flash_attention", index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B * H, Sq, k.shape[2], D, _CODES[q.dtype], scale, int(causal))
+            lse.data_ptr(), None if ws is None else ws.data_ptr(), B * H, Sq, Sk, D,
+            _CODES[q.dtype], scale, int(causal))
     return out, lse
 
 
@@ -411,11 +416,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU), so no ``(Sq, Sk)`` matrix is kept between the passes.
 
     On the card the kernels take float32, bfloat16 and float16, contiguous
-    inputs and head dims up to 128; float64 raises (ROADMAP). bfloat16 and
-    float16 run on the tensor cores, float32 on fp32 FMA, all at float32
-    accuracy; the backward runs float32 on the tensor cores too (six
-    split-bf16 passes a product), and float16 there except its dQ, which
-    stays on fp32 FMA. The card uses its own tiles and ignores
+    inputs and head dims up to 128; float64 raises (ROADMAP). Every dtype
+    runs on the tensor cores at float32 accuracy, the forward and both
+    backward kernels alike (float32: six split-bf16 passes a product, after
+    a split pass into bf16 planes). The card uses its own tiles and ignores
     ``block_q``/``block_k``, which stay for heat_tpu's signature: results do
     not depend on tile sizes. Where no gradient can flow (grad mode off, or
     no input requires grad) the call skips the autograd machinery: the same
@@ -519,17 +523,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse=None, scale: Optiona
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _split_workspace(q, k):
-    """The float32 backward kernels' workspace: q, k, v and dout as three
-    bf16 planes each (their exact split3 terms), rows padded to a multiple
-    of 8 columns (``csrc/sm90_common.cuh`` ``split_inputs``); nothing for
-    other dtypes."""
+def _split_workspace(q, k, backward: bool = True):
+    """The float32 kernels' workspace: their inputs (q, k, v, and for the
+    backward dout) as three bf16 planes each (their exact split3 terms; the
+    forward's q times the scale), rows padded to a multiple of 8 columns
+    (``csrc/sm90_common.cuh`` ``split_inputs``); nothing for other dtypes."""
     if q.dtype != torch.float32:
         return None
     B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     d8 = -(-D // 8) * 8
-    return torch.empty(6 * B * H * d8 * (Sq + k.shape[2]), dtype=torch.bfloat16,
-                       device=q.device)
+    rows = 2 * (Sq + Sk) if backward else Sq + 2 * Sk
+    return torch.empty(3 * B * H * d8 * rows, dtype=torch.bfloat16, device=q.device)
 
 
 def _check_card_backward(q, k, v, dout, lse, dmb) -> int:

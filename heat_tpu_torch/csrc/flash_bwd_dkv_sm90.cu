@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:412
 // _flash_bwd_dkv_kernel (pallas_call :592, launched by _flash_bwd_impl
-// :549); heat_flash_bwd_dkv (flash_bwd.cu) routes every dtype it takes here.
+// :549), for every dtype heat_flash_bwd_dkv takes.
 // For q, dout (BH, Sq, D), k, v (BH, Sk, D), lse and dmb (BH, Sq) float32,
 // with s = scale * k . q:
 //   p  = exp(s - lse) where the pair is visible and lse is finite, else 0,
@@ -82,18 +82,6 @@ using namespace sm90;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kPScale = 32768.f;  // float16: P^T's scale, 2^15, before its split
-constexpr int kEMin = -110;         // float16: the running exponent's floor
-
-// 2^n as a float32 for an integer n <= 127, and zero below 2^-126: a rescale
-// by it is exact, or drops less than 2^-126 of what it scales.
-__device__ __forceinline__ float pow2(int n) {
-  return n < -126 ? 0.f : __int_as_float((n + 127) << 23);
-}
-// The unbiased exponent of a float32 x >= 0 (-127 for zero and subnormals,
-// 128 for inf).
-__device__ __forceinline__ int exponent_of(float x) {
-  return ((__float_as_int(x) >> 23) & 0xff) - 127;
-}
 
 // T: the inputs' and outputs' type: __nv_bfloat16, __half, or float (F32:
 // the inputs as three bf16 planes, TERMS = 3); W: the wgmma operand type
@@ -451,7 +439,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   int use_tma;
   if constexpr (L::F32) {
     SplitInputs planes;
-    err = split_inputs(q, k, v, dout, ws, split, bh, sq, sk, d, stream, &planes);
+    err = split_inputs(q, k, v, dout, 1.f, ws, split, bh, sq, sk, d, stream, &planes);
     if (err != cudaSuccess) return err;
     for (int i = 0; i < 4; ++i) src[i] = planes.plane[i][0];
     use_tma = 1;  // the planes' rows are whole 16-byte chunks
@@ -490,24 +478,32 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
 
 }  // namespace
 
-// heat_flash_bwd_dkv (flash_bwd.cu) for every dtype it takes: the same
-// arguments; for float32 the workspace of the split planes, 12 * bh * d8 *
-// (sq + sk) bytes (d8: d rounded up to 8), and whether to write them
-// (split) or read them as the other kernel wrote them; ws is unused
-// otherwise.
-cudaError_t flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
-                               const float* lse, const float* dmb, void* dk, void* dv, void* ws,
-                               int split, int64_t bh, int sq, int sk, int d, int dtype,
-                               float scale, int causal, cudaStream_t s) {
+// q, dout (bh, sq, d) and k, v (bh, sk, d), contiguous and of one dtype
+// (f32, bf16 or f16) on card `device`; lse and dmb (bh, sq) float32. dk and
+// dv (bh, sk, d) in that dtype. ws: for f32 the workspace of the split
+// planes, 12 * bh * d8 * (sq + sk) bytes (d8: d rounded up to 8), 16-byte
+// aligned, and whether to write them (split) or read them as the other
+// kernel of the same backward wrote them; unused otherwise. The wrapper
+// guarantees bh >= 1, 1 <= sq, 1 <= sk <= 65535 * 64 and 1 <= d <= 128.
+// Returns the launch's cudaError_t.
+extern "C" int heat_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* dmb, void* dk, void* dv, void* ws,
+                                  int split, int64_t bh, int sq, int sk, int d, int dtype,
+                                  float scale, int causal, int device, void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  const float* l = static_cast<const float*>(lse);
+  const float* m = static_cast<const float*>(dmb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kBF16:
-      return launch_d<__nv_bfloat16>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d,
+      return launch_d<__nv_bfloat16>(q, k, v, dout, l, m, dk, dv, ws, split, bh, sq, sk, d,
                                      scale, causal, s);
     case kF16:
-      return launch_d<__half>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+      return launch_d<__half>(q, k, v, dout, l, m, dk, dv, ws, split, bh, sq, sk, d, scale,
                               causal, s);
     case kF32:
-      return launch_d<float>(q, k, v, dout, lse, dmb, dk, dv, ws, split, bh, sq, sk, d, scale,
+      return launch_d<float>(q, k, v, dout, l, m, dk, dv, ws, split, bh, sq, sk, d, scale,
                              causal, s);
     default: return cudaErrorInvalidValue;
   }

@@ -1,17 +1,18 @@
-// flash_fwd_sm90: the bf16 and float16 flash-attention forward on Hopper's
-// tensor cores, returning the output and the per-row log-sum-exp (lse).
+// flash_fwd_sm90: the bf16, float16 and float32 flash-attention forward on
+// Hopper's tensor cores, returning the output and the per-row log-sum-exp
+// (lse).
 //
 // Replaces the TPU kernel heat_tpu/core/pallas_kernels.py:348 _flash_impl
-// (body _flash_kernel :234, pallas_call :374) for bf16 and float16 inputs;
-// float32 stays on the fp32-FMA kernel of flash_fwd.cu, which routes here by
-// dtype only. For q (BH, Sq, D) and k, v (BH, Sk, D), out = softmax(scale *
-// q k^T) v and lse = log sum exp of the scores, per row. The rules of the
-// FMA kernel stay: only the Sk real keys count; the causal diagonal is
-// end-aligned (key col is visible to query row iff col <= row + Sk - Sq);
-// masked pairs get probability 0 (their scores take -inf; the running max
-// starts at the TPU kernel's -1e30), so a row that sees no key gives a NaN
-// output and a -inf lse; key tiles wholly above the diagonal are skipped and
-// the heaviest query tiles run first; the lse is float32.
+// (body _flash_kernel :234, pallas_call :374), for every dtype
+// heat_flash_attention takes. For q (BH, Sq, D) and k, v (BH, Sk, D), out =
+// softmax(scale * q k^T) v and lse = log sum exp of the scores, per row. What
+// it keeps of the TPU kernel: only the Sk real keys count; the causal
+// diagonal is end-aligned (key col is visible to query row iff col <= row +
+// Sk - Sq); masked pairs get probability 0 (their scores take -inf; the
+// running max starts at the TPU kernel's -1e30), so a row that sees no key
+// gives a NaN output and a -inf lse; key tiles wholly above the diagonal are
+// skipped and the heaviest query tiles run first; the lse is float32.
+// Results do not depend on the caller's block_q/block_k.
 //
 // Precision (heat_tpu runs both products at HIGHEST with float32
 // accumulation, pallas_kernels.py:277-278, :292-293): S = Q K^T takes one
@@ -22,20 +23,30 @@
 // or, for float16, two float16 terms of 2^15 P (split2h; P <= 1, so 2^15 P
 // stays below float16's 65,504, and its terms keep 22 bits down to P ~
 // 2^-18 and P within 2^-40 below), the 2^15 divided out with the row sum
-// at the end (exact).
+// at the end (exact). float32 inputs (F32): every product has two float32
+// operands. A split pass (sm90_common.cuh, split_inputs) first writes q
+// times the scale (one float32 rounding, as the TPU kernel scales q before
+// its product), k and v as their three split3 planes into the caller's
+// workspace; S and P V then take six passes each (the term pairs i + j <= 2,
+// smallest first; sm90_common.cuh, pass_a/pass_b), with P split by split3 in
+// registers, the scores times log2(e) alone, and out is written in float32.
+// Six are the fewest that hold a row that sees one key, whose lse is that
+// one score: four and five passes drop terms of 2^-16 |q||k|
+// (tests/test_torch_sm90_precision.py).
 //
 // What bounds it on an H100: at the paths' shapes (16 heads of 64, 1024
-// rows, causal) the four bf16 passes (three float16) per live (query, key)
-// pair, 8 * D FLOPs (6 * D), over the 989 TFLOP/s tensor-core rate take
-// ~2x the time of moving Q, K, V and O once, so the card's bound is
-// tensor-core operations. Per 64 x 64 tile a warpgroup also spends ~10 ALU
-// instructions and one exp2 a score (scale, max, exp2, sum, the split)
-// between its wgmmas.
+// rows, causal) the four bf16 passes (three float16, twelve float32) per
+// live (query, key) pair, 8 * D FLOPs (6 * D, 24 * D), over the 989 TFLOP/s
+// tensor-core rate take ~2x the time of moving Q, K, V and O once (float32,
+// four bytes an element: ~2.6x), so the card's bound is tensor-core
+// operations. Per 64 x 64 tile a
+// warpgroup also spends ~10 ALU instructions and one exp2 a score (scale,
+// max, exp2, sum, the split) between its wgmmas.
 // The design keeps every intermediate in registers (scores, probabilities,
 // running max and sum, the output accumulator), reads each K/V tile once per
-// 128-row query tile, keeps the tensor cores fed from shared memory that TMA
-// fills ahead of them, and overlaps one tile's softmax with the previous
-// tile's P V.
+// query tile, keeps the tensor cores fed from shared memory that TMA fills
+// ahead of them, and overlaps one tile's softmax with the previous tile's
+// P V.
 //
 // Design: one block of 384 threads per (batch*head, 128-row query tile):
 // two consumer warpgroups of 64 query rows each and one producer
@@ -49,52 +60,67 @@
 // memory), masks and exponentiates in the accumulator's registers (row max
 // and row sum over the 4 threads of a quad, in the log2 domain, exp2 on
 // the special-function unit), turns the probabilities into register A
-// fragments of the three split terms, and adds P V into the output
-// accumulator with m64n{DP}k16 wgmmas whose V operand is read MN-major from
-// the same K/V tile layout: nothing is transposed in memory. Head dims pad
-// to DP in {64, 128} with zeros in shared memory only; nothing is padded in
-// device memory. One template serves both types (T = __nv_bfloat16 or
-// __half): only the wgmma type, the split and the output rounding differ.
+// fragments of their split terms, and adds P V into the output accumulator
+// with m64n{DP}k16 wgmmas whose V operand is read MN-major from the same
+// K/V tile layout: nothing is transposed in memory. Head dims pad to DP in
+// {64, 128} with zeros in shared memory only; nothing is padded in device
+// memory. float32's three planes per tile triple the shared memory: its
+// ring has 3 stages, and at DP = 128 a block holds 64 query rows with one
+// consumer warpgroup (256 threads, no register hand-over) and key tiles of
+// 32, 193 KB either way. One template serves the three types (T =
+// __nv_bfloat16, __half or float): the wgmma type, the passes, the split
+// and the output differ.
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int BQ = 128;  // query rows per block (64 per consumer warpgroup)
-constexpr int BK = 64;   // keys per tile
-constexpr int NS = 4;    // K/V ring stages
-constexpr int NT = 384;  // two consumer warpgroups and one producer warpgroup
 constexpr float kNegBig = -1e30f;  // the TPU kernel's _NEG_BIG (pallas_kernels.py:55)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kPScale = 32768.f;  // float16: P's scale, 2^15, before its split
 
-template <int DP>
+// T: the inputs' and output's type: __nv_bfloat16, __half, or float (F32:
+// the inputs as three bf16 planes, TERMS = 3); W: the wgmma operand type
+template <typename T, int DP>
 struct Layout {
-  static constexpr int Q_BYTES = BQ * DP * 2;         // the query tile
-  static constexpr int KV_BYTES = BK * DP * 2;        // one K or V tile
-  static constexpr int STAGE = 2 * KV_BYTES;          // K then V
-  static constexpr int SMEM = Q_BYTES + NS * STAGE + 1024;  // + alignment slack
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr bool H = kIsHalf<T>;
+  using W = typename std::conditional<H, __half, __nv_bfloat16>::type;
+  static constexpr bool kNarrow = F32 && DP == 128;  // 3 planes x 128 columns
+  static constexpr int NC = kNarrow ? 1 : 2;         // consumer warpgroups
+  static constexpr int NT = 128 * (NC + 1);          // and one producer warpgroup
+  static constexpr int BQ = 64 * NC;                 // query rows per block
+  static constexpr int BK = kNarrow ? 32 : 64;       // keys per tile
+  static constexpr int NS = F32 ? 3 : 4;             // K/V ring stages
+  static constexpr int TERMS = F32 ? 3 : 1;          // planes per input tile
+  static constexpr int NP = F32 ? 6 : 1;             // passes of Q K^T
+  static constexpr int P_TERMS = H ? 2 : 3;          // P's split terms
+  static constexpr int Q_BYTES = BQ * DP * 2;        // one plane of the query tile
+  static constexpr int KV_BYTES = BK * DP * 2;       // one plane of a K or V tile
+  static constexpr int STAGE = 2 * TERMS * KV_BYTES;  // K's planes then V's
+  static constexpr int SMEM = TERMS * Q_BYTES + NS * STAGE + 1024;  // + alignment slack
+  using Maps = TMapsN<3 * TERMS>;                    // q's planes, k's, v's
 };
 
-// T: the inputs' and output's type, __nv_bfloat16 or __half
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT, 1)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
-                      const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int sq, int sk, int d, float scale_log2, int causal,
-                      int use_tma) {
-  using L = Layout<DP>;
-  constexpr bool H = kIsHalf<T>;
-  constexpr int TERMS = H ? 2 : 3;  // P's terms: float16 (of 2^15 P), or bf16
+__global__ void __launch_bounds__(Layout<T, DP>::NT, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ typename Layout<T, DP>::Maps maps,
+                      const void* __restrict__ q, const void* __restrict__ k,
+                      const void* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                      int sq, int sk, int d, float scale_log2, int causal, int use_tma) {
+  using L = Layout<T, DP>;
+  using W = typename L::W;
+  constexpr bool F32 = L::F32, H = L::H;
+  constexpr int BQ = L::BQ, BK = L::BK, NS = L::NS, NC = L::NC;
+  constexpr int TM = L::TERMS, PT = L::P_TERMS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ RingBars<NS> bars;  // once: the Q tile; the ring: K/V tiles
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint8_t* qs = smem;
-  uint8_t* ring = smem + L::Q_BYTES;
+  uint8_t* ring = smem + TM * L::Q_BYTES;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -105,23 +131,30 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int kend = causal ? min(sk, q0 + BQ + offset) : sk;
   const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
 
-  if (tid == 0) bars.init(use_tma);
+  if (tid == 0) bars.init(use_tma, 4 * NC);
   __syncthreads();
 
-  if (warp >= 8) {
+  if (warp >= 4 * NC) {
     // ---- producer warpgroup --------------------------------------------
     // It hands its registers to the consumers; with TMA one lane works.
-    setmaxnreg_dec<40>();
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
     if (ntiles == 0) return;  // nothing to load: every row of the tile is empty
-    const Src qsrc[1] = {{&tq, q, sq}};
-    const Src kv[2] = {{&tk, k, sk}, {&tv, v, sk}};
-    produce<DP, NS, BQ, 1, BK, 2>(bars, use_tma, tid - 256, bh, d, qs, qsrc, q0, ring, kv, 0,
-                                  ntiles);
+    // a float32 plane is never staged by plain loads (use_tma is set), so
+    // its pointer is not read
+    Src qsrc[TM], kv[2 * TM];
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      qsrc[j] = {&maps.m[j], q, sq};
+      kv[j] = {&maps.m[TM + j], k, sk};
+      kv[TM + j] = {&maps.m[2 * TM + j], v, sk};
+    }
+    produce<DP, NS, BQ, TM, BK, 2 * TM>(bars, use_tma, tid - 128 * NC, bh, d, qs, qsrc, q0, ring,
+                                        kv, 0, ntiles);
     return;
   }
 
   // ---- consumer warpgroups ---------------------------------------------
-  setmaxnreg_inc<232>();
+  if constexpr (NC == 2) setmaxnreg_inc<232>();
   const int wg = warp >> 2;        // 64-row half of the query tile
   const int qw = q0 + wg * 64;     // first query row of this warpgroup
   const int r0 = qw + 16 * (warp & 3) + (lane >> 2);  // rows r0 and r0 + 8 of this thread
@@ -138,30 +171,46 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   float m[2] = {kNegBig, kNegBig};  // running max, log2 domain
   float l[2] = {0.f, 0.f};          // this thread's share of the running sum
   float sc[BK / 2];                 // scores, then probabilities, of one tile
-  uint32_t a[TERMS][BK / 16][4];    // P's split terms, the largest first
+  uint32_t a[PT][BK / 16][4];       // P's split terms, the largest first
 
   if (ntiles > 0) mbar_wait(&bars.once, 0);
-  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
-  auto k_addr = [&](int t) { return smem_u32(ring + (t % NS) * L::STAGE); };
+  // plane j of this warpgroup's rows of Q; plane j of tile t's K and V
+  auto q_addr = [&](int j) { return smem_u32(qs) + j * L::Q_BYTES + wg * 64 * 128; };
+  auto k_addr = [&](int t, int j) { return smem_u32(ring + (t % NS) * L::STAGE) + j * L::KV_BYTES; };
+  auto v_addr = [&](int t, int j) { return k_addr(t, TM + j); };
 
-  // S = Q K^T of tile t into sc (one commit group)
+  // S = Q K^T of tile t into sc (one commit group): one pass (bf16,
+  // float16), or six of the float32 operands' planes
   auto issue_s = [&](int t) {
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
-      Wgmma<BK, T>::ss(sc, kmajor_desc(q_addr + (kk >> 2) * BQ * 128 + off),
-                       kmajor_desc(k_addr(t) + (kk >> 2) * BK * 128 + off), kk > 0);
-    }
+    for (int p = 6 - L::NP; p < 6; ++p)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;  // k16 step inside a 64-column block
+        Wgmma<BK, W>::ss(sc, kmajor_desc(q_addr(pass_a(p)) + (kk >> 2) * BQ * 128 + off),
+                         kmajor_desc(k_addr(t, pass_b(p)) + (kk >> 2) * BK * 128 + off),
+                         p > 6 - L::NP || kk > 0);
+      }
     wgmma_commit();
   };
-  // O += P V of tile t from the split terms, smallest first (one commit group)
+  // O += P V of tile t from the split terms, smallest first (one commit
+  // group): P's terms against V's one plane, or the six passes of P's terms
+  // and V's planes (float32)
   auto issue_pv = [&](int t) {
-    const uint32_t v_addr = k_addr(t) + L::KV_BYTES;
+    if constexpr (F32) {
 #pragma unroll
-    for (int j = TERMS - 1; j >= 0; --j)
+      for (int p = 0; p < 6; ++p)
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<DP, T>::rs(o, a[j][kk], sw128_desc(v_addr + kk * 2048, BK * 128));
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<DP, W>::rs(o, a[pass_a(p)][kk],
+                           sw128_desc(v_addr(t, pass_b(p)) + kk * 2048, BK * 128));
+    } else {
+#pragma unroll
+      for (int j = PT - 1; j >= 0; --j)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<DP, W>::rs(o, a[j][kk], sw128_desc(v_addr(t, 0) + kk * 2048, BK * 128));
+    }
     wgmma_commit();
   };
   // the online softmax of tile t in sc: scores in the log2 domain, masked
@@ -199,7 +248,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       l[(i >> 1) & 1] += p;
     }
   };
-  // P as TERMS A fragments per k16 step: three bf16, or two float16 of 2^15 P
+  // P as PT A fragments per k16 step: three bf16, or two float16 of 2^15 P
   auto split = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
@@ -262,7 +311,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     if ((lane & 3) == 0 && row < sq)
       lse[static_cast<int64_t>(bh) * sq + row] = empty[h] ? neg_inf : m[h] * kLn2 + logf(l[h]);
   }
-  const bool pairs = (d & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const bool pairs =
+      (d & 1) == 0 && (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1)) == 0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const int h = (i >> 1) & 1;
@@ -273,7 +323,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     const float x0 = empty[h] ? nan : o[i] * inv[h];
     const float x1 = empty[h] ? nan : o[i + 1] * inv[h];
     if (pairs) {
-      *reinterpret_cast<uint32_t*>(orow + col) = pack2<T>(x0, x1);
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(orow + col) = pack2<T>(x0, x1);
     } else {
       orow[col] = from_acc<T>(x0);
       if (col + 1 < d) orow[col + 1] = from_acc<T>(x1);
@@ -281,47 +334,79 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
 }
 
+// The bf16 and float16 kernels on q, k, v as they are (TMA where it can
+// address them, else plain loads), or the float32 kernel on their split
+// planes (q times the scale).
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, void* ws,
                    int64_t bh, int sq, int sk, int d, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr int smem = Layout<DP>::SMEM;
+  using L = Layout<T, DP>;
+  constexpr int smem = L::SMEM;
   static std::atomic<uint32_t> smem_raised{0};
   cudaError_t err = raise_smem_limit(
       reinterpret_cast<const void*>(flash_fwd_sm90_kernel<T, DP>), smem, smem_raised);
   if (err != cudaSuccess) return err;
-  const int use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d);
-  CUtensorMap tq{}, tk{}, tv{};
-  if (use_tma) {
-    if ((err = make_tmap<T>(&tq, q, bh, sq, d, BQ)) != cudaSuccess) return err;
-    if ((err = make_tmap<T>(&tk, k, bh, sk, d, BK)) != cudaSuccess) return err;
-    if ((err = make_tmap<T>(&tv, v, bh, sk, d, BK)) != cudaSuccess) return err;
+  typename L::Maps maps{};
+  const void* src[3] = {q, k, v};
+  int use_tma;
+  float scale_log2 = scale * kLog2e;
+  if constexpr (L::F32) {
+    SplitInputs planes;
+    err = split_inputs(q, k, v, nullptr, scale, ws, 1, bh, sq, sk, d, stream, &planes);
+    if (err != cudaSuccess) return err;
+    for (int i = 0; i < 3; ++i) src[i] = planes.plane[i][0];
+    use_tma = 1;  // the planes' rows are whole 16-byte chunks
+    scale_log2 = kLog2e;  // the planes hold q times the scale
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        if ((err = make_tmap(&maps.m[3 * i + j], planes.plane[i][j], bh, i == 0 ? sq : sk,
+                             planes.d8, i == 0 ? L::BQ : L::BK)) != cudaSuccess)
+          return err;
+  } else {
+    use_tma = tma_ok(q, d) && tma_ok(k, d) && tma_ok(v, d);
+    if (use_tma)
+      for (int i = 0; i < 3; ++i)
+        if ((err = make_tmap<T>(&maps.m[i], src[i], bh, i == 0 ? sq : sk, d,
+                                i == 0 ? L::BQ : L::BK)) != cudaSuccess)
+          return err;
   }
-  dim3 grid(static_cast<unsigned>(bh), (sq + BQ - 1) / BQ);
-  flash_fwd_sm90_kernel<T, DP><<<grid, NT, smem, stream>>>(
-      tq, tk, tv, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, sq, sk, d, scale * kLog2e, causal, use_tma);
+  dim3 grid(static_cast<unsigned>(bh), (sq + L::BQ - 1) / L::BQ);
+  flash_fwd_sm90_kernel<T, DP><<<grid, L::NT, smem, stream>>>(
+      maps, src[0], src[1], src[2], static_cast<T*>(out), lse, sq, sk, d, scale_log2, causal,
+      use_tma);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse,
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, float* lse, void* ws,
                      int64_t bh, int sq, int sk, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 64) return launch<T, 64>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, out, lse, ws, bh, sq, sk, d, scale, causal, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, out, lse, ws, bh, sq, sk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The bf16 and float16 cases of heat_flash_attention (flash_fwd.cu): the
-// same arguments.
-cudaError_t flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
-                           int64_t bh, int sq, int sk, int d, int dtype, float scale, int causal,
-                           cudaStream_t s) {
+// q (bh, sq, d), k and v (bh, sk, d), contiguous and of one dtype (f32, bf16
+// or f16) on card `device`; out (bh, sq, d) in that dtype and lse (bh, sq)
+// float32. ws: for f32 the workspace of the split planes, 6 * bh * d8 * (sq +
+// 2 sk) bytes (d8: d rounded up to 8), 16-byte aligned; unused otherwise.
+// The wrapper guarantees bh >= 1, 1 <= sq <= 65535 * 64, 1 <= sk and
+// 1 <= d <= 128. Returns the launch's cudaError_t.
+extern "C" int heat_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, void* ws, int64_t bh, int sq, int sk, int d,
+                                    int dtype, float scale, int causal, int device,
+                                    void* stream) {
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
-    case kBF16: return launch_d<__nv_bfloat16>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
-    case kF16: return launch_d<__half>(q, k, v, out, lse, bh, sq, sk, d, scale, causal, s);
+    case kBF16:
+      return launch_d<__nv_bfloat16>(q, k, v, out, l, ws, bh, sq, sk, d, scale, causal, s);
+    case kF16: return launch_d<__half>(q, k, v, out, l, ws, bh, sq, sk, d, scale, causal, s);
+    case kF32: return launch_d<float>(q, k, v, out, l, ws, bh, sq, sk, d, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,9 @@
 // (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu):
 // mbarriers, TMA tensor maps and loads, wgmma descriptors and instructions in
 // raw PTX (bf16 x bf16 and float16 x float16, both into fp32), the 128-byte
-// swizzled tile layout, the exact three-way bf16 split of a float32 operand
-// and the two-way float16 split of a scaled one.
+// swizzled tile layout, the exact three-way bf16 split of a float32 operand,
+// the two-way float16 split of a scaled one and the power-of-two helpers of
+// its running exponent.
 //
 // Tile layout in shared memory: a (ROWS, DP) bf16 or float16 tile is DP / 64
 // column blocks of ROWS rows x 128 bytes, each block 1024-byte aligned, with the
@@ -16,16 +17,16 @@
 // operand x splits it into x1 = bf16(x), x2 = bf16(x - x1),
 // x3 = bf16(x - x1 - x2), 24 significant bits as float32 has, and takes
 // three passes into one fp32 accumulator, smallest term first. A product
-// of two float32 operands (the float32 backward kernels) splits both the
-// same way and takes the six passes a_i x b_j with i + j <= 2 (terms 0, 1,
-// 2 from the largest), smallest first: the three it drops are below 2^-24
-// of |a||b|. float16 (the forward and dK/dV): a product of two float16
-// operands takes one pass (11 x 11 significant bits, exact in fp32); a
-// float32 operand x is first scaled by a power of two s into float16's range
-// (|s x| < 2^15 < 65,504) and split into h1 = f16(s x), h2 = f16(s x - h1),
-// 22 significant bits down to float16's subnormals, two passes; the product
-// is divided by s in fp32 (exact). Both counts are the fewest that hold the
-// checks in tests/test_torch_sm90_precision.py, which emulates them.
+// of two float32 operands (every product of the float32 kernels) splits both
+// the same way and takes the six passes a_i x b_j with i + j <= 2 (terms 0,
+// 1, 2 from the largest), smallest first: the three it drops are below
+// 2^-24 of |a||b|. float16: a product of two float16 operands takes one pass
+// (11 x 11 significant bits, exact in fp32); a float32 operand x is first
+// scaled by a power of two s into float16's range (|s x| < 2^15 < 65,504)
+// and split into h1 = f16(s x), h2 = f16(s x - h1), 22 significant bits down
+// to float16's subnormals, two passes; the product is divided by s in fp32
+// (exact). Both counts are the fewest that hold the checks in
+// tests/test_torch_sm90_precision.py, which emulates them.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
@@ -149,6 +150,21 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// float16 kernels: the floor of a running exponent (dS scaled by 2^(14 - E)
+// stays finite for E down to it)
+constexpr int kEMin = -110;
+
+// 2^n as a float32 for an integer n <= 127, and zero below 2^-126: a rescale
+// by it is exact, or drops less than 2^-126 of what it scales.
+__device__ __forceinline__ float pow2(int n) {
+  return n < -126 ? 0.f : __int_as_float((n + 127) << 23);
+}
+// The unbiased exponent of a float32 x >= 0 (-127 for zero and subnormals,
+// 128 for inf).
+__device__ __forceinline__ int exponent_of(float x) {
+  return ((__float_as_int(x) >> 23) & 0xff) - 127;
 }
 
 // the element types of the tensor-core kernels' 16-bit operands
@@ -371,14 +387,14 @@ SM90_WGMMA(128, 64, SM90_R64, SM90_D64, "%66", "%64, %65", "%69", "{%64, %65, %6
 
 // ---- the float32 kernels' split pass ---------------------------------------
 
-// The split3 terms of a contiguous (rows, d) float32 tensor into three
-// (rows, d8) bf16 planes, the largest first, d8 = d rounded up to a
+// The split3 terms of a contiguous (rows, d) float32 tensor times `mul` into
+// three (rows, d8) bf16 planes, the largest first, d8 = d rounded up to a
 // multiple of 8 and the columns past d zero: rows TMA can address whatever
 // d is. One thread per 8 columns of a row (16 bytes of each plane). Static:
 // one copy per translation unit that launches it.
 static __global__ void __launch_bounds__(256)
 split_planes_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
-                    int64_t rows, int d, int d8, int vec) {
+                    int64_t rows, int d, int d8, int vec, float mul) {
   const int cpr = d8 / 8;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= rows * cpr) return;
@@ -393,6 +409,8 @@ split_planes_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ pla
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = c0 + j < d ? src[j] : 0.f;
   }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] *= mul;  // exact for mul = 1
   uint4 t1, t2, t3;
   split3(v[0], v[1], t1.x, t2.x, t3.x);
   split3(v[2], v[3], t1.y, t2.y, t3.y);
@@ -404,29 +422,32 @@ split_planes_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ pla
   *reinterpret_cast<uint4*>(planes + 2 * plane + at) = t3;
 }
 
-// The split planes of the float32 backward kernels' four inputs in the
-// caller's workspace ws (12 * bh * d8 * (sq + sk) bytes, 16-byte aligned):
-// q, k, v, dout, each its three planes in order, (bh, rows, d8) bf16 per
-// plane. With split == 0 ws already holds them (the other backward kernel
-// of the same call wrote them): only their addresses are set.
+// The split planes of a float32 kernel's inputs in the caller's workspace ws
+// (16-byte aligned): q, k, v and, for the backward kernels, dout, each its
+// three planes in order, (bh, rows, d8) bf16 per plane: 6 * bh * d8 * (sq +
+// 2 sk) bytes for the forward, 12 * bh * d8 * (sq + sk) for the backward.
+// q is multiplied by q_mul first (the forward's scale; 1 in the backward).
+// With split == 0 ws already holds them (the other backward kernel of the
+// same call wrote them): only their addresses are set.
 struct SplitInputs {
   const __nv_bfloat16* plane[4][3];  // [q, k, v, dout][term]
   int d8;
 };
 
 static cudaError_t split_inputs(const void* q, const void* k, const void* v, const void* dout,
-                                void* ws, int split, int64_t bh, int sq, int sk, int d,
-                                cudaStream_t stream, SplitInputs* out) {
+                                float q_mul, void* ws, int split, int64_t bh, int sq, int sk,
+                                int d, cudaStream_t stream, SplitInputs* out) {
   const int d8 = (d + 7) / 8 * 8;
   const void* src[4] = {q, k, v, dout};
   const int64_t rows[4] = {bh * sq, bh * sk, bh * sk, bh * sq};
+  const int n = dout != nullptr ? 4 : 3;
   __nv_bfloat16* at = static_cast<__nv_bfloat16*>(ws);
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < n; ++i) {
     const int64_t threads = rows[i] * (d8 / 8);
     const int vec = d == d8 && reinterpret_cast<uintptr_t>(src[i]) % 16 == 0;
     if (split)
       split_planes_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
-          static_cast<const float*>(src[i]), at, rows[i], d, d8, vec);
+          static_cast<const float*>(src[i]), at, rows[i], d, d8, vec, i == 0 ? q_mul : 1.f);
     for (int j = 0; j < 3; ++j) out->plane[i][j] = at + j * rows[i] * d8;
     at += 3 * rows[i] * d8;
   }
@@ -435,11 +456,13 @@ static cudaError_t split_inputs(const void* q, const void* k, const void* v, con
 }
 
 // The tensor maps of a kernel's inputs, passed as one __grid_constant__
-// parameter: per input (q, k, v, dout) its bf16 planes, one or three, in
-// that order (a bf16 kernel uses the first four).
-struct TMaps {
-  CUtensorMap m[12];
+// parameter: per input (q, k, v[, dout]) its bf16 planes, one or three, in
+// that order.
+template <int N>
+struct TMapsN {
+  CUtensorMap m[N];
 };
+using TMaps = TMapsN<12>;  // the backward kernels' four inputs
 
 // ---- host: tensor maps ----------------------------------------------------
 

@@ -6,11 +6,10 @@ and :func:`_fold` (the mergeable ``(out, lse)`` form and its merge, which
 the multi-card ring folds; held against heat_tpu's now), and
 :func:`_ring_body`, the per-device causal ring, here at a communicator of
 size 1, where the ring is one flash call. The kernel is
-:func:`heat_tpu_torch.core.kernels.flash_attention` (bf16:
-``csrc/flash_fwd_sm90.cu``; float32, float16: ``csrc/flash_fwd.cu``),
-differentiable through its output and its lse: its backward is the flash
-dK/dV (bf16: ``csrc/flash_bwd_dkv_sm90.cu``) and dQ kernels
-(``csrc/flash_bwd.cu``), so ``_block_attn``,
+:func:`heat_tpu_torch.core.kernels.flash_attention`
+(``csrc/flash_fwd_sm90.cu``), differentiable through its output and its
+lse: its backward is the flash dK/dV (``csrc/flash_bwd_dkv_sm90.cu``) and
+dQ kernels (``csrc/flash_bwd_dq_sm90.cu``), so ``_block_attn``,
 ``local_attention`` and ``_ring_body`` train through them. At size 1
 heat_tpu's fold of the one piece into the empty state hands the piece's lse
 a zero cotangent exactly, so returning the flash output directly gives the

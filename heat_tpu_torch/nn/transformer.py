@@ -6,9 +6,9 @@ and the head), training (``loss_and_grad_fn``, ``make_train_step``), the
 logits forward (``logits_fn``) and KV-cached decode (``generate``, plus the
 prefill and cached-step bodies that the continuous-batching
 :class:`~heat_tpu_torch.serve.DecodeEngine` shares). Every attention over a
-prompt or a sequence runs the flash kernel (bf16: ``csrc/flash_fwd_sm90.cu``),
-and a training step its backward kernels (bf16 dK/dV:
-``csrc/flash_bwd_dkv_sm90.cu``, dQ: ``csrc/flash_bwd.cu``); the cached
+prompt or a sequence runs the flash kernel (``csrc/flash_fwd_sm90.cu``),
+and a training step its backward kernels (dK/dV:
+``csrc/flash_bwd_dkv_sm90.cu``, dQ: ``csrc/flash_bwd_dq_sm90.cu``); the cached
 decode attention stays dense PyTorch, as it is dense ``jnp`` in heat_tpu.
 
 Parameters are a plain dictionary (see

@@ -7,10 +7,10 @@ checkouts in one call.
 imports ``heat_tpu_torch`` from checkout ``DIR`` and prints one JSON line:
 the times of the flash backward pair in float32, bf16 and float16 at the
 training shape (8 x 16 heads of 64, 1024 rows, causal), the forward there
-in each,
-``kmeans_step`` at 2^23 x 64 float32, k = 8, and the device time by kind of
-one float32 ``loss_and_grad_fn`` of the flagship model, all with
-``chip_smoke.py``'s timers and shapes. Run it for two checkouts in turns
+in each, the float32 forward's device time by kind (its split pass, where
+it has one, and its kernel), ``kmeans_step`` at 2^23 x 64 float32, k = 8,
+and the device time by kind of one float32 ``loss_and_grad_fn`` of the
+flagship model, all with ``chip_smoke.py``'s timers and shapes. Run it for two checkouts in turns
 (parent, change, change, parent) within one call: times on one card are
 only comparable within one call.
 """
@@ -58,6 +58,10 @@ def main(root):
             torch, lambda: tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=True))
         res["ms"][f"flash_attention_{name}"] = cs.time_ms(
             torch, lambda: tk.flash_attention(q, k, v, causal=True))
+        if dt == torch.float32:
+            res["flash_attention_float32_device_ms_by_kind"] = cs.device_share(
+                torch, lambda: tk.flash_attention(q, k, v, causal=True), 20,
+                kinds=cs.F32_FWD_KINDS).get("device_ms_per_call_by_kind")
         del q, k, v, dout, out, lse, dmb
     x = torch.rand(cs.N_POINTS, cs.N_FEATURES, device=dev, generator=gen)
     c = x[torch.randint(0, cs.N_POINTS, (cs.K,), device=dev, generator=gen)].clone()

@@ -395,25 +395,24 @@ def test_smoke_flash_bound_counts_tensor_core_passes():
     nbytes = 4 * 16 * 1024 * 64 * 2 + 16 * 1024 * 4
     assert cs.flash_bound(1, 16, 1024, 1024, 64, True, 1e12, 989e12) == (
         pytest.approx(nbytes / 1e12 * 1e3), "bytes")
-    assert cs.flash_fma_floor(1, 16, 1024, 1024, 64, True, 67e12) == pytest.approx(
-        4 * 64 * live / 67e12 * 1e3)
 
 
 def test_smoke_flash_bound_f32_is_the_fma_floor_or_the_bytes():
-    # the float32 forward's bound is the card's, not the FMA kernel's design
-    # floor: on the bf16 tensor cores q·kᵀ and P·V, each of two float32
-    # operands split into bf16 terms, take four passes of 2·D FLOPs per live
-    # pair (the fewest check_flash takes, tests/test_torch_sm90_precision.py;
-    # 0.070 ms at (8, 16, 1024, 64) causal on an H100 SXM, under the 0.257
-    # ms FMA floor), unless moving float32 Q, K, V, O and the lse takes
-    # longer
+    # the float32 forward's bound is the card's: on the bf16 tensor cores
+    # q·kᵀ and P·V, each of two float32 operands split into bf16 terms, take
+    # six passes of 2·D FLOPs per live pair (the fewest check_flash takes,
+    # tests/test_torch_sm90_precision.py, and the count the kernel runs, its
+    # Layout::NP; 0.104 ms at (8, 16, 1024, 64) causal on an H100 SXM),
+    # unless moving float32 Q, K, V, O and the lse takes longer
     cs = _smoke_module()
+    text = (pathlib.Path(cs.__file__).parent / "heat_tpu_torch" / "csrc" /
+            "flash_fwd_sm90.cu").read_text()
+    assert f"int NP = F32 ? {cs.F32_PASSES_FWD} : 1;" in text
     pairs = 8 * 16 * 1024 * 1025 // 2
     ms, by = cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 3.35e12, 989e12)
-    assert by == "operations" and cs.F32_PASSES_FWD == 4
-    assert ms == pytest.approx(8 * 2 * 64 * pairs / 989e12 * 1e3)
-    assert 0.069 < ms < 0.070
-    assert ms < cs.flash_fma_floor(8, 16, 1024, 1024, 64, True, 67e12)
+    assert by == "operations" and cs.F32_PASSES_FWD == 6
+    assert ms == pytest.approx(12 * 2 * 64 * pairs / 989e12 * 1e3)
+    assert 0.104 < ms < 0.105
     nbytes = 4 * 8 * 16 * 1024 * 64 * 4 + 8 * 16 * 1024 * 4
     assert cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 1e11, 989e12) == (
         pytest.approx(nbytes / 1e11 * 1e3), "bytes")
@@ -470,12 +469,12 @@ def _flash_case(card, b, h, sq, sk, d, dtype, seed):
     return tuple(torch.randn(b, h, s, d, generator=g).to(card, dtype) for s in (sq, sk, sk))
 
 
-# bf16 and float16 run on the tensor-core kernel (csrc/flash_fwd_sm90.cu),
-# float32 on the FMA kernel (csrc/flash_fwd.cu). Head dims 8 to 64 pad to 64
-# columns in the tensor-core kernel's shared memory (to 32 or 64 in the FMA
-# kernel's), 128 fills its own; d = 24 has 48-byte rows, which TMA
-# addresses, and d = 20 has 40-byte rows, which it cannot, so those stage
-# through plain loads. Sq, Sk ragged against the tiles, Sq > Sk (empty
+# Every dtype runs on the tensor-core kernel (csrc/flash_fwd_sm90.cu; float32
+# through its split planes, six passes a product). Head dims 8 to 64 pad to
+# 64 columns in its shared memory, 128 fills its own (float32: a block of 64
+# rows and 32-key tiles); d = 24 has 48-byte rows, which TMA addresses, and
+# d = 20 has 40-byte rows, which it cannot, so bf16 and float16 stage those
+# through plain loads (float32's planes are padded to whole 16-byte rows). Sq, Sk ragged against the tiles, Sq > Sk (empty
 # rows), Sq = 1 (one query), Sk < Sq without causal, and Sk = 4096 with 300
 # queries, which wraps the key ring many times.
 @pytest.mark.cuda
@@ -523,6 +522,13 @@ def test_flash_kernel_refusals_on_card(card):
         torch.testing.assert_close(g, wt, rtol=1e-4, atol=1e-4)
     with torch.no_grad():
         assert torch.equal(tk.flash_attention(qg, k, v), tk.flash_attention(q, k, v))
+    # no key: NaN rows and a -inf lse, as the plain version gives, and no launch
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd = q.to(dt), k[:, :, :0].to(dt)
+        before = tk.launches["flash_attention"]
+        out0, lse0 = tk.flash_attention(qd, kd, kd, return_lse=True)
+        assert tk.launches["flash_attention"] == before
+        assert bool(torch.isnan(out0).all()) and bool(torch.isneginf(lse0).all())
     dmb = torch.zeros(lse.shape, device=card)
     with pytest.raises(ValueError, match="float32 lse and dmb"):
         tk.flash_bwd_dq(q, k, v, q, lse, dmb.double())
@@ -608,8 +614,7 @@ def test_smoke_flash_bwd_bounds_at_the_training_shape():
     # (8, 16, 1024, 64) bf16 causal on an H100 SXM: 67,174,400 live pairs;
     # dK/dV takes 16·D FLOPs per pair on the tensor cores (68.8 GFLOP,
     # 0.070 ms) against ~102 MB (0.030 ms), dQ 10·D (43.0 GFLOP, 0.043 ms)
-    # against ~85 MB (0.025 ms); the fp32-FMA floors are 8·D and 6·D per
-    # pair at 67 TFLOP/s
+    # against ~85 MB (0.025 ms)
     cs = _smoke_module()
     pairs = 8 * 16 * 1024 * 1025 // 2
     assert pairs == 67_174_400
@@ -623,8 +628,6 @@ def test_smoke_flash_bwd_bounds_at_the_training_shape():
     (b_dkv, _), (b_dq, _) = cs.flash_bwd_bounds(8, 16, 1024, 1024, 64, True, 1e9, 989e12)
     assert b_dkv == pytest.approx((6 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
     assert b_dq == pytest.approx((5 * n + 2 * 8 * 16 * 1024 * 4) / 1e9 * 1e3)
-    f_dkv, f_dq = cs.flash_bwd_fma_floors(8, 16, 1024, 1024, 64, True, 67e12)
-    assert f_dkv == pytest.approx(0.513, abs=1e-3) and f_dq == pytest.approx(0.385, abs=1e-3)
 
 
 def test_smoke_flash_bounds_count_two_f16_passes_a_split_product():
@@ -666,9 +669,8 @@ def test_smoke_bf16_training_rules():
     assert cs.bf16_grad_tol(8) == pytest.approx(2 * 2 ** -8 * (24 * 8) ** 0.5)
 
 
-# dK/dV in every dtype and dQ in bf16 and float32 run on the tensor-core
-# kernels (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu), float16
-# dQ on the FMA kernel (csrc/flash_bwd.cu).
+# dK/dV and dQ run on the tensor-core kernels in every dtype
+# (csrc/flash_bwd_dkv_sm90.cu, csrc/flash_bwd_dq_sm90.cu).
 # Head dims as in the forward's test (d = 20 stages through plain loads);
 # lengths ragged against the tiles; Sq > Sk (empty rows: with 300 vs 100
 # whole query tiles are skipped, and their NaN dmb reaches dK); Sq < Sk;
@@ -706,9 +708,9 @@ def test_flash_bwd_kernels_match_plain_on_card(card, d, dtype, sq, sk, causal):
 
 @pytest.mark.cuda
 def test_flash_routes_by_dtype_on_card(card):
-    # bf16 reaches the tensor-core kernels and nothing else; float16 the
-    # tensor-core forward and dK/dV and the FMA dQ; float32 the FMA forward
-    # and the tensor-core backward after its split pass
+    # every dtype reaches the tensor-core kernels and nothing else; float32
+    # after its split passes (the forward's one, and one each for the two
+    # backward wrappers)
     from torch.profiler import ProfilerActivity, profile
 
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
@@ -719,15 +721,17 @@ def test_flash_routes_by_dtype_on_card(card):
             tk.flash_bwd_dkv(q, k, v, q, lse, dmb, causal=True)
             tk.flash_bwd_dq(q, k, v, q, lse, dmb, causal=True)
             torch.cuda.synchronize()
-        names = " ".join(e.name for e in prof.events())
-        fwd90 = dtype != torch.float32
-        assert ("flash_fwd_sm90_kernel" in names) == fwd90, names
-        assert ("flash_fwd_kernel" in names) == (not fwd90), names
-        assert "flash_bwd_dkv_sm90_kernel" in names and "flash_bwd_dkv_kernel" not in names
-        dq90 = dtype != torch.float16
-        assert ("flash_bwd_dq_sm90_kernel" in names) == dq90, names
-        assert ("flash_bwd_dq_kernel" in names) == (not dq90), names
-        assert ("split_planes_kernel" in names) == (dtype == torch.float32), names
+        names = [e.name for e in prof.events()]
+        per = sum("flash_fwd_sm90_kernel" in n for n in names)  # events per launch
+        assert per >= 1, names
+        for kernel in ("flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"):
+            assert sum(kernel in n for n in names) == per, (kernel, names)
+        flash = [n for n in names if "flash_" in n]
+        assert all("_sm90_kernel" in n for n in flash), flash
+        # one split launch per float32 input: the forward's q, k, v, and q,
+        # k, v, dout for each backward wrapper
+        splits = sum("split_planes_kernel" in n for n in names)
+        assert splits == (3 + 4 + 4) * per * (dtype == torch.float32), (dtype, names)
 
 
 @pytest.mark.cuda
@@ -839,6 +843,61 @@ def test_flash_bwd_dq_sm90_matches_plain_on_card(card, d, sq, sk, causal):
     assert torch.equal(torch.isnan(dq).any(dim=-1), want_nan.expand(dq.shape[:3]))
 
 
+# The float16 dQ (csrc/flash_bwd_dq_sm90.cu, float16 instantiation: dS scaled
+# by a running power-of-two exponent per query row) at chip_smoke.py phase
+# 4's stress inputs, (1, 16, 1024, 64) causal with a nonzero lse cotangent:
+# gradients of σ 2^-14, whose dS lies in float16's subnormals unscaled, and v
+# and dO of σ 128, whose dS passes float16's 65,504 while dQ stays inside it;
+# within check_flash_bwd of the plain version and bitwise repeatable.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [(1.0, 1.0, 2.0 ** -14), (1.0, 128.0, 128.0)])
+def test_flash_bwd_dq_f16_small_grad_and_large_ds_on_card(card, sigma):
+    cs = _smoke_module()
+    s_qk, s_v, s_do = sigma
+    g = torch.Generator().manual_seed(21)
+    q, k = ((torch.randn(1, 16, 1024, 64, generator=g) * s_qk).to(card, torch.float16)
+            for _ in range(2))
+    v = (torch.randn(1, 16, 1024, 64, generator=g) * s_v).to(card, torch.float16)
+    out, lse = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    dout = (torch.randn(q.shape, generator=g) * s_do).to(card, torch.float16)
+    dmb = tk._dmb(out, dout, (torch.randn(lse.shape, generator=g) * s_do).to(card))
+    before = tk.launches["flash_bwd_dq"]
+    dq = tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=True)
+    assert tk.launches["flash_bwd_dq"] == before + 1
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=True)
+    cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=2.0 ** -10,
+                       got=(dq, dk, dv))
+    assert torch.equal(tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=True).view(torch.int16),
+                       dq.view(torch.int16))
+    assert bool(torch.isfinite(dq).all())
+    ds = tk._bwd_dense(q, k, v, dout, lse, dmb, 1.0 / 8, True)[4]
+    if s_v > 1.0:
+        assert float(ds.abs().max()) > torch.finfo(torch.float16).max
+    else:  # nearly every visible dS lies among float16's subnormals
+        vis = torch.ones(1024, 1024, dtype=torch.bool, device=card).tril()
+        below = ds[..., vis].abs() < torch.finfo(torch.float16).tiny
+        assert float(below.float().mean()) > 0.99
+
+
+# The float32 forward (csrc/flash_fwd_sm90.cu, float32 instantiation, six
+# passes a product) on rows that see one key each, whose lse is that one
+# score: 16,384 rows at head dim 16, where five passes are refused, and
+# 1,024 at head dim 64, where four are (tests/test_torch_sm90_precision.py);
+# within check_flash and bitwise repeatable, one launch a call.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,seed", [(1024, 16, 1), (64, 64, 0)])
+def test_flash_f32_forward_single_key_rows_on_card(card, b, d, seed):
+    cs = _smoke_module()
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, 16, 1, d, generator=g).to(card) for _ in range(3))
+    before = tk.launches["flash_attention"]
+    got = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert tk.launches["flash_attention"] == before + 1
+    cs.check_flash(torch, tk, q, k, v, causal=True, got=got)
+    again = tk.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
 def _on_stream_cases(dev):
     """Per wrapper: a function of its first input, that input's values, and
     the rest of its inputs on ``dev``."""
@@ -914,7 +973,7 @@ def test_flash_refused_launch_raises_on_card(card):
     before = dict(tk.launches)
     with pytest.raises(RuntimeError, match="flash_attention launch failed: CUDA error"):
         tk._launch("flash_attention", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                   q.data_ptr(), lse.data_ptr(), 1, 8, 8, 136, 2, 0.1, 1)
+                   q.data_ptr(), lse.data_ptr(), None, 1, 8, 8, 136, 2, 0.1, 1)
     with pytest.raises(RuntimeError, match="flash_bwd_dkv launch failed: CUDA error"):
         tk._launch("flash_bwd_dkv", q.get_device(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
                    q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), None,

@@ -16,23 +16,26 @@ kernels run in interpret mode as heat_tpu's own tests run them.
 The same checks refuse a single bf16 pass of P or dS, which shows that
 they guard the rule.
 
-The float32 backward kernels (the same two files, float32 instantiations)
+The float32 kernels (the same three files, float32 instantiations)
 multiply two float32 operands: both split into their three bf16 terms, and
-a product takes the ``chip_smoke.F32_PASSES_BWD`` largest cross terms, six
-(the pairs i + j <= 2 of the nine), summed smallest first: the fewest that
-``check_flash_bwd`` takes at ``out_step = 0`` in every case below, the
-training path's length and a single query against 200 keys included. Five
+a product takes the largest cross terms, six (the pairs i + j <= 2 of the
+nine), summed smallest first. Six are the fewest that hold every case below
+(``chip_smoke.F32_PASSES_BWD``, ``F32_PASSES_FWD``). In the backward five
 are refused on the card tests' own inputs of a single query against 200
 keys at head dim 16, where the card refused three (and this emulation
-three to five); at head dims 64 and 128 three would pass. A float32 forward (not built yet; ``chip_smoke.flash_bound_f32``
-counts its passes) holds ``check_flash`` with four, and three are refused.
+three to five); at head dims 64 and 128 three would pass. In the forward,
+whose split pass scales q before the product, every input of the card
+tests takes three, but a causal row that sees one key has that one score
+for its lse, and the terms of 2^-16·|q||k| that four and five passes drop
+reach ``check_flash``'s 1e-5·(1 + |lse|): five are refused on 16,384 such
+rows, four on 1,024.
 
-The float16 kernels (the forward and dK/dV, float16 instantiations) multiply
-float16 operands in one pass, as bf16's; the float32 operand of a product
-(P, Pᵀ, dSᵀ) is scaled by a power of two into float16's range and split
-into ``chip_smoke.F16_PASSES_SPLIT`` float16 terms: P by 2^15, dSᵀ by a
-running exponent per key row. One term fewer is refused, and so is the
-split of dSᵀ without its scale at gradients of σ 2^-14.
+The float16 kernels (float16 instantiations of all three) multiply float16
+operands in one pass, as bf16's; the float32 operand of a product (P, Pᵀ,
+dSᵀ, dS) is scaled by a power of two into float16's range and split into
+``chip_smoke.F16_PASSES_SPLIT`` float16 terms: P by 2^15, dSᵀ by a running
+exponent per key row, dS by one per query row. One term fewer is refused,
+and so is the split of dSᵀ or dS without its scale at gradients of σ 2^-14.
 
 The bound of ``kmeans_step`` (``chip_smoke.kmeans_bound``) counts the
 float32 scores x·c the same way: three passes a product are the fewest that
@@ -69,7 +72,7 @@ def _smoke():
 
 
 # chip_smoke.py: the checks, and the pass counts (F32_PASSES_BWD, the float32
-# backward kernels'; F32_PASSES_FWD, a float32 forward's) that they settle
+# backward kernels'; F32_PASSES_FWD, the float32 forward's) that they settle
 CS = _smoke()
 
 
@@ -113,19 +116,27 @@ def emulate_fwd(q, k, v, causal, passes=3, split_b=False):
     running max and sum in the log2 domain, masked scores at -1e30 with
     their probabilities zeroed, the output rescaled and P·V added in
     ``passes`` bf16 passes of P; out in bf16, lse in float32. With
-    ``split_b`` (float32 inputs) S and P·V both take ``passes`` passes of
-    two split float32 operands, the rule that bounds a float32 forward."""
+    ``split_b`` (float32 inputs; the float32 instantiation of the same
+    kernel) q is scaled before the product, as the split pass writes the
+    planes of q·scale rounded to float32, and S = (q·scale) Kᵀ and P·V each
+    take ``passes`` passes of two split float32 operands; the scores are
+    then multiplied by log2(e) alone, and at head dims past 64 the keys come
+    in tiles of 32, as the kernel's narrow block takes them."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    scale_log2 = np.float32(1.0 / math.sqrt(D) * LOG2E)
+    scale = np.float32(1.0 / math.sqrt(D))
+    scale_log2 = np.float32(LOG2E) if split_b else np.float32(scale * LOG2E)
     qf, kf, vf = q.float(), k.float(), v.float()
+    if split_b:
+        qf = qf * torch.tensor(scale)
     rows = torch.arange(Sq)[:, None]
     m = torch.full((B, H, Sq, 1), NEG_BIG)
     l = torch.zeros((B, H, Sq, 1))
     o = torch.zeros((B, H, Sq, D))
-    for k0 in range(0, Sk, BK):
-        cols = torch.arange(k0, min(k0 + BK, Sk))[None, :]
-        kt = kf[:, :, k0:k0 + BK].transpose(-1, -2)
+    bk = 32 if split_b and D > 64 else BK
+    for k0 in range(0, Sk, bk):
+        cols = torch.arange(k0, min(k0 + bk, Sk))[None, :]
+        kt = kf[:, :, k0:k0 + bk].transpose(-1, -2)
         s2 = (_split_product(qf, kt, passes, split_b=True) if split_b else qf @ kt) * float(
             scale_log2)
         ok = (cols <= rows + (Sk - Sq)) if causal else torch.ones_like(cols <= rows)
@@ -134,7 +145,7 @@ def emulate_fwd(q, k, v, causal, passes=3, split_b=False):
         alpha = torch.exp2(m - m_new)
         p = torch.where(ok, torch.exp2(s2 - m_new), torch.zeros(()))
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + _split_product(p, vf[:, :, k0:k0 + BK], passes, split_b)
+        o = o * alpha + _split_product(p, vf[:, :, k0:k0 + bk], passes, split_b)
         m = m_new
     empty = l == 0
     out = torch.where(empty, torch.full((), float("nan")), o / torch.where(empty, 1.0, l))
@@ -264,16 +275,76 @@ def test_f32_forward_four_passes_pass_check_flash(b, h, sq, sk, d, causal):
     assert cs.check_flash(torch, tk, q, k, v, causal, got=got)[1] <= 1.0
 
 
+def _card_inputs_sweep():
+    """Every float32 input of ``tests/test_torch_kernels.py``'s
+    ``test_flash_kernel_matches_plain_on_card`` (head dim, Sq, Sk, causal)."""
+    return [(d, sq, sk, c) for d in (8, 16, 20, 24, 64, 128) for sq, sk, c in (
+        (77, 130, True), (77, 130, False), (150, 70, True), (1, 200, True), (64, 64, True),
+        (100, 37, False), (300, 4096, True), (300, 4096, False))]
+
+
+@pytest.mark.parametrize("d,sq,sk,causal", _card_inputs_sweep())
+def test_f32_forward_passes_hold_the_card_tests_inputs(d, sq, sk, causal):
+    # the float32 forward's F32_PASSES_FWD on the card test's own inputs
+    q, k, v = _card_inputs(sq, sk, d, seed=d + sq)
+    got = emulate_fwd(q, k, v, causal, passes=CS.F32_PASSES_FWD, split_b=True)
+    assert CS.check_flash(torch, tk, q, k, v, causal, got=got)[1] <= 1.0
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal", [
+    (1, 4, 300, 200, 64, True), (1, 16, 1, 200, 64, True), (1, 4, 300, 4096, 64, True),
+    (1, 4, 300, 4096, 64, False), (1, 2, 256, 256, 128, True)])
+def test_f32_forward_passes_hold_phase_4_shapes(b, h, sq, sk, d, causal):
+    # chip_smoke.py phase 4's float32 forward cases (empty rows, one query
+    # against 200 keys, 4096 keys causal and not, head dim 128 at fewer
+    # rows), on draws of the same kind
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(b, h, s, d, generator=g) for s in (sq, sk, sk))
+    got = emulate_fwd(q, k, v, causal, passes=CS.F32_PASSES_FWD, split_b=True)
+    assert CS.check_flash(torch, tk, q, k, v, causal, got=got)[1] <= 1.0
+
+
+def _single_key_rows(b, d, seed):
+    """``b`` batches of 16 heads of one query against one key: each row's lse
+    is its one score."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, 16, 1, d, generator=g) for _ in range(3))
+
+
 def test_check_flash_refuses_one_f32_forward_pass_fewer():
-    # the card tests' causal 150 x 70 case at head dim 128: four passes
-    # hold, three are refused
-    cs = _smoke()
-    q, k, v = _card_inputs(150, 70, 128, seed=128 + 150 + 1)
+    # 16,384 rows that see one key at head dim 16: six passes hold, five
+    # are refused (their lse, one score each, misses by a term q₂·k₀ of
+    # 2^-16·|q||k|); four are refused already on 1,024 such rows at head dim
+    # 64 (the model's), where five still hold
+    q, k, v = _single_key_rows(1024, 16, seed=1)
+    n = CS.F32_PASSES_FWD
+    assert CS.check_flash(torch, tk, q, k, v, True,
+                          got=emulate_fwd(q, k, v, True, passes=n, split_b=True))[1] <= 1.0
+    with pytest.raises(AssertionError, match="lse values beyond their tolerance"):
+        CS.check_flash(torch, tk, q, k, v, True,
+                       got=emulate_fwd(q, k, v, True, passes=n - 1, split_b=True))
+    q, k, v = _single_key_rows(64, 64, seed=0)
+    assert CS.check_flash(torch, tk, q, k, v, True,
+                          got=emulate_fwd(q, k, v, True, passes=n - 1, split_b=True))[1] <= 1.0
+    with pytest.raises(AssertionError, match="lse values beyond their tolerance"):
+        CS.check_flash(torch, tk, q, k, v, True,
+                       got=emulate_fwd(q, k, v, True, passes=n - 2, split_b=True))
+
+
+def test_sm90_f32_forward_arithmetic_matches_pallas():
+    # heat_tpu's Pallas forward at float32 (interpret mode, HIGHEST) and the
+    # emulation both hold check_flash, and agree within 1e-5 of max|v|
+    qn, kn, vn, _, _ = _case(1, 2, 150, 130, 32, seed=11)
+    jo, jl = pk.flash_attention(*(jnp.asarray(a) for a in (qn, kn, vn)), causal=True,
+                                return_lse=True)
+    jo, jl = (torch.from_numpy(np.array(t)) for t in (jo, jl))
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
     got = emulate_fwd(q, k, v, True, passes=CS.F32_PASSES_FWD, split_b=True)
-    assert cs.check_flash(torch, tk, q, k, v, True, got=got)[1] <= 1.0
-    with pytest.raises(AssertionError, match="beyond their tolerance"):
-        cs.check_flash(torch, tk, q, k, v, True,
-                       got=emulate_fwd(q, k, v, True, passes=CS.F32_PASSES_FWD - 1, split_b=True))
+    for g in (got, (jo, jl)):
+        assert CS.check_flash(torch, tk, q, k, v, True, got=g)[1] <= 1.0
+    nan = torch.isnan(jo)
+    assert torch.equal(torch.isnan(got[0]), nan) and bool(nan.any())
+    assert float((got[0] - jo).abs()[~nan].max()) <= 1e-5 * float(v.abs().max())
 
 
 def test_check_flash_refuses_one_bf16_pass_of_p():
@@ -617,6 +688,42 @@ def emulate_dkv_f16(q, k, v, dout, lse, dmb, causal, passes=2, scaled=True):
     return dk.half(), dv.half()
 
 
+def emulate_dq_f16(q, k, v, dout, lse, dmb, causal, passes=2, scaled=True):
+    """The float16 dQ kernel's arithmetic: :func:`emulate_dq`'s P and dS from
+    one-pass S and dP, then dQ by 64-key tiles in the kernel's order: per
+    query row a running exponent E of its largest |dS| so far, NaN aside
+    (never below -110), the float32 accumulator rescaled by 2^(E_old - E)
+    where E grows, the tile's row times 2^(14 - E) (below 2^15) split into
+    ``passes`` float16 terms against K; dQ = scale · 2^(E - 14) · the
+    accumulator. ``scaled=False`` splits dS as it is."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of = q.float(), k.float(), v.float(), dout.float()
+    s = qf @ kf.transpose(-1, -2)
+    dp = of @ vf.transpose(-1, -2)
+    ls = (lse * np.float32(LOG2E))[..., None]
+    ok = torch.isfinite(ls)
+    if causal:
+        ok = ok & (torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None] + (Sk - Sq))
+    c = float(np.float32(scale * LOG2E))
+    arg = (s.double() * c - ls.double()).float()
+    p = torch.where(ok, torch.exp2(arg), torch.zeros(()))
+    ds = p * (dp + dmb[..., None])
+    if not scaled:
+        return (_f16_product(ds, kf, passes) * scale).half()
+    e = torch.full(ds.shape[:-1] + (1,), E_MIN, dtype=torch.int32)
+    acc = torch.zeros(ds.shape[:-1] + (D,))
+    for k0 in range(0, Sk, BK):
+        blk = ds[..., k0:k0 + BK]
+        mx = blk.abs().nan_to_num(nan=0.0, posinf=float("inf")).amax(-1, keepdim=True)
+        e_new = torch.maximum(e, exponent(mx))
+        acc = acc * pow2(e - e_new)
+        e = e_new
+        acc = acc + _f16_product(blk * pow2(14 - e), kf[..., k0:k0 + BK, :], passes)
+    return (acc * (pow2(e - 14) * np.float32(scale))).half()
+
+
 def _f16_case(b, h, sq, sk, d, causal, seed, sigma=(1.0, 1.0, 1.0)):
     """Float16 inputs from :func:`_case`, q and k times sigma[0], v times
     sigma[1], dout and the lse cotangent times sigma[2]; the plain forward's
@@ -716,6 +823,101 @@ def test_check_flash_bwd_refuses_the_unscaled_ds_split():
     assert all(r <= 1.0 for _, r in _f16_dkv_check(SMALL_GRAD, 9).values())
     with pytest.raises(AssertionError, match="dk: .* beyond their tolerance"):
         _f16_dkv_check(SMALL_GRAD, 9, scaled=False)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,sigma", F16_BWD_CASES)
+def test_sm90_f16_dq_arithmetic_passes_check_flash_bwd(b, h, sq, sk, d, causal, sigma):
+    cs = _smoke()
+    _, (q, k, v, dout, lse, dmb) = _f16_case(b, h, sq, sk, d, causal, seed=sq + 12,
+                                             sigma=sigma)
+    dq = emulate_dq_f16(q, k, v, dout, lse, dmb, causal, passes=cs.F16_PASSES_SPLIT)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=F16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values()), res
+    if sigma is LARGE_DS:  # dS passes float16's range; dQ stays inside it
+        ds = tk._bwd_dense(q, k, v, dout, lse, dmb, 1.0 / math.sqrt(d), causal)[4]
+        assert float(ds.abs().max()) > torch.finfo(torch.float16).max
+        assert bool(torch.isfinite(dq).all())
+    if causal and sq > sk:  # the empty rows' NaN dmb reaches their dQ, and only theirs
+        assert bool(torch.isnan(dq[:, :, :sq - sk]).all())
+        assert not bool(torch.isnan(dq[:, :, sq - sk:]).any())
+
+
+def _card_f16_case(sq, sk, d, causal):
+    """The float16 inputs of ``tests/test_torch_kernels.py``'s
+    ``test_flash_bwd_kernels_match_plain_on_card`` (B 2, H 3), made on the
+    CPU as that test makes them; lse and dmb from the plain forward."""
+    g = torch.Generator().manual_seed(d + sq + 1)
+    q, k, v = (torch.randn(2, 3, s, d, generator=g).half() for s in (sq, sk, sk))
+    out, lse = tk.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    g = torch.Generator().manual_seed(sq + sk)
+    dout = torch.randn(q.shape, generator=g).half()
+    dmb = tk._dmb(out, dout, torch.randn(lse.shape, generator=g))
+    return q, k, v, dout, lse, dmb
+
+
+@pytest.mark.parametrize("d", [8, 16, 20, 24, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (77, 130, True), (77, 130, False), (150, 70, True), (300, 100, True), (1, 200, True),
+    (64, 64, True), (100, 37, False), (300, 4096, True), (300, 4096, False)])
+def test_sm90_f16_dq_holds_the_card_tests_inputs(d, sq, sk, causal):
+    # the float16 dQ kernel's arithmetic on the card test's own inputs
+    cs = _smoke()
+    q, k, v, dout, lse, dmb = _card_f16_case(sq, sk, d, causal)
+    dq = emulate_dq_f16(q, k, v, dout, lse, dmb, causal, passes=cs.F16_PASSES_SPLIT)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=F16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values()), res
+
+
+@pytest.mark.parametrize("sigma", [SMALL_GRAD, LARGE_DS])
+def test_sm90_f16_dq_holds_phase_4_stress_inputs(sigma):
+    # chip_smoke.py phase 4's float16 small_grad and large_ds cases, at their
+    # shape (1, 16, 1024, 64) causal with a nonzero lse cotangent
+    cs = _smoke()
+    g = torch.Generator().manual_seed(14)
+    s_qk, s_v, s_do = sigma
+    q, k = ((torch.randn(1, 16, 1024, 64, generator=g) * s_qk).half() for _ in range(2))
+    v = (torch.randn(1, 16, 1024, 64, generator=g) * s_v).half()
+    out, lse = tk.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    dout = (torch.randn(q.shape, generator=g) * s_do).half()
+    dmb = tk._dmb(out, dout, torch.randn(lse.shape, generator=g) * s_do)
+    dq = emulate_dq_f16(q, k, v, dout, lse, dmb, True, passes=cs.F16_PASSES_SPLIT)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=True)
+    res = cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=F16_STEP,
+                             got=(dq, dk, dv))
+    assert all(r <= 1.0 for _, r in res.values()), res
+    if sigma is LARGE_DS:
+        ds = tk._bwd_dense(q, k, v, dout, lse, dmb, 1.0 / 8, True)[4]
+        assert float(ds.abs().nan_to_num(0.0).max()) > torch.finfo(torch.float16).max
+
+
+def _f16_dq_check(sigma, seed, **kw):
+    """check_flash_bwd of :func:`emulate_dq_f16` (options ``kw``) on the
+    causal 200 x 200 float16 case of inputs ``sigma``."""
+    cs = _smoke()
+    _, (q, k, v, dout, lse, dmb) = _f16_case(1, 2, 200, 200, 64, True, seed=seed, sigma=sigma)
+    dk, dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=True)
+    return cs.check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, True, out_step=F16_STEP,
+                              got=(emulate_dq_f16(q, k, v, dout, lse, dmb, True, **kw), dk, dv))
+
+
+def test_check_flash_bwd_refuses_one_f16_dq_term_fewer():
+    # one float16 term of the scaled dS, at unit-size inputs
+    cs = _smoke()
+    assert all(r <= 1.0 for _, r in _f16_dq_check((1.0, 1.0, 1.0), 9).values())
+    with pytest.raises(AssertionError, match="dq: .* beyond their tolerance"):
+        _f16_dq_check((1.0, 1.0, 1.0), 9, passes=cs.F16_PASSES_SPLIT - 1)
+
+
+def test_check_flash_bwd_refuses_the_unscaled_dq_ds_split():
+    # two float16 terms of dS as it is, at gradients of σ 2^-14: dS lies in
+    # float16's subnormals, where two terms keep few of its bits
+    assert all(r <= 1.0 for _, r in _f16_dq_check(SMALL_GRAD, 9).values())
+    with pytest.raises(AssertionError, match="dq: .* beyond their tolerance"):
+        _f16_dq_check(SMALL_GRAD, 9, scaled=False)
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal", [(1, 2, 77, 130, 64, True),
