@@ -14,12 +14,15 @@ Phases, one JSON line each:
 3. probe: one launch of the probe kernel, held bitwise against ``x + 1``;
    then where the host time of a wrapper call goes (``host_breakdown``: the
    probe and the flash forward at the prefill shape, whole and step by
-   step, µs per call over 1,000 calls).
+   step, and the KMeans kernels' wrappers with their plans, µs per call over
+   1,000 calls).
 4. kernels: each CUDA kernel against its plain PyTorch version at the main
    paths' shapes, with its time (CUDA events around 10 back-to-back calls,
    median of 10 such samples), the plain
    version's time, the bound the card allows, and one PyTorch call that
-   computes the same function where there is one.
+   computes the same function where there is one; for ``cdist_tile`` and
+   ``kmeans_step`` also the TB/s they reach over the bytes their bound
+   counts and their share of that bound.
 5. KMeans path: the README quick start at full size — 2^23 x 64 float32
    points, ``KMeans(n_clusters=8, init="kmeans++", max_iter=20, tol=-1)``,
    ``predict``, and the 40,000 x 18 ``cdist`` — with the launch counts of
@@ -70,6 +73,7 @@ exits non-zero and prints no last line. It exits non-zero at once where no
 CUDA card is visible.
 """
 
+import ctypes
 import json
 import math
 import re
@@ -194,7 +198,10 @@ def host_breakdown(torch, tk, lib, dev, gen):
     (``kernels._launch``: library, raw stream, ctypes call, count), and for
     the flash forward the launch with and without ``autograd.Function.apply``
     around it; beside the probe, ``torch.add`` whole, its library yardstick.
-    Then the steps that the launch path before this design paid
+    Then ``kmeans_step`` and ``cdist_tile`` at a small shape: the wrapper
+    whole, its plan from the wrapper's cache and the C planner's own call,
+    which every call paid before the cache. Then the steps that the launch
+    path before this design paid
     on every call, alone: the stream lookup as a ``Stream`` object (against
     the raw handle), a ``torch.cuda.device`` guard entered and left, the
     library lock taken and released (against the lock-free lookup)."""
@@ -251,6 +258,22 @@ def host_breakdown(torch, tk, lib, dev, gen):
                 torch, lambda: tk._flash_launch(q, k, v, scale, True, idx)),
             "autograd_apply_with_launch": host_us(
                 torch, lambda: tk._FlashAttention.apply(q, k, v, scale, True))}
+    # the KMeans kernels at a small shape (the host's cost does not follow
+    # it): the wrapper whole, its plan from the wrapper's cache, and the C
+    # planner's call that the wrapper made on every call before the cache
+    xk = torch.rand(4096, 64, device=dev, generator=gen)
+    ck = xk[:8].clone()
+    outs = [ctypes.c_int() for _ in range(3)]
+    res["kmeans_step_4096x64_k8"] = {
+        "wrapper": host_us(torch, lambda: tk.kmeans_step(xk, ck)),
+        "plan_cached": host_us(torch, lambda: tk._kmeans_plan(4096, 64, 8, 0, idx)),
+        "plan_call": host_us(torch, lambda: lib.heat_kmeans_step_plan(
+            4096, 64, 8, 0, *(ctypes.byref(o) for o in outs), idx))}
+    res["cdist_tile_4096x64_vs_8"] = {
+        "wrapper": host_us(torch, lambda: tk.cdist_tile(xk, ck)),
+        "plan_cached": host_us(torch, lambda: tk._cdist_plan(4096, 8, 64, 0, 0, idx)),
+        "plan_call": host_us(torch, lambda: lib.heat_cdist_tile_plan(
+            4096, 8, 64, 0, 0, *(ctypes.byref(o) for o in outs[:2]), idx))}
     res["former_launch_path_steps"] = {
         "stream_object": host_us(torch, lambda: torch.cuda.current_stream(dev).cuda_stream),
         "raw_stream": host_us(torch, lambda: torch._C._cuda_getCurrentRawStream(idx)),
@@ -265,22 +288,38 @@ def bound(nbytes, ops, bw, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cdist_bytes(m, n, d, in_bytes, out_bytes):
+    """Each input read once, the output written once."""
+    return (m + n) * d * in_bytes + m * n * out_bytes
+
+
 def cdist_bound(m, n, d, in_bytes, out_bytes, bw, f32):
-    # each input read once, the output written once; 2mnd for the products,
-    # 2(m+n)d for the norms, 5mn for the epilogue (add, fma, clamp, sqrt, cast)
-    return bound((m + n) * d * in_bytes + m * n * out_bytes,
+    # 2mnd for the products, 2(m+n)d for the norms, 5mn for the epilogue
+    # (add, fma, clamp, sqrt, cast)
+    return bound(cdist_bytes(m, n, d, in_bytes, out_bytes),
                  2 * m * n * d + 2 * (m + n) * d + 5 * m * n, bw, f32)
 
 
+def kmeans_bytes(n, d, k):
+    """A float32 Lloyd partial's bytes: x read once, the centroids once, the
+    sums, counts and inertia written once."""
+    return n * d * 4 + k * d * 4 + (k * d + k + 1) * 4
+
+
+def reach(nbytes, ms, bound_ms):
+    """What a kernel reaches: its achieved TB/s over the bytes its bound
+    counts, and its share of the bound (bound_ms / ms)."""
+    return {"achieved_TB_per_s": nbytes / (ms * 1e-3) / 1e12, "bound_over_ms": bound_ms / ms}
+
+
 def kmeans_bound(n, d, k, bw, f32, tc_rate):
-    """The least time of a float32 Lloyd partial: x read once, the centroids
-    once, the sums, counts and inertia written once; the n·k products x·c of
-    two float32 operands on the bf16 tensor cores, :data:`F32_PASSES_KMEANS`
-    split-bf16 passes of 2·d FLOPs each (:func:`flash_bound_f32`'s rule),
-    and per row the |x|², the k score updates and the fold into the sums,
-    3·d + 3·k operations, at the float32 rate."""
-    nbytes = n * d * 4 + k * d * 4 + (k * d + k + 1) * 4
-    t_bytes = nbytes / bw * 1e3
+    """The least time of a float32 Lloyd partial: :func:`kmeans_bytes`; the
+    n·k products x·c of two float32 operands on the bf16 tensor cores,
+    :data:`F32_PASSES_KMEANS` split-bf16 passes of 2·d FLOPs each
+    (:func:`flash_bound_f32`'s rule), and per row the |x|², the k score
+    updates and the fold into the sums, 3·d + 3·k operations, at the float32
+    rate."""
+    t_bytes = kmeans_bytes(n, d, k) / bw * 1e3
     t_ops = (F32_PASSES_KMEANS * 2 * n * k * d / tc_rate + (3 * n * d + 3 * n * k) / f32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1336,22 +1375,28 @@ def main():
         del got, again, want
         torch.cuda.empty_cache()
         b_l = kmeans_bound(n, d, k, bw, f32, bf16_tc)
-        km_large[name] = {"check": chk, "kernel": time_ms(torch, lambda: tk.kmeans_step(xl, cl)),
+        ms_l = time_ms(torch, lambda: tk.kmeans_step(xl, cl))
+        km_large[name] = {"check": chk, "kernel": ms_l,
                           "plain": time_ms(torch, lambda: tk.kmeans_step_plain(xl, cl)),
-                          "bound": b_l[0], "bound_by": b_l[1]}
+                          "bound": b_l[0], "bound_by": b_l[1],
+                          **reach(kmeans_bytes(n, d, k), ms_l, b_l[0])}
         del xl, cl, ml
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": smi, "checks": {
         "cdist_tile": cd_checks, "kmeans_step_2^23x64_k8_masked": km_check,
         **{f"kmeans_step_{name}_masked": r["check"] for name, r in km_large.items()}},
         "timings_ms": {
-            "cdist_tile_40000x40000x18": {"kernel": ms_40k, "plain": plain_40k,
-                                          "torch.cdist": lib_40k, "bound": b_40k[0]},
-            "cdist_tile_2^23x64_vs_8": {"kernel": ms_pp, "plain": plain_pp,
-                                        "torch.cdist": lib_pp, "bound": b_pp[0]},
-            "kmeans_step_2^23x64_k8": {"kernel": ms_km, "plain": plain_km, "bound": b_km[0]},
-            **{f"kmeans_step_{name}": {key: r[key] for key in ("kernel", "plain", "bound",
-                                                                "bound_by")}
+            "cdist_tile_40000x40000x18": {
+                "kernel": ms_40k, "plain": plain_40k, "torch.cdist": lib_40k, "bound": b_40k[0],
+                **reach(cdist_bytes(CDIST_N, CDIST_N, CDIST_D, 4, 4), ms_40k, b_40k[0])},
+            "cdist_tile_2^23x64_vs_8": {
+                "kernel": ms_pp, "plain": plain_pp, "torch.cdist": lib_pp, "bound": b_pp[0],
+                **reach(cdist_bytes(N_POINTS, K, N_FEATURES, 4, 4), ms_pp, b_pp[0])},
+            "kmeans_step_2^23x64_k8": {
+                "kernel": ms_km, "plain": plain_km, "bound": b_km[0],
+                **reach(kmeans_bytes(N_POINTS, N_FEATURES, K), ms_km, b_km[0])},
+            **{f"kmeans_step_{name}": {key: r[key] for key in (
+                "kernel", "plain", "bound", "bound_by", "achieved_TB_per_s", "bound_over_ms")}
                for name, r in km_large.items()}}})
     del c
     torch.cuda.empty_cache()

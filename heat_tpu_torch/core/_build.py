@@ -83,16 +83,18 @@ def _compile(so: Path, sources) -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     # every launching entry point ends in (int device, void* stream)
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.heat_cdist_tile.argtypes = [p, p, p, i64, i64, i64, i, i, i, i, p]
+    out = ctypes.POINTER(i)
+    lib.heat_cdist_tile.argtypes = [p, p, p, i64, i64, i64, i, i, i, i, i, i, p]
+    lib.heat_cdist_tile_plan.argtypes = [i64, i64, i64, i, i, out, out, i]
     lib.heat_kmeans_step.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, i, i, i, p]
-    lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
-                                          ctypes.POINTER(i), i]
+    lib.heat_kmeans_step_plan.argtypes = [i64, i, i, i, out, out, out, i]
     lib.heat_flash_attention.argtypes = [p, p, p, p, p, p, i64, i, i, i, i, f, i, i, p]
     lib.heat_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, i, i64, i, i, i, i, f, i, i,
                                        p]
     lib.heat_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i64, i, i, i, i, f, i, i, p]
     lib.heat_probe.argtypes = [p, p, i64, i, p]
-    for fn in (lib.heat_cdist_tile, lib.heat_kmeans_step, lib.heat_kmeans_step_plan,
+    for fn in (lib.heat_cdist_tile, lib.heat_cdist_tile_plan, lib.heat_kmeans_step,
+               lib.heat_kmeans_step_plan,
                lib.heat_flash_attention, lib.heat_flash_bwd_dkv, lib.heat_flash_bwd_dq,
                lib.heat_probe):
         fn.restype = i

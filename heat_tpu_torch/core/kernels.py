@@ -43,6 +43,7 @@ no kernel and counts nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -62,7 +63,6 @@ launches = {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "flash_bwd_
 _CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
 _KERNEL_INPUTS = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_GRID_Y = 65535
-_CDIST_TILE_N = 64  # output columns per block of the wide cdist tile (n > 8)
 _FLASH_TILE = 64    # the fewest query rows (keys for dK/dV) a flash kernel block takes
 _FLASH_MAX_D = 128
 _NEG_BIG = -1e30    # heat_tpu's masked score (pallas_kernels.py:55)
@@ -84,6 +84,38 @@ def _on_cpu(*ts) -> bool:
         if t is not None and not t.is_cpu:
             return False
     return True
+
+
+@functools.lru_cache(maxsize=256)
+def _cdist_plan(m: int, n: int, d: int, in_code: int, out_code: int,
+                index: int) -> Tuple[int, int]:
+    """(grid, tile rows) of :func:`cdist_tile` on card ``index``: tile rows
+    > 0 is the kernel for n <= 8 (two threads a row), 0 the register-blocked
+    one (``csrc/cdist_tile.cu``, ``heat_cdist_tile_plan``). Cached per shape,
+    dtypes and card, as :func:`_kmeans_plan`: a call of a known shape makes
+    no planning call."""
+    lib = _build.library()
+    grid, tile_rows = ctypes.c_int(), ctypes.c_int()
+    err = lib.heat_cdist_tile_plan(m, n, d, in_code, out_code, ctypes.byref(grid),
+                                   ctypes.byref(tile_rows), index)
+    _raise_on(err, lib, "cdist_tile planning")
+    return grid.value, tile_rows.value
+
+
+@functools.lru_cache(maxsize=256)
+def _kmeans_plan(n: int, d: int, k: int, code: int, index: int) -> Tuple[int, int, int]:
+    """(tile rows, grid, chunk) of :func:`kmeans_step` on card ``index``
+    (``csrc/kmeans_step.cu``, ``heat_kmeans_step_plan``); the planner
+    returns -1 where one row of d features does not fit half a block's
+    shared memory."""
+    lib = _build.library()
+    outs = [ctypes.c_int() for _ in range(3)]
+    err = lib.heat_kmeans_step_plan(n, d, k, code, *(ctypes.byref(o) for o in outs), index)
+    if err == -1:
+        raise ValueError(f"kmeans_step: one row of {d} features does not fit half the "
+                         "card's shared memory per block")
+    _raise_on(err, lib, "kmeans_step planning")
+    return tuple(o.value for o in outs)
 
 
 def _on_card(*ts) -> int:
@@ -172,13 +204,12 @@ def cdist_tile(x: torch.Tensor, y: torch.Tensor, sqrt: bool = True,
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("cdist_tile needs contiguous inputs")
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
-    if n > 8 and -(-n // _CDIST_TILE_N) > _MAX_GRID_Y:
-        raise ValueError(f"cdist_tile takes at most {_MAX_GRID_Y * _CDIST_TILE_N} columns, got {n}")
     res = x.new_empty((m, n), dtype=out)
     if m == 0 or n == 0:
         return res
+    grid, tile_rows = _cdist_plan(m, n, d, _CODES[in_dt], _CODES[out], index)
     _launch("cdist_tile", index, x.data_ptr(), y.data_ptr(), res.data_ptr(), m, n, d,
-            _CODES[in_dt], _CODES[out], int(bool(sqrt)))
+            _CODES[in_dt], _CODES[out], int(bool(sqrt)), grid, tile_rows)
     return res
 
 
@@ -241,24 +272,17 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
                          f"dtype, got {x.dtype} and {centroids.dtype}")
     if not all(t is None or t.is_contiguous() for t in (x, centroids, valid_mask)):
         raise ValueError("kmeans_step needs contiguous inputs")
-    lib = _build.library()
     n, d = x.shape
     k = centroids.shape[0]
-    tile_rows, grid, chunk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.heat_kmeans_step_plan(n, d, k, _CODES[x.dtype], ctypes.byref(tile_rows),
-                                    ctypes.byref(grid), ctypes.byref(chunk), index)
-    if err == -1:
-        raise ValueError(f"kmeans_step: one row of {d} features does not fit half the "
-                         "card's shared memory per block")
-    _raise_on(err, lib, "kmeans_step planning")
+    tile_rows, grid, chunk = _kmeans_plan(n, d, k, _CODES[x.dtype], index)
     width = k * d + k + 1
-    ws = x.new_empty(grid.value * width)
+    ws = x.new_empty(grid * width)
     out = x.new_empty(width)
     labels = x.new_empty(n, dtype=torch.int32) if return_labels else None
     _launch("kmeans_step", index, x.data_ptr(), centroids.data_ptr(),
             None if valid_mask is None else valid_mask.data_ptr(), ws.data_ptr(),
             out.data_ptr(), None if labels is None else labels.data_ptr(), n, d, k,
-            _CODES[x.dtype], grid.value, tile_rows.value, chunk.value)
+            _CODES[x.dtype], grid, tile_rows, chunk)
     res = (out[:k * d].view(k, d), out[k * d:k * d + k], out[k * d + k])
     return res + (labels,) if return_labels else res
 

@@ -207,44 +207,76 @@ def card():
     return torch.device("cuda")
 
 
-# n <= 8 takes the 256 x 8 tile, larger n the 64 x 64 one; n = 12 stores
-# 16-byte vectors, n = 77 scalars
+# n <= 8 takes the kernel with two threads a row (tiles of 128 rows, a ring
+# of two), larger n the 128 x 128 tiles (64 x 64 for float64); n = 8 and 9
+# sit at that boundary, n = 8 and 12 store vectors, n = 5, 9, 77 and 129
+# scalars, n = 129 is one column past a tile. m = 100 is less than one ring
+# stage, 129 one row past a tile, 257 one row past the ring, 300 further;
+# offset 1 takes x as a view one row in, which is not 16-byte aligned (d =
+# 18: 8-byte pieces for 4-byte types, 4 for 2-byte ones; d = 17: 4, 8 for
+# float64, and 2-byte pieces copied by plain loads).
+# Row 7 of x is NaN for floating inputs: its distances stay NaN.
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 12, 77])
+@pytest.mark.parametrize("m,d,offset", [(300, 18, 0), (100, 18, 0), (257, 18, 1),
+                                        (129, 17, 1)])
+@pytest.mark.parametrize("n", [5, 8, 9, 12, 77, 129])
 @pytest.mark.parametrize("in_dtype,out_dtype", [
     (torch.float32, None), (torch.float64, None), (torch.bfloat16, None),
     (torch.bfloat16, torch.float32), (torch.float16, None), (torch.float16, torch.float32),
     (torch.float32, torch.bfloat16), (torch.float32, torch.float16),
     (torch.bfloat16, torch.float16), (torch.float16, torch.bfloat16), (torch.int32, None)])
-def test_cdist_kernel_matches_plain_on_card(card, in_dtype, out_dtype, n):
-    x, y = _inputs(300, n, 18, np.float64, seed=2)
-    tx = torch.from_numpy(x * 4).to(card, in_dtype)
+def test_cdist_kernel_matches_plain_on_card(card, in_dtype, out_dtype, n, m, d, offset):
+    x, y = _inputs(m + offset, n, d, np.float64, seed=2)
+    tx = torch.from_numpy(x * 4).to(card, in_dtype)[offset:]
     ty = torch.from_numpy(y * 4).to(card, in_dtype)
+    if in_dtype.is_floating_point:
+        tx[7] = float("nan")
     before = tk.launches["cdist_tile"]
     for sqrt in (True, False):
         got = tk.cdist_tile(tx, ty, sqrt=sqrt, out_dtype=out_dtype)
+        again = tk.cdist_tile(tx, ty, sqrt=sqrt, out_dtype=out_dtype)
         want = tk.cdist_tile_plain(tx, ty, sqrt=sqrt, out_dtype=out_dtype)
         assert got.dtype == want.dtype
+        torch.testing.assert_close(again, got, rtol=0, atol=0, equal_nan=True)
         tol = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}.get(got.dtype, 1e-5)
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 600)
-    assert tk.launches["cdist_tile"] == before + 2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * 600,
+                                   equal_nan=True)
+        assert bool(got[7].isnan().all()) == in_dtype.is_floating_point
+    assert tk.launches["cdist_tile"] == before + 4
 
 
-# k <= 8 keeps the k dot products in registers, larger k takes one centroid
-# at a time; d % 4 != 0 (float32) or d % 2 != 0 (float64) stages X by
-# scalars; k*d past 48 KB of shared memory (k = 8, d = 64 already) opts in to
-# more; k = 90 (float32) and k = 70 (float64) at d = 64 fit only with tiles of
-# 64 rows
+# k <= 8 keeps the k dot products and the partial sums in registers (rows of
+# at most 256 bytes: float64 d = 64 does not), larger k takes one centroid at
+# a time with the sums in shared memory; d % 4 != 0 (float32) or d % 2 != 0
+# (float64) stages X in 8- or 4-byte pieces; k*d past 48 KB of shared memory
+# (k = 8, d = 64 already) opts in to more; k = 90 (float32) at d = 64 fits
+# only with tiles of 32 rows, and k = 70 (float64) takes the streaming path.
+# The ring holds two tiles of up to 128 rows: n = 100 is less than one
+# stage, 129 one row past a tile and less than both, 257 one row past the
+# ring, 300 further; offset 1 takes x as a view one row in, which is not
+# 16-byte aligned (d = 18 float32: 8-byte pieces; d = 17: 4-byte ones, 8 for
+# float64); the "tiles" mask turns whole tiles of 128 rows off (every second
+# one), "tail" the last rows (103 of 5003).
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,k,d", [
-    (torch.float32, 3, 18), (torch.float32, 8, 64), (torch.float32, 20, 18),
-    (torch.float32, 20, 64), (torch.float32, 40, 17), (torch.float32, 90, 64),
-    (torch.float64, 3, 18), (torch.float64, 8, 64), (torch.float64, 20, 17),
-    (torch.float64, 40, 64), (torch.float64, 70, 64)])
-def test_kmeans_kernel_matches_plain_on_card(card, dtype, k, d):
-    x, c = _blobs(5003, d, k, np.float64, seed=9)
-    tx, tc = torch.from_numpy(x).to(card, dtype), torch.from_numpy(c).to(card, dtype)
-    valid = torch.arange(5003, device=card) < 4900
+@pytest.mark.parametrize("dtype,k,d,n,offset,masked", [
+    (torch.float32, 3, 18, 5003, 0, "tail"), (torch.float32, 8, 64, 5003, 0, "tail"),
+    (torch.float32, 20, 18, 5003, 0, "tail"), (torch.float32, 20, 64, 5003, 0, "tail"),
+    (torch.float32, 40, 17, 5003, 0, "tail"), (torch.float32, 90, 64, 5003, 0, "tail"),
+    (torch.float64, 3, 18, 5003, 0, "tail"), (torch.float64, 8, 64, 5003, 0, "tail"),
+    (torch.float64, 20, 17, 5003, 0, "tail"), (torch.float64, 40, 64, 5003, 0, "tail"),
+    (torch.float64, 70, 64, 5003, 0, "tail"),
+    (torch.float32, 8, 64, 100, 0, "tail"), (torch.float32, 8, 64, 300, 0, "tiles"),
+    (torch.float32, 8, 64, 129, 0, "tail"), (torch.float32, 8, 64, 257, 0, "tiles"),
+    (torch.float32, 8, 18, 257, 1, "tiles"), (torch.float32, 5, 17, 129, 1, "tail"),
+    (torch.float32, 20, 64, 257, 0, "tiles"), (torch.float32, 20, 17, 300, 1, "tiles"),
+    (torch.float64, 8, 64, 257, 0, "tiles"), (torch.float64, 3, 17, 100, 1, "tail"),
+    (torch.float64, 8, 17, 5003, 1, "tiles")])
+def test_kmeans_kernel_matches_plain_on_card(card, dtype, k, d, n, offset, masked):
+    x, c = _blobs(n + offset, d, k, np.float64, seed=9)
+    tx = torch.from_numpy(x).to(card, dtype)[offset:]
+    tc = torch.from_numpy(c).to(card, dtype)
+    rows = torch.arange(n, device=card)
+    valid = rows < n - min(103, n // 10) if masked == "tail" else (rows // 128) % 2 == 0
     before = tk.launches["kmeans_step"]
     got = tk.kmeans_step(tx, tc, valid, return_labels=True)
     again = tk.kmeans_step(tx, tc, valid, return_labels=True)
@@ -416,6 +448,24 @@ def test_smoke_flash_bound_f32_is_the_fma_floor_or_the_bytes():
     nbytes = 4 * 8 * 16 * 1024 * 64 * 4 + 8 * 16 * 1024 * 4
     assert cs.flash_bound_f32(8, 16, 1024, 1024, 64, True, 1e11, 989e12) == (
         pytest.approx(nbytes / 1e11 * 1e3), "bytes")
+
+
+def test_smoke_reach_reads_the_bytes_the_bounds_count():
+    # phase 4's achieved TB/s and bound share for cdist_tile and kmeans_step
+    # read the bytes their bounds count: at the bound's own time a kernel
+    # reaches the card's rate and a share of 1
+    cs = _smoke_module()
+    bw = 3.35e12
+    for nbytes, (ms, by) in (
+            (cs.cdist_bytes(40_000, 40_000, 18, 4, 4), cs.cdist_bound(40_000, 40_000, 18, 4, 4,
+                                                                      bw, 67e12)),
+            (cs.cdist_bytes(2**23, 8, 64, 4, 4), cs.cdist_bound(2**23, 8, 64, 4, 4, bw, 67e12)),
+            (cs.kmeans_bytes(2**23, 64, 8), cs.kmeans_bound(2**23, 64, 8, bw, 67e12, 989e12))):
+        assert by == "bytes"
+        r = cs.reach(nbytes, ms, ms)
+        assert r["achieved_TB_per_s"] == pytest.approx(bw / 1e12)
+        assert r["bound_over_ms"] == pytest.approx(1.0)
+        assert cs.reach(nbytes, 2 * ms, ms)["bound_over_ms"] == pytest.approx(0.5)
 
 
 def test_smoke_kmeans_bound_counts_split_passes_on_the_tensor_cores():
