@@ -28,6 +28,18 @@ Phases, one JSON line each:
    ``predict``, and the 40,000 x 18 ``cdist`` — with the launch counts of
    each kernel in that run, the result held against a plain Lloyd loop, and
    Lloyd iterations per second.
+5b. array path: on the KMeans benchmark's data (2^23 x 64 float32
+   points, a second array of weights, a replicated row of 64; bench.py:40-44,
+   :495-503), ``ht.mean``/``var``/``std`` along axis 0 and along all axes,
+   ``var(ddof=1)``, the weighted ``average``, ``max``/``argmax``/``min``/
+   ``argmin``, ``cumsum``, ``(X > 0.5).sum()``, bench.py's 16-op chain and
+   moment chains (``:495-533``), each checked against float64 on the same
+   card tensors within its float32 error bound, with its device ms, bytes,
+   bound ms, the same op as raw torch calls on ``X.larray``, and the host µs
+   of both; the resplit round trip with its plan kinds; and the closing
+   user flow ``Z = (X - ht.mean(X, 0)) / ht.std(X, 0)`` then ``KMeans(8,
+   kmeans++, 20 iterations).fit(Z)`` (20 ``kmeans_step`` launches), with
+   peak memory and ``comm.stats`` (empty at world size 1).
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -670,6 +682,380 @@ def device_share(torch, fn, n, kinds=None):
             by_kind[label] += us / 1e3 / n
         res["device_ms_per_call_by_kind"] = by_kind
     return res
+
+
+# the array path's data: the KMeans benchmark's points (bench.py:40-44), a
+# second array of weights of the same shape, and a replicated row
+# (bench.py:495-503)
+REDUCE_CHAIN = 4096  # see sum_tol
+
+
+def gamma(m):
+    """γ_m = m·u / (1 - m·u): a float32 sum whose partial sums chain at
+    most m additions is within γ_m·Σ|x| of the exact sum."""
+    return m * U32 / (1 - m * U32)
+
+
+def sum_tol(absum, n):
+    """The error bound of a float32 sum of n terms by torch's CUDA
+    reduction, over Σ|x| (``absum``): it folds the terms in per-thread
+    partials of far fewer than REDUCE_CHAIN terms (Reduce.cuh splits a long
+    reduction across blocks) and combines them in a tree, so each partial
+    sum chains at most REDUCE_CHAIN + ⌈log2 n⌉ additions."""
+    return gamma(REDUCE_CHAIN + math.ceil(math.log2(max(n, 2)))) * absum
+
+
+def scan_chain(n, block):
+    """The most additions that chain into one output of a blocked scan of n
+    elements in blocks of ``block`` (``arithmetics._scan``): within a block
+    and then one to add the scan of the earlier blocks' totals, at each
+    level of blocks, and a plain scan of the last level's few totals."""
+    chain = 0
+    while n > block:
+        chain += block + 1
+        n = -(-n // block)
+    return chain + n
+
+
+class Bounded:
+    """A float64 tensor ``v`` that mirrors a float32 computation, with ``e``
+    a bound on that computation's error: each operation propagates the
+    operands' bounds to first order and adds its own rounding, ``ulps``
+    units of float32 roundoff of its result (1 for +, -, ×, ÷ and sqrt,
+    correctly rounded on the card; 2 for tanhf, CUDA's documented bound).
+    Scalars enter as their float32 roundings, as the card computes with
+    them; the tensor inputs are exact float32 values."""
+
+    def __init__(self, v, e):
+        self.v, self.e = v, e
+
+    @staticmethod
+    def exact(t):
+        return Bounded(t.double(), 0.0)
+
+    def _round(self, v, e, ulps=1):
+        return Bounded(v, e + ulps * U32 * v.abs())
+
+    @staticmethod
+    def _c(c):
+        return float(np.float32(c))
+
+    def __add__(self, o):
+        if isinstance(o, Bounded):
+            return self._round(self.v + o.v, self.e + o.e)
+        return self._round(self.v + self._c(o), self.e)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        if isinstance(o, Bounded):
+            return self._round(self.v - o.v, self.e + o.e)
+        return self._round(self.v - self._c(o), self.e)
+
+    def __mul__(self, o):
+        if isinstance(o, Bounded):
+            return self._round(self.v * o.v, self.e * o.v.abs() + o.e * self.v.abs()
+                               + self.e * o.e)
+        c = self._c(o)
+        return self._round(self.v * c, self.e * abs(c))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        if isinstance(o, Bounded):
+            lo = o.v.abs() - o.e
+            return self._round(self.v / o.v, (self.e + (self.v / o.v).abs() * o.e) / lo)
+        c = self._c(o)
+        return self._round(self.v / c, self.e / abs(c))
+
+    def __abs__(self):
+        return Bounded(self.v.abs(), self.e)
+
+    def sum(self, axis=0):
+        n = self.v.shape[axis]
+        v = self.v.sum(axis)
+        return Bounded(v, (self.e.sum(axis) if torch_is_tensor(self.e) else self.e * n)
+                       + sum_tol(self.v.abs().sum(axis), n))
+
+    def sqrt(self):
+        v = self.v.sqrt()
+        return self._round(v, self.e / (2 * (self.v - self.e).clamp_min(1e-300).sqrt()))
+
+    def tanh(self):
+        return self._round(self.v.tanh(), self.e, ulps=2)
+
+
+def torch_is_tensor(x):
+    return hasattr(x, "shape")
+
+
+class _BoundedLib:
+    """``ht.sqrt`` and ``ht.tanh`` for :class:`Bounded` values."""
+
+    @staticmethod
+    def sqrt(x):
+        return x.sqrt()
+
+    @staticmethod
+    def tanh(x):
+        return x.tanh()
+
+
+def chain16(lib, a, w, row):
+    # bench.py:510-529: 16 ht-level ops, 2 of them transcendental
+    t = a * 0.5
+    t = t + w
+    t = t - 0.25
+    t = t * a
+    t = abs(t)
+    t = t + row
+    t = t * 1.25
+    t = lib.sqrt(t + 2.0)
+    t = t - w
+    t = t * 0.75
+    t = t + a
+    t = lib.tanh(t)
+    t = t * t
+    t = t - 0.125
+    t = t + 0.5
+    t = t * 2.0
+    return t
+
+
+def kmeans_mixed(lib, a, row):
+    # bench.py:531-538: the Lloyd-style pre-assignment normalize
+    t = (a - row) * 0.75
+    t = t * t + t
+    t = lib.tanh(t / 2.0)
+    t = abs(t) + 0.125
+    return t.sum(axis=0)
+
+
+def reduce_chain(lib, a, w, row, n):
+    # bench.py:540-548: the ht.mean((x-mu)**2) moment shape
+    t = (a - row) * 0.5
+    t = t * t
+    t = t + 1.0
+    t = t * w
+    return t.sum(axis=0) * (1.0 / n)
+
+
+def once_ms_us(torch, fn):
+    """One call of ``fn``: its device ms by CUDA events and its host µs (the
+    enqueue), for a call too long to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter_ns()
+    fn()
+    t1 = time.perf_counter_ns()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (t1 - t0) / 1e3
+
+
+def check_within(name, got, want, tol):
+    """|got - want| <= tol everywhere (want and tol float64); returns the
+    max abs error and the largest ratio of error to limit."""
+    err = (got.double() - want).abs()
+    tol = torch_tol(tol, err)
+    bad = int((err > tol).sum())
+    assert bad == 0, f"array_path {name}: {bad} values beyond their bound (worst " \
+                     f"{float((err - tol).max())} over)"
+    return float(err.max()), float((err / tol.clamp_min(1e-300)).max())
+
+
+def torch_tol(tol, like):
+    return tol if torch_is_tensor(tol) else like.new_full((), float(tol))
+
+
+def array_path(torch, ht, tk, smi, bw):
+    """The array path (bench.py's moment and fusion figures, the paper's
+    Table I statistics) at the KMeans benchmark's size: each op through
+    ht's entry points, checked against float64 on the same card tensors,
+    timed beside one raw torch call on X.larray; the resplit round trip;
+    and the closing standardize-then-cluster flow."""
+    from heat_tpu_torch.core import arithmetics, resharding
+
+    comm = ht.get_comm()
+    torch.cuda.reset_peak_memory_stats()
+    n, d = N_POINTS, N_FEATURES
+    ht.random.seed(0)
+    X = ht.random.rand(n, d, split=0)
+    W = ht.random.rand(n, d, split=0)
+    row = ht.random.rand(d)
+    xl, wl, rl = X.larray, W.larray, row.larray
+    nd = n * d * 4
+    comm.reset_stats()
+    x64 = xl.double()
+    abs_col = x64.abs().sum(0)  # x is in [0, 1): Σ|x| per column
+    mean64 = x64.sum(0) / n
+    var64 = ((x64 - mean64) ** 2).sum(0) / n
+    tol_mean = sum_tol(abs_col, n) / n + U32 * mean64.abs()
+    # two passes: the mean's error δ adds δ²; the centered squares and their
+    # sum round (4 units and the sum's bound) a value near var·n
+    tol_var = (sum_tol(1.0, n) + 4 * U32) * var64 * 1.01 + tol_mean ** 2
+    tol_std = tol_var / (2 * var64.sqrt()) + U32 * var64.sqrt()
+    all64 = x64.sum() / (n * d)
+    var_all64 = ((x64 - all64) ** 2).sum()
+    tol_all = sum_tol(float(x64.abs().sum()), n * d) / (n * d) + U32 * float(all64)
+    ops, checks = {}, {}
+
+    def record(name, fn, raw, raw_what, nbytes, host_n=200, raw_once=False):
+        """The op's device ms (:func:`time_ms`), bytes and bound ms, and its
+        host µs a call, beside the same of the raw torch call(s); a raw call
+        that takes seconds (``raw_once``) is timed once, its host µs that
+        one call's enqueue."""
+        rec = {"device_ms": time_ms(torch, fn), "bytes": nbytes,
+               "bound_ms": nbytes / bw * 1e3, "raw_torch": raw_what,
+               "host_us": host_us(torch, fn, n=host_n, chunk=host_n // 4)}
+        if raw_once:
+            rec["raw_ms"], rec["raw_host_us"] = once_ms_us(torch, raw)
+        else:
+            rec["raw_ms"] = time_ms(torch, raw)
+            rec["raw_host_us"] = host_us(torch, raw, n=host_n, chunk=host_n // 4)
+        ops[name] = rec
+
+    # moments along axis 0 and along all axes
+    got = ht.mean(X, 0).larray
+    checks["mean_axis0"] = check_within("mean_axis0", got, mean64, tol_mean)
+    record("mean_axis0", lambda: ht.mean(X, 0), lambda: torch.mean(xl, 0), "torch.mean(x, 0)",
+           nd + d * 4)
+    got = ht.var(X, 0).larray
+    checks["var_axis0"] = check_within("var_axis0", got, var64, tol_var)
+    record("var_axis0", lambda: ht.var(X, 0), lambda: torch.var(xl, 0, correction=0),
+           "torch.var(x, 0, correction=0)", nd + d * 4)
+    got = ht.std(X, 0).larray
+    checks["std_axis0"] = check_within("std_axis0", got, var64.sqrt(), tol_std)
+    record("std_axis0", lambda: ht.std(X, 0), lambda: torch.std(xl, 0, correction=0),
+           "torch.std(x, 0, correction=0)", nd + d * 4)
+    got = ht.mean(X).larray
+    checks["mean_all"] = check_within("mean_all", got, all64, tol_all)
+    record("mean_all", lambda: ht.mean(X), lambda: torch.mean(xl), "torch.mean(x)", nd + 4)
+    va = var_all64 / (n * d)
+    tol_va = (sum_tol(1.0, n * d) + 4 * U32) * va * 1.01 + tol_all ** 2
+    got = ht.var(X).larray
+    checks["var_all"] = check_within("var_all", got, va, tol_va)
+    record("var_all", lambda: ht.var(X), lambda: torch.var(xl, correction=0),
+           "torch.var(x, correction=0)", nd + 4)
+    got = ht.std(X).larray
+    checks["std_all"] = check_within("std_all", got, va.sqrt(),
+                                     tol_va / (2 * va.sqrt()) + U32 * va.sqrt())
+    record("std_all", lambda: ht.std(X), lambda: torch.std(xl, correction=0),
+           "torch.std(x, correction=0)", nd + 4)
+    vd = var_all64 / (n * d - 1)
+    got = ht.var(X, ddof=1).larray
+    checks["var_ddof1"] = check_within("var_ddof1", got, vd,
+                                       (sum_tol(1.0, n * d) + 4 * U32) * vd * 1.01 + tol_all ** 2)
+    record("var_ddof1", lambda: ht.var(X, ddof=1), lambda: torch.var(xl),
+           "torch.var(x)", nd + 4)
+    del got
+    # the weighted average: Σ x·w over Σ w, all terms positive
+    w64 = wl.double()
+    num, den = (x64 * w64).sum(0), w64.sum(0)
+    avg64 = num / den
+    tol_avg = (2 * sum_tol(1.0, n) + 3 * U32) * avg64.abs() * 1.01
+    del w64, num, den
+    checks["average_axis0"] = check_within("average_axis0", ht.average(X, axis=0, weights=W).larray,
+                                           avg64, tol_avg)
+    record("average_axis0", lambda: ht.average(X, axis=0, weights=W),
+           lambda: (xl * wl).sum(0) / wl.sum(0), "(x * w).sum(0) / w.sum(0), 3 calls",
+           2 * nd + d * 4)
+    # extrema along axis 0: exact
+    for name, fn, raw, what, want in (
+            ("max_axis0", lambda: ht.max(X, 0), lambda: torch.amax(xl, 0), "torch.amax(x, 0)",
+             x64.amax(0)),
+            ("min_axis0", lambda: ht.min(X, 0), lambda: torch.amin(xl, 0), "torch.amin(x, 0)",
+             x64.amin(0)),
+            ("argmax_axis0", lambda: ht.argmax(X, 0), lambda: torch.argmax(xl, 0),
+             "torch.argmax(x, 0)", x64.argmax(0)),
+            ("argmin_axis0", lambda: ht.argmin(X, 0), lambda: torch.argmin(xl, 0),
+             "torch.argmin(x, 0)", x64.argmin(0))):
+        got = fn()
+        assert got.shape == (d,) and torch.equal(got.larray.double(), want.double()), name
+        checks[name] = {"exact": True}
+        record(name, fn, raw, what, nd + d * (8 if "arg" in name else 4))
+    # the cumulative sum, scanned in blocks (arithmetics._scan): each row's
+    # partial sums chain at most scan_chain(n) additions, so row i is within
+    # γ_chain·Σ_(j<=i)|x_j|. The reference scans along the last axis: torch's
+    # scan down axis 0 runs one thread per column (64 here; 3.0 s on an
+    # "NVIDIA H100 80GB HBM3, 700.00 W")
+    got = ht.cumsum(X, 0).larray
+    want = x64.t().contiguous().cumsum(1).t()
+    tol_cs = gamma(scan_chain(n, arithmetics._SCAN_BLOCK)) * want  # x >= 0: Σ|x| is the sum
+    checks["cumsum_axis0"] = check_within("cumsum_axis0", got, want, tol_cs)
+    del got, want, tol_cs
+    record("cumsum_axis0", lambda: ht.cumsum(X, 0), lambda: torch.cumsum(xl, 0),
+           "torch.cumsum(x, 0), one call", 2 * nd, raw_once=True)
+    # a comparison and its count: exact
+    count = ht.sum(X > 0.5)
+    assert count.dtype is ht.int64 and int(count.item()) == int((x64 > 0.5).sum()), "count"
+    checks["greater_sum"] = {"exact": True, "count": int(count.item())}
+    record("greater_sum", lambda: (X > 0.5).sum(), lambda: (xl > 0.5).sum(),
+           "(x > 0.5).sum(), 2 calls", nd + 8)
+    del x64
+    torch.cuda.empty_cache()
+
+    # bench.py's chains, written as there, against their float64 mirrors
+    bx, bw_, brow = Bounded.exact(xl), Bounded.exact(wl), Bounded.exact(rl)
+    want = chain16(_BoundedLib, bx, bw_, brow)
+    checks["chain16"] = check_within("chain16", chain16(ht, X, W, row).larray, want.v, want.e)
+    del want
+    record("chain16", lambda: chain16(ht, X, W, row), lambda: chain16(torch, xl, wl, rl),
+           "the same 16 torch calls", 3 * nd, host_n=40)
+    want = kmeans_mixed(_BoundedLib, bx, brow)
+    checks["kmeans_mixed"] = check_within("kmeans_mixed", kmeans_mixed(ht, X, row).larray,
+                                          want.v, want.e)
+    record("kmeans_mixed", lambda: kmeans_mixed(ht, X, row), lambda: kmeans_mixed(torch, xl, rl),
+           "the same 8 torch calls", nd + d * 4, host_n=40)
+    want = reduce_chain(_BoundedLib, bx, bw_, brow, n)
+    checks["moment_chain"] = check_within("moment_chain", reduce_chain(ht, X, W, row, n).larray,
+                                          want.v, want.e)
+    record("moment_chain", lambda: reduce_chain(ht, X, W, row, n),
+           lambda: reduce_chain(torch, xl, wl, rl, n), "the same 6 torch calls",
+           2 * nd + d * 4, host_n=40)
+    del want, bx, bw_, brow
+    torch.cuda.empty_cache()
+
+    # the resplit round trip: local at world size 1
+    kinds = [resharding.plan_kind(X.gshape, a, b, comm) for a, b in ((0, 1), (1, None),
+                                                                        (None, 0))]
+    Y = X.resplit(1).resplit(None).resplit(0)
+    assert Y.split == 0 and torch.equal(Y.larray, xl), "resplit round trip"
+    want_kinds = ["local"] * 3 if comm.size == 1 else ["all_to_all", "all_gather",
+                                                       "local_slice"]
+    assert kinds == want_kinds, kinds
+    del Y
+    stats = dict(comm.stats)
+    assert comm.size > 1 or stats == {}, stats
+
+    # the closing user flow: standardize, then cluster
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    Z = (X - ht.mean(X, 0)) / ht.std(X, 0)
+    km = ht.cluster.KMeans(n_clusters=K, init="kmeans++", max_iter=ITERS, tol=-1,
+                           random_state=0).fit(Z)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    assert launches["kmeans_step"] == ITERS, launches
+    centers = km.cluster_centers_.larray
+    assert km.n_iter_ == ITERS and bool(torch.isfinite(centers).all())
+    assert math.isfinite(km.inertia_)
+    mu = Bounded(mean64, tol_mean)
+    sd = Bounded(var64.sqrt(), tol_std)
+    zb = (Bounded.exact(xl) - mu) / sd
+    checks["standardized"] = check_within("standardized", Z.larray, zb.v, zb.e)
+    del zb, mu, sd
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "array_path", "card": smi, "shape": [n, d], "dtype": "float32",
+          "ops": ops, "checks": checks, "resplit_plan_kinds": kinds,
+          "comm_stats": stats, "closing_flow": {
+              "seconds": flow_s, "launches": launches, "n_iter": km.n_iter_,
+              "inertia": km.inertia_},
+          "peak_memory_bytes": peak})
+    return ops
 
 
 def serving_path(torch, ht, tk, dev, smi):
@@ -1480,6 +1866,10 @@ def main():
           "lloyd_ms_20_steps": lloyd_ms,
           "kmeans_lloyd_iterations_per_second": ITERS / (lloyd_ms / 1e3)})
     del X, Y, xl, lab, labels, km, seeded, lloyd, step, c0, cp, centers
+    torch.cuda.empty_cache()
+
+    # 5b. the array path: operators, moments, cumsum, resplit, standardize
+    array_path(torch, ht, tk, smi, bw)
     torch.cuda.empty_cache()
 
     # 6. the serving path, through the entry points a user calls -------- #

@@ -1,4 +1,6 @@
-"""Core: the DNDarray, its types, devices, communication and factories."""
+"""Core: the DNDarray, its types, devices, communication, factories and
+the operations over it, re-exported flat as heat_tpu's core namespace is
+(``ht.mean``, ``ht.sqrt``, ``ht.cumsum``, ...)."""
 
 from .constants import *  # noqa: F401,F403
 from .types import *  # noqa: F401,F403
@@ -7,5 +9,19 @@ from .communication import (MeshGrid, TorchCommunication, get_comm, sanitize_com
                             use_comm)
 from .dndarray import DNDarray
 from .factories import arange, array, empty, ones, zeros
-from . import random
+from .memory import *  # noqa: F401,F403
+from .sanitation import *  # noqa: F401,F403
+from .arithmetics import *  # noqa: F401,F403
+from .relational import *  # noqa: F401,F403
+from .logical import *  # noqa: F401,F403
+from .rounding import *  # noqa: F401,F403
+from .exponential import *  # noqa: F401,F403
+from .trigonometrics import *  # noqa: F401,F403
+from .complex_math import *  # noqa: F401,F403
+from .statistics import *  # noqa: F401,F403
+from .manipulations import *  # noqa: F401,F403
+from .printing import *  # noqa: F401,F403
+from . import (arithmetics, complex_math, exponential, logical, manipulations, memory,
+               printing, random, relational, resharding, rounding, sanitation, statistics,
+               trigonometrics)
 from .version import __version__

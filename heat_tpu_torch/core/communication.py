@@ -30,7 +30,7 @@ import torch.distributed as dist
 __all__ = ["TorchCommunication", "MeshAxisComm", "MeshGrid", "get_comm", "use_comm",
            "sanitize_comm"]
 
-_REDUCE_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+_REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
 
 
 class TorchCommunication:
@@ -128,11 +128,16 @@ class TorchCommunication:
         self.stats = {}
 
     def Allreduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """In-place all-reduce (``sum``/``min``/``max``); returns ``tensor``."""
+        """In-place all-reduce (``sum``/``prod``/``min``/``max``); returns
+        ``tensor``. A bool tensor travels as uint8 (``min`` is a logical
+        and, ``max`` a logical or) and comes back as bool."""
         if self.size == 1:
             return tensor
         self._count("all_reduce", tensor.numel() * tensor.element_size())
-        dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=self.group)
+        wire = tensor.to(torch.uint8) if tensor.dtype == torch.bool else tensor
+        dist.all_reduce(wire, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=self.group)
+        if wire is not tensor:
+            tensor.copy_(wire)
         return tensor
 
     def packed_allreduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -172,6 +177,73 @@ class TorchCommunication:
         self._count("all_gather", send.numel() * send.element_size())
         dist.all_gather(parts, send, group=self.group)
         return torch.cat([p.narrow(axis, 0, c) for p, c in zip(parts, counts)], dim=axis)
+
+    def Alltoall(self, tensor: torch.Tensor, split_axis: int, concat_axis: int,
+                 concat_size: int) -> torch.Tensor:
+        """Exchange blocks between all ranks in ONE ``all_to_all_single``
+        (heat_tpu ``communication.py:278``/``:335``): ``tensor`` holds the
+        whole ``split_axis``, which is cut by the ceil-chunk layout
+        (:meth:`chunk`) into one block per rank; rank ``r`` receives block
+        ``r`` of every rank and concatenates them along ``concat_axis`` in
+        rank order. ``concat_size`` is the global length along
+        ``concat_axis``, chunked the same way.
+
+        Every send and receive count follows from :meth:`chunk` alone, so
+        all ranks agree on them. The blocks travel as bytes of contiguous
+        buffers (any dtype; NCCL wants contiguous buffers), the split axis
+        moved to the front before the call and back after it."""
+        if self.size == 1:
+            return tensor
+        split_axis %= tensor.ndim
+        concat_axis %= tensor.ndim
+        if split_axis == concat_axis:
+            raise ValueError("split_axis and concat_axis must differ")
+        send_counts, _ = self.counts_displs(tensor.shape[split_axis])
+        recv_concat, _ = self.counts_displs(concat_size)
+        front = tensor.movedim(split_axis, 0)
+        ax = concat_axis + 1 if concat_axis < split_axis else concat_axis
+        rest = list(front.shape[1:])
+        mine = send_counts[self.rank]
+        recv_shapes = []
+        for c in recv_concat:
+            shape = [mine] + rest
+            shape[ax] = c
+            recv_shapes.append(shape)
+        itemsize = tensor.element_size()
+        row = int(np.prod(rest)) * itemsize
+        send = front.contiguous().reshape(-1).view(torch.uint8)
+        recv_bytes = [int(np.prod(shape)) * itemsize for shape in recv_shapes]
+        recv = torch.empty(sum(recv_bytes), dtype=torch.uint8, device=tensor.device)
+        self._count("all_to_all", send.numel())
+        dist.all_to_all_single(recv, send, output_split_sizes=recv_bytes,
+                               input_split_sizes=[c * row for c in send_counts],
+                               group=self.group)
+        pieces = [p.view(tensor.dtype).view(shape)
+                  for p, shape in zip(recv.split(recv_bytes), recv_shapes)]
+        return torch.cat(pieces, dim=ax).movedim(0, split_axis)
+
+    def Exscan(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Exclusive scan over ranks (heat_tpu ``communication.py:254``,
+        ``:344``): rank ``r`` gets the ``sum`` (or ``prod``) of the
+        ``tensor`` of ranks ``0 .. r-1``, the neutral element on rank 0.
+        Neither gloo nor NCCL has a scan: it is ONE all-gather of every
+        rank's ``tensor`` (all of one shape), folded locally, and counted
+        as ``exscan``."""
+        if op not in ("sum", "prod"):
+            raise ValueError(f"Exscan takes 'sum' or 'prod', got {op!r}")
+        if self.size == 1:
+            return torch.zeros_like(tensor) if op == "sum" else torch.ones_like(tensor)
+        send = tensor.contiguous().reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(send) for _ in range(self.size)]
+        self._count("exscan", send.numel())
+        dist.all_gather(parts, send, group=self.group)
+        lower = [p.view(tensor.dtype).view(tensor.shape) for p in parts[:self.rank]]
+        if not lower:
+            return torch.zeros_like(tensor) if op == "sum" else torch.ones_like(tensor)
+        stacked = torch.stack(lower)
+        if op == "sum":
+            return stacked.sum(0, dtype=tensor.dtype)
+        return stacked.prod(0, dtype=tensor.dtype)
 
     def ring_step(self, tensor: torch.Tensor) -> torch.Tensor:
         """One systolic ring step: send ``tensor`` to rank+1, receive the

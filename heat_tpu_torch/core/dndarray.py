@@ -9,11 +9,11 @@ ceil-chunk layout of :meth:`TorchCommunication.chunk` and carry no padding,
 so logical values, ``gshape``, ``split`` and ``lshape_map`` agree with
 heat_tpu while the storage differs.
 
-This slice carries what the KMeans/cdist path uses: construction and
-metadata, ``resplit`` between ``None`` and a split axis, indexing by an
-integer array or basic slices, ``astype``/``numpy``/``item`` and the
-``min``/``argmin``/``sum``/``+``/``**`` operations. Other index forms raise
-``NotImplementedError``.
+Operations run eagerly, one torch call on the shard each (heat_tpu's fusion
+tape is not ported). Split changes go through :mod:`.resharding`: split to
+split is ONE all-to-all. Indexing takes an integer array along axis 0, or
+basic keys (ints, slices, ``...``) along any axis; boolean masks and the
+other advanced forms raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,6 +85,15 @@ class DNDarray:
         """This rank's shard."""
         return self.__array
 
+    @larray.setter
+    def larray(self, tensor: torch.Tensor):
+        """Replace this rank's shard; its shape must be this rank's chunk."""
+        _, lshape, _ = self.__comm.chunk(self.__gshape, self.__split)
+        if tuple(tensor.shape) != tuple(lshape):
+            raise ValueError(f"local tensor shape {tuple(tensor.shape)} does not match this "
+                             f"rank's chunk {tuple(lshape)}")
+        self.__array = tensor
+
     @property
     def comm(self) -> TorchCommunication:
         return self.__comm
@@ -132,9 +141,32 @@ class DNDarray:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
         return self.__comm.counts_displs(self.__gshape[self.__split])
 
+    @property
+    def T(self) -> "DNDarray":
+        """All axes reversed (heat_tpu ``dndarray.py:403``); the split axis
+        moves with its axis, no communication."""
+        split = None if self.__split is None else self.ndim - 1 - self.__split
+        return DNDarray(self.__array.permute(*reversed(range(self.ndim))),
+                        self.__gshape[::-1], self.__dtype, split, self.__device, self.__comm)
+
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
     def __repr__(self) -> str:
-        return (f"DNDarray(gshape={self.__gshape}, dtype={self.__dtype.__name__}, "
-                f"split={self.__split}, device={self.__device})")
+        from . import printing
+
+        return printing.__str__(self)
+
+    __str__ = __repr__
 
     # ------------------------------------------------------------------ #
     # distribution                                                       #
@@ -146,31 +178,27 @@ class DNDarray:
         counts, _ = self.counts_displs()
         return self.__comm.Allgather(self.__array, self.__split, counts)
 
-    def _resplit_tensor(self, axis):
-        if axis == self.__split:
-            return self.__array
-        full = self._logical()
-        if axis is None:
-            return full
-        _, _, slices = self.__comm.chunk(self.__gshape, axis)
-        return full[slices].clone()
-
     def resplit_(self, axis=None) -> "DNDarray":
-        """In-place split change (heat_tpu ``dndarray.py:433``). ``None`` to
-        split is a local slice; split to ``None`` is one all-gather; split to
-        another split goes through the gathered array."""
+        """In-place split change (heat_tpu ``dndarray.py:433``) through
+        :func:`.resharding.reshard`: None to split is a local slice, split to
+        None one all-gather, split to split ONE all-to-all."""
+        from . import resharding
+
         if axis is not None:
             axis = sanitize_axis(self.__gshape, axis)
-        self.__array = self._resplit_tensor(axis)
+        self.__array = resharding.reshard(self.__array, self.__gshape, self.__split, axis,
+                                          self.__comm)
         self.__split = axis
         return self
 
     def resplit(self, axis=None) -> "DNDarray":
         """Out-of-place split change (heat_tpu ``dndarray.py:474``)."""
+        from . import resharding
+
         if axis is not None:
             axis = sanitize_axis(self.__gshape, axis)
-        return DNDarray(self._resplit_tensor(axis), self.__gshape, self.__dtype, axis,
-                        self.__device, self.__comm)
+        local = resharding.reshard(self.__array, self.__gshape, self.__split, axis, self.__comm)
+        return DNDarray(local, self.__gshape, self.__dtype, axis, self.__device, self.__comm)
 
     # ------------------------------------------------------------------ #
     # conversion                                                         #
@@ -193,24 +221,48 @@ class DNDarray:
             t = t.float()
         return t.numpy()
 
+    def tolist(self) -> list:
+        return self.numpy().tolist()
+
     def item(self):
         """Scalar extraction (heat_tpu ``dndarray.py:642``)."""
         if self.size != 1:
             raise ValueError("only one-element DNDarrays can be converted to scalars")
         return self._logical().reshape(()).item()
 
+    def __bool__(self) -> bool:
+        return bool(self.item())
+
+    def __int__(self) -> int:
+        return int(self.item())
+
+    def __float__(self) -> float:
+        return float(self.item())
+
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    def __index__(self) -> int:
+        return int(self.item())
+
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.__gshape[0]
+
     # ------------------------------------------------------------------ #
     # indexing                                                           #
     # ------------------------------------------------------------------ #
     def __getitem__(self, key) -> "DNDarray":
         """Indexing (heat_tpu ``dndarray.py:678``) by a 1-D integer array
-        along axis 0, or by basic keys (ints, slices, ``...``). Rows along
-        the split axis are gathered from their owners; any other key form
-        raises ``NotImplementedError``."""
+        along axis 0, or by basic keys (ints, slices, ``...``) along any
+        axis. Elements selected along the split axis reach their new owners
+        through one all-reduce; any other key form raises
+        ``NotImplementedError``."""
         idx = _int_array_key(key)
         if idx is not None:
             return self._take_rows(idx)
-        return self._basic_getitem(_normalize_basic_key(key, self.ndim))
+        return self._basic_getitem(_normalize_basic_key(key, self.__gshape))
 
     def _take_rows(self, idx: np.ndarray) -> "DNDarray":
         n = self.__gshape[0] if self.ndim else 0
@@ -221,136 +273,405 @@ class DNDarray:
             rows = self.__array[torch.as_tensor(idx, device=self.__array.device)]
             return DNDarray(rows, (len(idx),) + self.__gshape[1:], self.__dtype,
                             self.__split, self.__device, self.__comm)
-        rows = self._gather_rows(idx)
+        rows = self._gather_along(self.__array, 0, idx)
         return DNDarray.from_global(rows, 0, self.__device, self.__comm, self.__dtype)
 
-    def _gather_rows(self, idx: np.ndarray) -> torch.Tensor:
-        """Global rows ``idx`` of a split-0 array, on every rank: each rank
-        contributes the rows it owns, one all-reduce assembles them."""
-        local = self.__array
+    def _gather_along(self, local: torch.Tensor, axis: int, sel: np.ndarray) -> torch.Tensor:
+        """The global elements ``sel`` along the split axis ``axis`` of
+        ``local`` (this rank's shard, other axes already keyed), on every
+        rank: each rank writes the ones it owns into zeros, one all-reduce
+        assembles them."""
         if self.__comm.size == 1:
-            return local[torch.as_tensor(idx, device=local.device)]
-        offset, lshape, _ = self.__comm.chunk(self.__gshape, 0)
-        mine = (idx >= offset) & (idx < offset + lshape[0])
-        out = torch.zeros((len(idx),) + tuple(local.shape[1:]), dtype=local.dtype,
-                          device=local.device)
+            return local.index_select(axis, torch.as_tensor(sel, device=local.device))
+        offset, lshape, _ = self.__comm.chunk(self.__gshape, self.__split)
+        mine = (sel >= offset) & (sel < offset + lshape[self.__split])
+        shape = list(local.shape)
+        shape[axis] = len(sel)
+        out = torch.zeros(shape, dtype=local.dtype, device=local.device)
         where = torch.as_tensor(np.flatnonzero(mine), device=local.device)
-        src = torch.as_tensor(idx[mine] - offset, device=local.device)
-        out[where] = local[src]
-        if out.dtype == torch.bool:
-            return self.__comm.Allreduce(out.to(torch.uint8), "max").bool()
-        return self.__comm.Allreduce(out, "sum")
+        src = torch.as_tensor(sel[mine] - offset, device=local.device)
+        out.index_copy_(axis, where, local.index_select(axis, src))
+        return self.__comm.Allreduce(out, "max" if out.dtype == torch.bool else "sum")
 
     def _basic_getitem(self, key: tuple) -> "DNDarray":
         split = self.__split
         if split is None:
-            sub = self.__array[key]
+            sub = _apply_basic(self.__array, key)
             return DNDarray(sub, tuple(sub.shape), self.__dtype, None, self.__device,
                             self.__comm)
+        new_split = split - sum(1 for i in range(split) if isinstance(key[i], int))
         k = key[split]
         if isinstance(k, slice) and k == slice(None):
-            sub = self.__array[key]
-            new_split = split - sum(1 for i in range(split) if isinstance(key[i], int))
+            sub = _apply_basic(self.__array, key)
             gshape = list(sub.shape)
             gshape[new_split] = self.__gshape[split]
             return DNDarray(sub, tuple(gshape), self.__dtype, new_split, self.__device,
                             self.__comm)
-        if split != 0:
-            raise NotImplementedError(
-                "basic indexing along a split axis other than 0 waits for a later slice")
-        # the key selects along the split axis: gather the selected rows on
-        # every rank, apply the rest of the key, re-chunk a kept axis 0
-        sel = np.arange(self.__gshape[0])[k]
-        rows = self._gather_rows(np.atleast_1d(sel))
+        # the key selects along the split axis: key the other axes locally,
+        # gather the selected elements on every rank, re-chunk a kept axis
+        sel = np.ascontiguousarray(np.atleast_1d(np.arange(self.__gshape[split])[k]))
+        sub = _apply_basic(self.__array, key[:split] + (slice(None),) + key[split + 1:])
+        sub = self._gather_along(sub, new_split, sel)
         if isinstance(k, int):
-            sub = rows[0][key[1:]]
+            sub = sub.select(new_split, 0)
             return DNDarray(sub, tuple(sub.shape), self.__dtype, None, self.__device,
                             self.__comm)
-        sub = rows[(slice(None),) + key[1:]]
-        return DNDarray.from_global(sub, 0, self.__device, self.__comm, self.__dtype)
+        return DNDarray.from_global(sub, new_split, self.__device, self.__comm, self.__dtype)
 
-    # ------------------------------------------------------------------ #
-    # operations                                                         #
-    # ------------------------------------------------------------------ #
-    def sum(self, axis=None, keepdims: bool = False) -> "DNDarray":
-        from . import _operations
-
-        return _operations._reduce_op(self, torch.sum, 0, axis, keepdims, "sum")
-
-    def min(self, axis=None, keepdims: bool = False) -> "DNDarray":
-        from . import _operations
-
-        return _operations._reduce_op(self, torch.amin, _max_value(self.__array.dtype),
-                                      axis, keepdims, "min")
-
-    def argmin(self, axis=None) -> "DNDarray":
-        """Index of the minimum (heat_tpu ``dndarray.py:947``); ties take the
-        first index, across ranks too."""
-        if axis is None:
-            flat = self._logical().reshape(-1)
-            return DNDarray.from_global(torch.argmin(flat), None, self.__device, self.__comm)
-        axis = sanitize_axis(self.__gshape, axis)
-        gshape = tuple(s for i, s in enumerate(self.__gshape) if i != axis)
-        if axis != self.__split:
-            res = torch.argmin(self.__array, dim=axis)
-            split = None if self.__split is None else self.__split - (axis < self.__split)
-            return DNDarray(res, gshape, types.int64, split, self.__device, self.__comm)
-        return self._argmin_split_axis(axis, gshape)
-
-    def _argmin_split_axis(self, axis, gshape) -> "DNDarray":
+    def __setitem__(self, key, value):
+        """Assignment by basic keys (heat_tpu ``dndarray.py:683``): ints,
+        slices and ``...``, with a scalar or a DNDarray value broadcast to
+        the keyed shape. Each rank writes the part of the key that falls in
+        its chunk, into a new shard; no communication unless ``value`` is a
+        split DNDarray (gathered first). Other key forms raise
+        ``NotImplementedError``."""
+        key = _normalize_basic_key(key, self.__gshape)
         local = self.__array
-        if local.shape[axis] == 0:
-            shp = list(local.shape)
-            shp[axis] = 1
-            local = torch.full(shp, _max_value(local.dtype), dtype=local.dtype,
-                               device=local.device)
-        vals, idx = torch.min(local, dim=axis)
-        offset, _, _ = self.__comm.chunk(self.__gshape, axis)
-        idx = idx + offset
-        allv = self.__comm.Allgather(vals.unsqueeze(0), 0)
-        alli = self.__comm.Allgather(idx.unsqueeze(0), 0)
-        # the first rank holding the minimum wins: lower ranks own lower indices
-        best = torch.argmin(allv, dim=0, keepdim=True)
-        res = torch.gather(alli, 0, best)[0]
-        return DNDarray(res, gshape, types.int64, None, self.__device, self.__comm)
+        if isinstance(value, DNDarray):
+            value = value._logical()
+        value = torch.as_tensor(value, device=local.device).to(local.dtype)
+        # the keyed shape, and the axis of it that the split axis becomes
+        rshape = tuple(len(range(*k.indices(n))) for k, n in zip(key, self.__gshape)
+                       if isinstance(k, slice))
+        value = torch.broadcast_to(value, rshape)
+        split = self.__split
+        if split is not None:
+            offset, lshape, _ = self.__comm.chunk(self.__gshape, split)
+            sel = np.atleast_1d(np.arange(self.__gshape[split])[key[split]])
+            mine = np.flatnonzero((sel >= offset) & (sel < offset + lshape[split]))
+            if mine.size == 0:
+                return
+            k = key[split]
+            if isinstance(k, int):
+                key = key[:split] + (int(sel[0] - offset),) + key[split + 1:]
+            else:
+                ax = split - sum(1 for i in range(split) if isinstance(key[i], int))
+                value = value.index_select(ax, torch.as_tensor(mine, device=local.device))
+                # the owned part of a slice is a slice of the shard
+                lo = int(sel[mine[0]] - offset)
+                step = k.indices(self.__gshape[split])[2]
+                key = key[:split] + (slice(lo, lo + step * mine.size, step)
+                                     if step > 0 else slice(lo, None if lo + step * mine.size < 0
+                                                            else lo + step * mine.size, step),) \
+                    + key[split + 1:]
+        tkey, flips = _torch_key(key, local.shape)
+        # the shard may be shared with another DNDarray (a resplit or ``.T``
+        # at world size 1, a replicated getitem, ``real`` of a real array):
+        # write into a copy, as heat_tpu's ``.at[].set`` makes a new array
+        local = local.clone()
+        local[tkey] = value.flip(flips) if flips else value
+        self.__array = local
 
-    def __add__(self, other) -> "DNDarray":
+    # ------------------------------------------------------------------ #
+    # operator protocol — delegates to the ops namespaces                #
+    # ------------------------------------------------------------------ #
+    def __add__(self, other):
+        from . import arithmetics
+
+        return arithmetics.add(self, other)
+
+    def __radd__(self, other):
+        from . import arithmetics
+
+        return arithmetics.add(other, self)
+
+    def __sub__(self, other):
+        from . import arithmetics
+
+        return arithmetics.sub(self, other)
+
+    def __rsub__(self, other):
+        from . import arithmetics
+
+        return arithmetics.sub(other, self)
+
+    def __mul__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mul(self, other)
+
+    def __rmul__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mul(other, self)
+
+    def __truediv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.div(self, other)
+
+    def __rtruediv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.div(other, self)
+
+    def __floordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(other, self)
+
+    def __divmod__(self, other):
+        from . import arithmetics
+
+        return (arithmetics.floordiv(self, other), arithmetics.mod(self, other))
+
+    def __rdivmod__(self, other):
+        from . import arithmetics
+
+        return (arithmetics.floordiv(other, self), arithmetics.mod(other, self))
+
+    def __pow__(self, other):
+        from . import arithmetics
+
+        return arithmetics.pow(self, other)
+
+    def __rpow__(self, other):
+        from . import arithmetics
+
+        return arithmetics.pow(other, self)
+
+    def __neg__(self):
+        from . import arithmetics
+
+        return arithmetics.neg(self)
+
+    def __pos__(self):
+        from . import arithmetics
+
+        return arithmetics.pos(self)
+
+    def __abs__(self):
+        from . import rounding
+
+        return rounding.abs(self)
+
+    def __invert__(self):
+        from . import arithmetics
+
+        return arithmetics.invert(self)
+
+    def __and__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(self, other)
+
+    def __rand__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(other, self)
+
+    def __or__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(self, other)
+
+    def __ror__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(other, self)
+
+    def __xor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(self, other)
+
+    def __rxor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(other, self)
+
+    def __lshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(self, other)
+
+    def __rlshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(other, self)
+
+    def __rshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(self, other)
+
+    def __rrshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(other, self)
+
+    @staticmethod
+    def _is_operand(other) -> bool:
+        """True for what the binary-op engine takes
+        (``_operations.OPERAND_TYPES``). Anything else makes a comparison
+        return ``NotImplemented``, so Python falls back to identity: a
+        DNDarray in a tuple of strings compares unequal instead of raising
+        (heat_tpu ``dndarray.py:843``)."""
         from . import _operations
 
-        return _operations._binary_op(torch.add, self, other)
+        return isinstance(other, _operations.OPERAND_TYPES)
 
-    def __radd__(self, other) -> "DNDarray":
-        from . import _operations
+    def __eq__(self, other):
+        from . import relational
 
-        return _operations._binary_op(torch.add, other, self)
+        return relational.eq(self, other) if self._is_operand(other) else NotImplemented
 
-    def __pow__(self, other) -> "DNDarray":
-        from . import _operations
+    def __ne__(self, other):
+        from . import relational
 
-        return _operations._binary_op(_pow, self, other)
+        return relational.ne(self, other) if self._is_operand(other) else NotImplemented
 
-    def __rpow__(self, other) -> "DNDarray":
-        from . import _operations
+    def __lt__(self, other):
+        from . import relational
 
-        return _operations._binary_op(_pow, other, self)
+        return relational.lt(self, other) if self._is_operand(other) else NotImplemented
 
+    def __le__(self, other):
+        from . import relational
 
-def _pow(a, b):
-    """``torch.pow`` with bool tensors taken as int32, as ``jnp.power``
-    promotes them (heat_tpu: bool ** bool is int32)."""
-    if isinstance(a, torch.Tensor) and a.dtype == torch.bool:
-        a = a.to(torch.int32)
-    if isinstance(b, torch.Tensor) and b.dtype == torch.bool:
-        b = b.to(torch.int32)
-    return torch.pow(a, b)
+        return relational.le(self, other) if self._is_operand(other) else NotImplemented
 
+    def __gt__(self, other):
+        from . import relational
 
-def _max_value(dtype: torch.dtype):
-    if dtype.is_floating_point:
-        return float("inf")
-    if dtype == torch.bool:
-        return True
-    return torch.iinfo(dtype).max
+        return relational.gt(self, other) if self._is_operand(other) else NotImplemented
+
+    def __ge__(self, other):
+        from . import relational
+
+        return relational.ge(self, other) if self._is_operand(other) else NotImplemented
+
+    __hash__ = None
+
+    # ------------------------------------------------------------------ #
+    # methods over the flat namespace (heat_tpu ``dndarray.py:897-1090``) #
+    # ------------------------------------------------------------------ #
+    def sum(self, axis=None, out=None, keepdims=False):
+        from . import arithmetics
+
+        return arithmetics.sum(self, axis=axis, out=out, keepdims=keepdims)
+
+    def prod(self, axis=None, out=None, keepdims=False):
+        from . import arithmetics
+
+        return arithmetics.prod(self, axis=axis, out=out, keepdims=keepdims)
+
+    def cumsum(self, axis=0):
+        from . import arithmetics
+
+        return arithmetics.cumsum(self, axis)
+
+    def cumprod(self, axis=0):
+        from . import arithmetics
+
+        return arithmetics.cumprod(self, axis)
+
+    def mean(self, axis=None):
+        from . import statistics
+
+        return statistics.mean(self, axis)
+
+    def var(self, axis=None, ddof=0):
+        from . import statistics
+
+        return statistics.var(self, axis, ddof=ddof)
+
+    def std(self, axis=None, ddof=0):
+        from . import statistics
+
+        return statistics.std(self, axis, ddof=ddof)
+
+    def min(self, axis=None, out=None, keepdims=False):
+        from . import statistics
+
+        return statistics.min(self, axis=axis, out=out, keepdims=keepdims)
+
+    def max(self, axis=None, out=None, keepdims=False):
+        from . import statistics
+
+        return statistics.max(self, axis=axis, out=out, keepdims=keepdims)
+
+    def argmin(self, axis=None, out=None):
+        from . import statistics
+
+        return statistics.argmin(self, axis=axis, out=out)
+
+    def argmax(self, axis=None, out=None):
+        from . import statistics
+
+        return statistics.argmax(self, axis=axis, out=out)
+
+    def all(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.all(self, axis=axis, out=out, keepdims=keepdims)
+
+    def any(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.any(self, axis=axis, out=out, keepdims=keepdims)
+
+    def abs(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out, dtype)
+
+    def exp(self, out=None):
+        from . import exponential
+
+        return exponential.exp(self, out)
+
+    def log(self, out=None):
+        from . import exponential
+
+        return exponential.log(self, out)
+
+    def sqrt(self, out=None):
+        from . import exponential
+
+        return exponential.sqrt(self, out)
+
+    def sin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sin(self, out)
+
+    def cos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cos(self, out)
+
+    def clip(self, a_min, a_max, out=None):
+        from . import rounding
+
+        return rounding.clip(self, a_min, a_max, out)
+
+    def allclose(self, other, rtol: float = 1e-05, atol: float = 1e-08,
+                 equal_nan: bool = False) -> bool:
+        from . import logical
+
+        return logical.allclose(self, other, rtol=rtol, atol=atol, equal_nan=equal_nan)
+
+    def isclose(self, other, rtol: float = 1e-05, atol: float = 1e-08,
+                equal_nan: bool = False):
+        from . import logical
+
+        return logical.isclose(self, other, rtol=rtol, atol=atol, equal_nan=equal_nan)
 
 
 def _int_array_key(key) -> Optional[np.ndarray]:
@@ -368,7 +689,10 @@ def _int_array_key(key) -> Optional[np.ndarray]:
     return None
 
 
-def _normalize_basic_key(key, ndim: int) -> tuple:
+def _normalize_basic_key(key, gshape) -> tuple:
+    """A key of ints, slices and at most one ``...`` as one int or slice per
+    axis, the ints non-negative and in bounds."""
+    ndim = len(gshape)
     if not isinstance(key, tuple):
         key = (key,)
     for k in key:
@@ -382,4 +706,38 @@ def _normalize_basic_key(key, ndim: int) -> tuple:
     if len(key) > ndim:
         raise IndexError(f"too many indices for array of dimension {ndim}")
     key = key + (slice(None),) * (ndim - len(key))
-    return tuple(int(k) if isinstance(k, (int, np.integer)) else k for k in key)
+    out = []
+    for k, n in zip(key, gshape):
+        if isinstance(k, (int, np.integer)):
+            if not -n <= k < n:
+                raise IndexError(f"index {int(k)} is out of bounds for axis with size {n}")
+            k = int(k) % n
+        out.append(k)
+    return tuple(out)
+
+
+def _torch_key(key: tuple, shape) -> Tuple[tuple, list]:
+    """A normalized key as torch takes it: every slice with a positive step
+    (torch has no negative steps), and the axes of the keyed result to flip
+    where a negative step was replaced."""
+    out, flips, dim = [], [], 0
+    for k, n in zip(key, shape):
+        if isinstance(k, int):
+            out.append(k)
+            continue
+        start, stop, step = k.indices(n)
+        if step < 0:
+            count = len(range(start, stop, step))
+            last = start + step * (count - 1) if count else 0
+            out.append(slice(last, last + (-step) * count, -step) if count else slice(0, 0))
+            flips.append(dim)
+        else:
+            out.append(slice(start, stop, step))
+        dim += 1
+    return tuple(out), flips
+
+
+def _apply_basic(tensor: torch.Tensor, key: tuple) -> torch.Tensor:
+    tkey, flips = _torch_key(key, tensor.shape)
+    sub = tensor[tkey]
+    return sub.flip(flips) if flips else sub

@@ -6,7 +6,18 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+
+
+def broadcast_shape(shape_a, shape_b) -> Tuple[int, ...]:
+    """NumPy broadcast of two shapes (heat_tpu ``stride_tricks.py:13``);
+    ``ValueError`` where they do not broadcast."""
+    try:
+        return tuple(np.broadcast_shapes(tuple(shape_a), tuple(shape_b)))
+    except ValueError as exc:
+        raise ValueError(
+            f"operands could not be broadcast, input shapes {tuple(shape_a)} {tuple(shape_b)}"
+        ) from exc
 
 
 def sanitize_axis(shape, axis):
