@@ -40,6 +40,19 @@ Phases, one JSON line each:
    user flow ``Z = (X - ht.mean(X, 0)) / ht.std(X, 0)`` then ``KMeans(8,
    kmeans++, 20 iterations).fit(Z)`` (20 ``kmeans_step`` launches), with
    peak memory and ``comm.stats`` (empty at world size 1).
+5c. array tour: on the same 2^23 x 64 float32 points, drawn with
+   ``ht.random.uniform``, the boolean mask ``X[X[:, 0] > 0.5]``,
+   ``ht.nonzero``, ``ht.where``, the mixed key ``X[idx, 2:6]`` (2^20 rows),
+   ``X[1::3]``, ``X[..., None]``, the scatter ``X[idx] = 0.0`` on a copy,
+   ``concatenate``, ``stack``, ``reshape``, ``flatten``, ``roll``, ``flip``,
+   ``pad`` (constant, edge, and a maximum of the other axis), ``repeat``,
+   ``tile``, ``diff``, ``swapaxes``, ``zeros_like``,
+   ``full``, ``eye(8192)`` and ``linspace``, each held bitwise against the
+   raw torch call on ``X.larray`` (``linspace`` within 4 float32 units of
+   its float64 values), with its device ms, bound ms and host µs beside the
+   raw call's; then ``F = X[X[:, 0] > 0.5]`` and ``KMeans(8, kmeans++, 20
+   iterations).fit(F)`` (20 ``kmeans_step`` launches, centroids within 1e-3
+   of a plain Lloyd loop), with peak memory and ``comm.stats``.
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -1058,6 +1071,179 @@ def array_path(torch, ht, tk, smi, bw):
     return ops
 
 
+def array_tour(torch, ht, tk, smi, bw):
+    """Phase 5c, the array tour (examples/arrays/demo_distributed_arrays.py
+    and examples/data_pipeline.py step 3) at the KMeans benchmark's size:
+    boolean masks, nonzero, where, a mixed key, a stepped split-axis slice,
+    a new axis, a scatter, the manipulations and the factories, each through
+    ht's entry points and held bitwise against the raw torch call on the
+    same card tensors, with its device ms, its bound (bytes read and
+    written at the card's bandwidth) and the host µs of both; then the
+    filter-then-fit flow, whose 20 ``kmeans_step`` launches are held
+    against a plain Lloyd loop."""
+    from heat_tpu_torch.cluster.kmeans import _finish_update
+
+    comm = ht.get_comm()
+    n, d = N_POINTS, N_FEATURES
+    torch.cuda.reset_peak_memory_stats()
+    ht.random.seed(0)
+    X = ht.random.uniform(0.0, 1.0, (n, d), split=0)
+    xl = X.larray
+    assert X.split == 0 and xl.dtype == torch.float32
+    nd = n * d * 4
+    n_idx = 2**20
+    idx = ht.random.randint(0, n, (n_idx,))
+    it = idx.larray
+    rows = 2**20
+    comm.reset_stats()
+    ops, checks = {}, {}
+
+    def same(name, got, want, split):
+        """``got`` (a DNDarray) bitwise ``want`` (a tensor), with its gshape,
+        split and lshape_map."""
+        assert tuple(got.gshape) == tuple(want.shape), (name, got.gshape, want.shape)
+        assert got.split == split, (name, got.split, split)
+        assert got.lshape_map.tolist() == [list(want.shape)], (name, got.lshape_map)
+        assert got.larray.dtype == want.dtype and torch.equal(got.larray, want), name
+        checks[name] = {"bitwise_equal": True, "gshape": list(got.gshape), "split": got.split}
+
+    def record(name, fn, raw, raw_what, nbytes):
+        """Device ms (CUDA events over 3 samples of 3 calls), bytes, bound
+        ms and host µs a call (5 calls twice, the card drained before each
+        five) of ``fn``, beside the same of the raw torch call."""
+        ops[name] = {"device_ms": time_ms(torch, fn, reps=3, inner=3), "bytes": nbytes,
+                     "bound_ms": nbytes / bw * 1e3,
+                     "host_us": host_us(torch, fn, n=10, chunk=5), "raw_torch": raw_what,
+                     "raw_ms": time_ms(torch, raw, reps=3, inner=3),
+                     "raw_host_us": host_us(torch, raw, n=10, chunk=5)}
+        torch.cuda.empty_cache()
+
+    # masks and keys
+    mask = xl[:, 0] > 0.5
+    want = xl[mask]
+    m = want.shape[0]
+    same("mask_rows", X[X[:, 0] > 0.5], want, 0)
+    record("mask_rows", lambda: X[X[:, 0] > 0.5], lambda: xl[xl[:, 0] > 0.5],
+           "x[x[:, 0] > 0.5]", nd + m * d * 4)
+    del want
+    want = torch.nonzero(xl[:, 0] > 0.999)
+    same("nonzero", ht.nonzero(X[:, 0] > 0.999), want, 0)
+    record("nonzero", lambda: ht.nonzero(X[:, 0] > 0.999),
+           lambda: torch.nonzero(xl[:, 0] > 0.999), "torch.nonzero(x[:, 0] > 0.999)",
+           n * 4 + want.numel() * 8)
+    got = ht.where(X > 0.5, X, 0.0)  # float64: heat_tpu's type for a float scalar
+    same("where", got, torch.where(xl > 0.5, xl, 0.0).double(), 0)
+    del got
+    record("where", lambda: ht.where(X > 0.5, X, 0.0), lambda: torch.where(xl > 0.5, xl, 0.0),
+           "torch.where(x > 0.5, x, 0.0) (float32)", nd + 2 * nd)
+    same("mixed_key", X[idx, 2:6], xl[it, 2:6], 0)
+    record("mixed_key", lambda: X[idx, 2:6], lambda: xl[it, 2:6], "x[idx, 2:6]",
+           n_idx * 8 + 2 * n_idx * 4 * 4)
+    same("stepped_slice", X[1::3], xl[1::3], 0)
+    record("stepped_slice", lambda: X[1::3], lambda: xl[1::3], "x[1::3] (a view)", 0)
+    same("new_axis", X[..., None], xl[..., None], 0)
+    record("new_axis", lambda: X[..., None], lambda: xl[..., None], "x[..., None] (a view)", 0)
+    zero = torch.zeros((), device=xl.device)
+
+    def scatter():
+        Y = X.copy()
+        Y[idx] = 0.0
+        return Y
+
+    same("scatter", scatter(), xl.clone().index_put_((it,), zero), 0)
+    record("scatter", scatter, lambda: xl.clone().index_put_((it,), zero),
+           "x.clone().index_put_((idx,), 0)", 2 * nd + n_idx * 8)
+
+    # manipulations
+    for name, fn, raw, what, nbytes, split in (
+            ("concatenate", lambda: ht.concatenate([X, X], 0), lambda: torch.cat([xl, xl], 0),
+             "torch.cat([x, x], 0)", 4 * nd, 0),
+            ("stack", lambda: ht.stack([X, X], 1), lambda: torch.stack([xl, xl], 1),
+             "torch.stack([x, x], 1)", 4 * nd, 0),
+            ("reshape", lambda: ht.reshape(X, (n // 2, 2 * d)), lambda: xl.reshape(n // 2, 2 * d),
+             "x.reshape(n / 2, 128) (a view)", 0, 0),
+            ("flatten", lambda: ht.flatten(X), lambda: xl.reshape(-1), "x.reshape(-1) (a view)",
+             0, 0),
+            ("roll", lambda: ht.roll(X, 12345, 0), lambda: torch.roll(xl, 12345, 0),
+             "torch.roll(x, 12345, 0)", 2 * nd, 0),
+            ("flip", lambda: ht.flip(X, 0), lambda: torch.flip(xl, (0,)), "torch.flip(x, (0,))",
+             2 * nd, 0),
+            ("pad", lambda: ht.pad(X, ((1, 1), (0, 0))),
+             lambda: torch.nn.functional.pad(xl, (0, 0, 1, 1)),
+             "torch.nn.functional.pad(x, (0, 0, 1, 1))", 2 * nd + 2 * d * 4, 0),
+            ("pad_edge", lambda: ht.pad(X, ((1, 1), (0, 0)), mode="edge"),
+             lambda: torch.nn.functional.pad(xl[None], (0, 0, 1, 1), mode="replicate")[0],
+             "torch.nn.functional.pad(x[None], (0, 0, 1, 1), mode='replicate')[0]",
+             2 * nd + 2 * d * 4, 0),
+            ("pad_maximum", lambda: ht.pad(X, ((0, 0), (0, 1)), mode="maximum"),
+             lambda: torch.cat([xl, xl.amax(1, keepdim=True)], 1),
+             "torch.cat([x, x.amax(1, keepdim=True)], 1)", 2 * nd + n * 4, 0),
+            ("repeat", lambda: ht.repeat(X[:rows], 2, 0),
+             lambda: torch.repeat_interleave(xl[:rows], 2, 0),
+             "torch.repeat_interleave(x[:2**20], 2, 0)", 3 * rows * d * 4, 0),
+            ("tile", lambda: ht.tile(X[:rows], (2, 1)), lambda: torch.tile(xl[:rows], (2, 1)),
+             "torch.tile(x[:2**20], (2, 1))", 3 * rows * d * 4, 0),
+            ("diff", lambda: ht.diff(X, axis=0), lambda: torch.diff(xl, dim=0),
+             "torch.diff(x, dim=0)", nd + (n - 1) * d * 4, 0),
+            ("swapaxes", lambda: ht.swapaxes(X, 0, 1), lambda: xl.swapaxes(0, 1),
+             "x.swapaxes(0, 1) (a view)", 0, 1)):
+        same(name, fn(), raw(), split)
+        record(name, fn, raw, what, nbytes)
+
+    # factories
+    for name, fn, raw, what, nbytes, split in (
+            ("zeros_like", lambda: ht.zeros_like(X), lambda: torch.zeros_like(xl),
+             "torch.zeros_like(x)", nd, 0),
+            ("full", lambda: ht.full((n, d), 2.5, split=0),
+             lambda: torch.full((n, d), 2.5, device=xl.device), "torch.full((n, 64), 2.5)", nd,
+             0),
+            ("eye", lambda: ht.eye(8192, split=0), lambda: torch.eye(8192, device=xl.device),
+             "torch.eye(8192)", 8192 * 8192 * 4, 0)):
+        same(name, fn(), raw(), split)
+        record(name, fn, raw, what, nbytes)
+    # linspace computes as jnp.linspace does (start·(1 - i/div) + stop·(i/div)),
+    # torch.linspace otherwise: held to the float64 values, 4 float32 units
+    lin = ht.linspace(0.0, 1.0, n, split=0)
+    exact = torch.arange(n, dtype=torch.float64, device=xl.device) / (n - 1)
+    err = float((lin.larray.double() - exact).abs().max())
+    assert lin.shape == (n,) and lin.split == 0 and err <= 4 * U32, err
+    checks["linspace"] = {"max_abs_err": err, "limit": 4 * U32}
+    del lin, exact
+    record("linspace", lambda: ht.linspace(0.0, 1.0, n, split=0),
+           lambda: torch.linspace(0.0, 1.0, n, device=xl.device), "torch.linspace(0, 1, n)",
+           n * 4)
+    stats = dict(comm.stats)
+    assert comm.size > 1 or stats == {}, stats
+
+    # the closing flow: filter rows by a split-axis mask, then fit KMeans
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    F = X[X[:, 0] > 0.5]
+    km = ht.cluster.KMeans(n_clusters=K, init="kmeans++", max_iter=ITERS, tol=-1,
+                           random_state=0).fit(F)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    assert launches["kmeans_step"] == ITERS, launches
+    seeded = ht.cluster.KMeans(n_clusters=K, init="kmeans++", random_state=0)
+    seeded._initialize_cluster_centers(F)
+    cp = seeded.cluster_centers_.larray.clone()
+    for _ in range(ITERS):
+        s_, n_, _ = tk.kmeans_step_plain(F.larray, cp)
+        cp, _ = _finish_update(s_, n_, cp)
+    d_centers = float((km.cluster_centers_.larray - cp).abs().max())
+    assert d_centers <= 1e-3, d_centers
+    assert km.n_iter_ == ITERS and math.isfinite(km.inertia_)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "array_tour", "card": smi, "shape": [n, d], "dtype": "float32",
+          "ops": ops, "checks": checks, "comm_stats": stats,
+          "closing_flow": {"rows_kept": F.shape[0], "seconds": flow_s, "launches": launches,
+                           "n_iter": km.n_iter_, "inertia": km.inertia_,
+                           "max_abs_err_centers_vs_plain_lloyd": d_centers},
+          "peak_memory_bytes": peak})
+    return ops
+
+
 def serving_path(torch, ht, tk, dev, smi):
     """The serving main path at the flagship width, through the entry points
     a user calls; returns the figures and the path's launch counts."""
@@ -1870,6 +2056,10 @@ def main():
 
     # 5b. the array path: operators, moments, cumsum, resplit, standardize
     array_path(torch, ht, tk, smi, bw)
+    torch.cuda.empty_cache()
+
+    # 5c. the array tour: masks, keys, manipulations, factories, filter-fit
+    array_tour(torch, ht, tk, smi, bw)
     torch.cuda.empty_cache()
 
     # 6. the serving path, through the entry points a user calls -------- #

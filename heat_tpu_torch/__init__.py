@@ -3,7 +3,8 @@
 A port of ``heat_tpu`` (the JAX/TPU package, which stays the reference) to
 PyTorch on NVIDIA Hopper: a NumPy-like ``DNDarray`` split along one axis
 across processes (one per card, ``torch.distributed``) with its operators,
-moments, cumulative operations and resplits, KMeans and cdist,
+moments, cumulative operations, resplits, indexing and manipulations,
+factories and random draws, KMeans and cdist,
 and the flagship transformer LM's training and serving paths (``nn``,
 ``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or

@@ -1,6 +1,6 @@
 """Core: the DNDarray, its types, devices, communication, factories and
 the operations over it, re-exported flat as heat_tpu's core namespace is
-(``ht.mean``, ``ht.sqrt``, ``ht.cumsum``, ...)."""
+(``ht.mean``, ``ht.where``, ``ht.concatenate``, ...)."""
 
 from .constants import *  # noqa: F401,F403
 from .types import *  # noqa: F401,F403
@@ -8,7 +8,7 @@ from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
 from .communication import (MeshGrid, TorchCommunication, get_comm, sanitize_comm,
                             use_comm)
 from .dndarray import DNDarray
-from .factories import arange, array, empty, ones, zeros
+from .factories import *  # noqa: F401,F403
 from .memory import *  # noqa: F401,F403
 from .sanitation import *  # noqa: F401,F403
 from .arithmetics import *  # noqa: F401,F403
@@ -19,9 +19,10 @@ from .exponential import *  # noqa: F401,F403
 from .trigonometrics import *  # noqa: F401,F403
 from .complex_math import *  # noqa: F401,F403
 from .statistics import *  # noqa: F401,F403
+from .indexing import *  # noqa: F401,F403
 from .manipulations import *  # noqa: F401,F403
 from .printing import *  # noqa: F401,F403
-from . import (arithmetics, complex_math, exponential, logical, manipulations, memory,
-               printing, random, relational, resharding, rounding, sanitation, statistics,
-               trigonometrics)
+from . import (arithmetics, complex_math, exponential, factories, indexing, logical,
+               manipulations, memory, printing, random, relational, resharding, rounding,
+               sanitation, statistics, trigonometrics)
 from .version import __version__

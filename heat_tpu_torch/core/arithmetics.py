@@ -3,9 +3,9 @@
 Every function funnels through the op engine (:mod:`._operations`) with
 heat_tpu's result types. Integer division and remainder by zero: torch
 raises ``ZeroDivisionError`` for a CPU integer tensor (``jnp`` returns a
-value), and a card tensor gives an unspecified value. ``diff`` and
-``ediff1d`` need the distributed concatenation of ``manipulations`` and are
-not ported yet.
+value), and a card tensor gives an unspecified value. ``diff`` along the
+split axis runs heat_tpu's window fetch (:func:`._manips.split_diff`), its
+``prepend``/``append`` the distributed concatenation.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from .dndarray import DNDarray
 
 __all__ = [
     "add", "bitwise_and", "bitwise_not", "bitwise_or", "bitwise_xor", "cumprod",
-    "cumproduct", "cumsum", "div", "divide", "floor_divide", "floordiv", "fmod", "heaviside",
+    "cumproduct", "cumsum", "diff", "div", "divide", "ediff1d", "floor_divide", "floordiv", "fmod", "heaviside",
     "invert", "left_shift", "mod", "mul", "multiply", "nancumprod", "nancumsum", "neg",
     "negative", "pos", "positive", "pow", "power", "prod", "remainder", "right_shift", "sub",
     "subtract", "sum",
@@ -256,3 +256,102 @@ def sum(a: DNDarray, axis=None, out=None, keepdims=False, keepdim=None) -> DNDar
 def heaviside(x1, x2, out=None) -> DNDarray:
     """Heaviside step function (heat_tpu ``:339``): exact types as floats."""
     return _operations._binary_op(torch.heaviside, x1, x2, out, rule="inexact")
+
+
+def diff(a: DNDarray, n: int = 1, axis: int = -1, prepend=None, append=None) -> DNDarray:
+    """The ``n``-th discrete difference along ``axis`` (heat_tpu
+    ``arithmetics.py:149``): along the split axis, ``n`` window fetches
+    (``out[g] = in[g+1] - in[g]``, bool ``!=``) after ``prepend``/``append``
+    join by the ring concatenation; along another axis, on the shard."""
+    from . import _manips, manipulations
+    from .stride_tricks import sanitize_axis
+
+    if n == 0:
+        return a
+    if n < 0:
+        raise ValueError(f"diff requires that n be a positive number, got {n}")
+    axis = sanitize_axis(a.shape, axis)
+    if a.split is not None and a.comm.size > 1 and a.shape[axis] > 1:
+        if prepend is not None or append is not None:
+            for val, front in ((prepend, True), (append, False)):
+                if val is None:
+                    continue
+                # promote, never truncate: diff(int, prepend=0.5) is float
+                vt = val.larray if isinstance(val, DNDarray) else torch.as_tensor(
+                    np.asarray(val))
+                pdt = types.canonical_heat_type(torch.promote_types(a.larray.dtype, vt.dtype))
+                if pdt is not a.dtype:
+                    a = a.astype(pdt)
+                if isinstance(val, DNDarray) and val.ndim:
+                    vd = val.astype(pdt)
+                else:
+                    # a scalar broadcasts to one slice along the axis, as in numpy
+                    if isinstance(val, DNDarray):
+                        vt = val._logical()
+                    if vt.ndim == 0:
+                        vt = vt.expand(tuple(1 if i == axis else s
+                                             for i, s in enumerate(a.gshape)))
+                    vd = DNDarray.from_global(vt.to(device=a.larray.device,
+                                                    dtype=pdt.torch_type()), None, a.device,
+                                              a.comm)
+                pair = [vd.resplit(a.split), a] if front else [a, vd.resplit(a.split)]
+                a = manipulations.concatenate(pair, axis=axis)
+            return diff(a, n=n, axis=axis)
+        if axis != a.split:
+            gshape = tuple(s - n if i == axis else s for i, s in enumerate(a.gshape))
+            if gshape[axis] <= 0:
+                return diff(a.resplit(None), n=n, axis=axis)
+            return DNDarray(torch.diff(a.larray, n=n, dim=axis), gshape, a.dtype, a.split,
+                            a.device, a.comm)
+        if a.shape[axis] - n <= 0:
+            gshape = tuple(0 if i == axis else s for i, s in enumerate(a.gshape))
+            return DNDarray.from_global(a.larray.new_zeros(gshape), None, a.device, a.comm)
+        out = a
+        for _ in range(n):
+            local = _manips.split_diff(out.larray, axis, out.shape[axis], out.comm)
+            gshape = tuple(s - 1 if i == axis else s for i, s in enumerate(out.gshape))
+            out = DNDarray(local, gshape, out.dtype, axis, out.device, out.comm)
+        return out
+    kwargs = {}
+    for name, val in (("prepend", prepend), ("append", append)):
+        if val is not None:
+            t = val._logical() if isinstance(val, DNDarray) else torch.as_tensor(np.asarray(val))
+            if t.ndim == 0:
+                t = t.expand(tuple(1 if i == axis else s for i, s in enumerate(a.gshape)))
+            kwargs[name] = t.to(a.larray.device)
+    logical = a._logical()
+    if kwargs:
+        # as jnp.diff promotes: a python scalar is weakly typed, an array is not
+        pdt = a.dtype
+        for val, t in zip((v for v in (prepend, append) if v is not None), kwargs.values()):
+            pdt = _operations._scalar_type(pdt, val) if isinstance(
+                val, (bool, int, float, complex)) else types.canonical_heat_type(
+                torch.promote_types(pdt.torch_type(), t.dtype))
+        logical = logical.to(pdt.torch_type())
+        kwargs = {k: v.to(pdt.torch_type()) for k, v in kwargs.items()}
+    res = torch.diff(logical, n=n, dim=axis, **kwargs)
+    split = a.split
+    if split is not None and res.shape[split] == 0:
+        split = None
+    return DNDarray.from_global(res, split, a.device, a.comm)
+
+
+def ediff1d(ary: DNDarray, to_end=None, to_begin=None) -> DNDarray:
+    """Differences of the flattened array with optional tails
+    (``numpy.ediff1d``, heat_tpu ``arithmetics.py:121``)."""
+    from . import factories, manipulations
+
+    d = diff(manipulations.flatten(ary))
+
+    def tail(v, name):
+        arr = np.ravel(np.asarray(v))
+        want = np.dtype(str(d.larray.dtype).replace("torch.", "")) \
+            if d.larray.dtype != torch.bfloat16 else np.dtype(np.float32)
+        if not np.can_cast(arr.dtype, want, casting="same_kind"):
+            raise TypeError(f"dtype of {name} ({arr.dtype}) is not compatible with the "
+                            f"difference dtype ({d.dtype}) under the same_kind rule")
+        return factories.array(arr, dtype=d.dtype, device=ary.device, comm=ary.comm)
+
+    parts = ([tail(to_begin, "to_begin")] if to_begin is not None else []) + [d] + \
+        ([tail(to_end, "to_end")] if to_end is not None else [])
+    return manipulations.concatenate(parts, axis=0) if len(parts) > 1 else d

@@ -46,6 +46,7 @@ class TorchCommunication:
     def __init__(self, group=None):
         self.group = group
         self.stats: Dict[str, Dict[str, int]] = {}
+        self._joined = False
 
     # ------------------------------------------------------------------ #
     # identity                                                           #
@@ -120,6 +121,7 @@ class TorchCommunication:
     # collectives                                                        #
     # ------------------------------------------------------------------ #
     def _count(self, kind: str, nbytes: int) -> None:
+        self._joined = True
         rec = self.stats.setdefault(kind, {"calls": 0, "bytes": 0})
         rec["calls"] += 1
         rec["bytes"] += int(nbytes)
@@ -245,25 +247,89 @@ class TorchCommunication:
             return stacked.sum(0, dtype=tensor.dtype)
         return stacked.prod(0, dtype=tensor.dtype)
 
-    def ring_step(self, tensor: torch.Tensor) -> torch.Tensor:
+    def _peer(self, rank: int) -> int:
+        return dist.get_global_rank(self.group, rank) if self.group is not None else rank
+
+    def _join(self) -> None:
+        """NCCL sets up a group's communicator in its first collective, which
+        every rank must join, and a round of :meth:`Permute` may leave a rank
+        idle (no pair, or only empty tensors): unless this communicator has
+        run a collective already, the round is preceded by a barrier
+        (counted as ``p2p_join``). gloo needs none."""
+        if self._joined or dist.get_backend(self.group) != "nccl":
+            return
+        self._count("p2p_join", 0)
+        dist.barrier(group=self.group)
+
+    def ring_step(self, tensor: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
         """One systolic ring step: send ``tensor`` to rank+1, receive the
-        block of rank-1 (same shape) — the communication skeleton of the cdist
-        ring (heat_tpu ``spatial/distance.py:150``)."""
+        block of rank-1 — the communication skeleton of the cdist ring
+        (heat_tpu ``spatial/distance.py:150``) and of the indexing rings
+        (heat_tpu ``communication.py:289``). Every rank's block has one
+        shape; with ``width`` given, a shorter (or empty) block is padded
+        with zeros along axis 0 to ``width`` rows on the wire, and the
+        received block has ``width`` rows. Any dtype travels, as bytes."""
         if self.size == 1:
             return tensor
-        send = tensor.contiguous()
+        if width is not None and tensor.shape[0] < width:
+            pad = tensor.new_zeros((width - tensor.shape[0],) + tuple(tensor.shape[1:]))
+            tensor = torch.cat([tensor, pad])
+        send = _as_bytes(tensor)
         recv = torch.empty_like(send)
-        nxt = (self.rank + 1) % self.size
-        prv = (self.rank - 1) % self.size
-        if self.group is not None:
-            nxt = dist.get_global_rank(self.group, nxt)
-            prv = dist.get_global_rank(self.group, prv)
-        self._count("ring_step", send.numel() * send.element_size())
+        nxt = self._peer((self.rank + 1) % self.size)
+        prv = self._peer((self.rank - 1) % self.size)
+        self._count("ring_step", send.numel())
         ops = [dist.P2POp(dist.isend, send, nxt, self.group),
                dist.P2POp(dist.irecv, recv, prv, self.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return recv
+        return recv.view(tensor.dtype).view(tensor.shape)
+
+    def Permute(self, tensor: torch.Tensor, pairs, recv_shape) -> Optional[torch.Tensor]:
+        """One round of a partial permutation (heat_tpu's ``ppermute``,
+        ``_manips.py:98``): for each ``(src, dst)`` of ``pairs`` rank
+        ``src`` sends its ``tensor`` to rank ``dst``; no rank sends or
+        receives twice. Returns the tensor this rank receives, of
+        ``recv_shape`` and ``tensor``'s dtype (``tensor`` itself for a pair
+        ``(r, r)``), or None. The round is posted as ONE
+        ``batch_isend_irecv``; a rank that neither sends nor receives posts
+        nothing, and no message of zero bytes is posted. Every rank counts
+        the round as ``permute``, with the bytes it sends."""
+        if self.size == 1:
+            return tensor if (0, 0) in pairs else None
+        me = self.rank
+        dst = next((d for s, d in pairs if s == me), None)
+        src = next((s for s, d in pairs if d == me), None)
+        if len({d for _, d in pairs}) < len(pairs) or len({s for s, _ in pairs}) < len(pairs):
+            raise ValueError(f"not a partial permutation: {pairs}")
+        ops, recv, out = [], None, None
+        sent = 0
+        if dst is not None and dst != me and tensor.numel():
+            send = _as_bytes(tensor)
+            sent = send.numel()
+            ops.append(dist.P2POp(dist.isend, send, self._peer(dst), self.group))
+        if src == me:
+            out = tensor
+        elif src is not None:
+            out = torch.empty(tuple(recv_shape), dtype=tensor.dtype, device=tensor.device)
+            if out.numel():
+                recv = _as_bytes(out)
+                ops.append(dist.P2POp(dist.irecv, recv, self._peer(src), self.group))
+        self._join()
+        self._count("permute", sent)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if recv is not None:
+            out = recv.view(tensor.dtype).view(tuple(recv_shape))
+        return out
+
+
+def _as_bytes(tensor: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy-free (where possible) byte view of ``tensor``: bool
+    and complex travel as bytes, as :meth:`TorchCommunication.Alltoall`
+    sends them."""
+    return tensor.contiguous().reshape(-1).view(torch.uint8)
 
 
 class MeshAxisComm(TorchCommunication):

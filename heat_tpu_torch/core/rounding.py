@@ -61,8 +61,8 @@ def ceil(x: DNDarray, out=None) -> DNDarray:
     return _operations._local_op(_ceil, x, out)
 
 
-def _clip(t: torch.Tensor, min=None, max=None) -> torch.Tensor:
-    return torch.clamp(t, min=min, max=max)
+def _clip(t: torch.Tensor, min=None, max=None, dtype=None) -> torch.Tensor:
+    return torch.clamp(t if dtype is None else t.to(dtype), min=min, max=max)
 
 
 def clip(x: DNDarray, min=None, max=None, out=None) -> DNDarray:  # noqa: A002
@@ -72,7 +72,15 @@ def clip(x: DNDarray, min=None, max=None, out=None) -> DNDarray:  # noqa: A002
         raise ValueError("either min or max must be set")
     mn = min.larray if isinstance(min, DNDarray) else min
     mx = max.larray if isinstance(max, DNDarray) else max
-    return _operations._local_op(_clip, x, out, min=mn, max=mx)
+    # a python bound of a higher kind than x raises the result type, as a
+    # weak-typed scalar does in heat_tpu (an int array clipped to 2.5 is
+    # float64)
+    dtype = x.dtype
+    for bound in (min, max):
+        if isinstance(bound, (bool, int, float, complex)):
+            dtype = _operations._scalar_type(dtype, bound)
+    tdt = None if dtype is x.dtype else dtype.torch_type()
+    return _operations._local_op(_clip, x, out, min=mn, max=mx, dtype=tdt)
 
 
 def copysign(t1, t2) -> DNDarray:
@@ -114,7 +122,11 @@ def modf(x: DNDarray, out=None) -> tuple:
 
 
 def round(x: DNDarray, decimals: int = 0, out=None, dtype=None) -> DNDarray:  # noqa: A001
-    """Round half to even at ``decimals`` (heat_tpu ``:96``)."""
+    """Round half to even at ``decimals`` (heat_tpu ``:96``). An exact
+    array is its own rounding for ``decimals >= 0``; below that it raises
+    ``NotImplementedError``, as ``jnp.round`` does for integers."""
+    if decimals < 0 and types.heat_type_is_exact(x.dtype):
+        raise NotImplementedError("integer np.round not implemented for decimals < 0")
     res = _operations._local_op(_round, x, out, decimals=decimals)
     if dtype is not None:
         res = res.astype(types.canonical_heat_type(dtype), copy=False)
@@ -123,7 +135,7 @@ def round(x: DNDarray, decimals: int = 0, out=None, dtype=None) -> DNDarray:  # 
 
 def sgn(x: DNDarray, out=None) -> DNDarray:
     """Sign, ``x / |x|`` for complex input (heat_tpu ``:104``)."""
-    return _operations._local_op(torch.sgn, x, out)
+    return _operations._local_op(_sign, x, out)
 
 
 def sign(x: DNDarray, out=None) -> DNDarray:
@@ -135,6 +147,9 @@ def sign(x: DNDarray, out=None) -> DNDarray:
 def _sign(t: torch.Tensor) -> torch.Tensor:
     if t.is_complex():
         return torch.sgn(t)
+    if t.is_floating_point():
+        # torch.sign(nan) is 0; jnp.sign keeps the NaN
+        return torch.where(torch.isnan(t), t, torch.sign(t))
     return torch.sign(t)
 
 

@@ -82,7 +82,9 @@ def _arg_reduce(x: DNDarray, largest: bool, axis, out) -> DNDarray:
         return _operations._finalize(result, out)
     gshape = tuple(s for i, s in enumerate(x.shape) if i != axis)
     if axis != x.split:
-        res = (torch.argmax if largest else torch.argmin)(local, dim=axis)
+        # torch has no argmax of bool: compare as uint8
+        cmp = local.view(torch.uint8) if local.dtype == torch.bool else local
+        res = (torch.argmax if largest else torch.argmin)(cmp, dim=axis)
         split = None if x.split is None else x.split - (axis < x.split)
         result = DNDarray(res, gshape, types.int64, split, x.device, x.comm)
         return _operations._finalize(result, out)

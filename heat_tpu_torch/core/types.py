@@ -22,7 +22,8 @@ __all__ = [
     "float32", "float", "float_", "float64", "double", "complex64", "cfloat",
     "csingle", "complex128", "cdouble", "canonical_heat_type",
     "heat_type_is_exact", "promote_types", "result_type",
-    "can_cast", "accumulation_dtype",
+    "can_cast", "accumulation_dtype", "heat_type_of", "heat_type_is_inexact",
+    "heat_type_is_complexfloating", "issubdtype", "iscomplex", "isreal",
 ]
 
 
@@ -209,6 +210,63 @@ def heat_type_is_exact(ht_dtype) -> builtins.bool:
     """True for integer/bool types (heat_tpu ``types.py:308``)."""
     dt = canonical_heat_type(ht_dtype)
     return issubclass(dt, integer) or dt is bool
+
+
+def heat_type_of(obj) -> type:
+    """The heat type of an object's elements (heat_tpu ``types.py:293``)."""
+    from .dndarray import DNDarray
+
+    if isinstance(obj, DNDarray):
+        return obj.dtype
+    if hasattr(obj, "dtype"):
+        return canonical_heat_type(obj.dtype)
+    if isinstance(obj, (builtins.bool, builtins.int, builtins.float, builtins.complex)):
+        return _PY_TO_HEAT[type(obj)]
+    if isinstance(obj, (list, tuple)):
+        return canonical_heat_type(np.asarray(obj).dtype)
+    raise TypeError(f"cannot determine heat type of {type(obj)}")
+
+
+def heat_type_is_inexact(ht_dtype) -> builtins.bool:
+    """True for floating and complex types (heat_tpu ``types.py:314``)."""
+    return issubclass(canonical_heat_type(ht_dtype), inexact)
+
+
+def heat_type_is_complexfloating(ht_dtype) -> builtins.bool:
+    """True for complex types (heat_tpu ``types.py:319``)."""
+    return issubclass(canonical_heat_type(ht_dtype), complexfloating)
+
+
+def issubdtype(arg1, arg2) -> builtins.bool:
+    """NumPy's abstract type test (heat_tpu ``types.py:323``): ``arg1`` a
+    subtype of an abstract class, or the same concrete type."""
+    abstract = {generic, number, integer, signedinteger, unsignedinteger, inexact, floating,
+                complexfloating, flexible}
+    if isinstance(arg2, type) and arg2 in abstract:
+        try:
+            return issubclass(canonical_heat_type(arg1), arg2)
+        except TypeError:
+            return False
+    try:
+        return canonical_heat_type(arg1) is canonical_heat_type(arg2)
+    except TypeError:
+        return False
+
+
+def iscomplex(x):
+    """Element-wise: a nonzero imaginary part (heat_tpu ``types.py:348``)."""
+    from . import _operations, factories
+
+    if heat_type_is_complexfloating(x.dtype):
+        return _operations._local_op(lambda t: t.imag != 0, x)
+    return factories.zeros(x.shape, dtype=bool, split=x.split, device=x.device, comm=x.comm)
+
+
+def isreal(x):
+    """Element-wise: a zero imaginary part (heat_tpu ``types.py:357``)."""
+    from . import logical
+
+    return logical.logical_not(iscomplex(x))
 
 
 def promote_types(type1, type2) -> type:

@@ -322,7 +322,7 @@ def test_aliases_are_the_same_functions():
         assert hasattr(hj, alias) and hasattr(ht, alias), alias
         if name is not None:
             assert getattr(ht, alias) is getattr(ht, name), alias
-    assert not hasattr(ht, "where")  # waits for indexing.py
+    assert hasattr(hj, "where") and ht.where is ht.indexing.where
 
 
 def test_clip_round_decimals_and_scalar_predicates_match_heat_tpu():
@@ -339,6 +339,40 @@ def test_clip_round_decimals_and_scalar_predicates_match_heat_tpu():
             assert getattr(ht, f)(ht.array(a), ht.array(other)) == \
                 getattr(hj, f)(hj.array(a, comm=C1), hj.array(other, comm=C1)), f
     assert ht.equal(ht.array(a), ht.array(a[:3])) is False
+
+
+# the faults ROADMAP queue 3 named, each against heat_tpu: sign of NaN, an
+# integer round with decimals < 0, a bool argmax/argmin off the split axis,
+# an integer clip with float bounds
+_REPAIRED = {
+    "sign_nan_float32": lambda lib, kw: lib.sign(lib.array(
+        np.array([[np.nan, -1.5, 0.0], [2.0, np.nan, -0.0]], np.float32), split=0, **kw)),
+    "sign_nan_float16": lambda lib, kw: lib.sign(lib.array(
+        np.array([np.nan, -3.0, 0.5, np.nan], np.float16), split=0, **kw)),
+    "round_int_negative_decimals": lambda lib, kw: lib.round(lib.array(
+        np.array([[-7, 7, -3, 5], [3, -2, 9, -8]], np.int32), split=0, **kw), -1),
+    "argmax_argmin_bool": lambda lib, kw: (lambda b: (lib.argmax(b, 1), lib.argmin(b, 0)))(
+        lib.array(np.array([[False, True, False, True], [True, False, True, False]]), split=0,
+                  **kw)),
+    "clip_int_float_bounds": lambda lib, kw: (lambda k: (lib.clip(k, -1.5, 2.5),
+                                                         lib.clip(k, None, 2.5)))(
+        lib.array(np.array([[-7, 7, -3, 5], [3, -2, 9, -8]], np.int32), split=0, **kw)),
+}
+
+
+@pytest.mark.parametrize("case", list(_REPAIRED))
+def test_repaired_faults_match_heat_tpu(case):
+    """heat_tpu: NaN keeps its sign NaN; an integer round with decimals < 0
+    raises NotImplementedError; argmax(b, 1) is int64 [0, 2] and
+    argmin(b, 0) [1, 0, 0, 1]; an int32 clip with float bounds is float64."""
+    fn = _REPAIRED[case]
+    try:
+        want = fn(hj, {"comm": C1})
+    except NotImplementedError:
+        with pytest.raises(NotImplementedError):
+            fn(ht, {})
+        return
+    _check(fn(ht, {}), want, ulps=0)
 
 
 # --------------------------------------------------------------------------- #
@@ -607,7 +641,10 @@ def test_basic_getitem_and_setitem_match_heat_tpu(split):
 
 _DERIVED = {"resplit_1": lambda x: x.resplit(1), "resplit_none": lambda x: x.resplit(None),
             "resplit_noop": lambda x: x.resplit(0), "transpose": lambda x: x.T,
-            "real": lambda x: x.real, "transpose_twice": lambda x: x.T.T}
+            "real": lambda x: x.real, "transpose_twice": lambda x: x.T.T,
+            "reshape": lambda x: x.reshape((5, 7)), "squeeze": lambda x: x[:1].squeeze(),
+            "expand_dims": lambda x: x.expand_dims(1), "swapaxes": lambda x: x.swapaxes(0, 1),
+            "balance": lambda x: x.balance()}
 
 
 @pytest.mark.parametrize("derive", list(_DERIVED))
