@@ -53,6 +53,21 @@ Phases, one JSON line each:
    raw call's; then ``F = X[X[:, 0] > 0.5]`` and ``KMeans(8, kmeans++, 20
    iterations).fit(F)`` (20 ``kmeans_step`` launches, centroids within 1e-3
    of a plain Lloyd loop), with peak memory and ``comm.stats``.
+5d. order statistics: on the same X, ``ht.sort(X, axis=0)`` (held by
+   properties: columns non-decreasing, the input gathered at the indices,
+   the indices a permutation, ties in index order), ``ht.percentile`` of a
+   column and of all 2^29 elements and ``ht.median(X, 0)`` (against
+   ``torch.kthvalue`` and jax's formula in float64), ``ht.unique`` with
+   counts and inverse of a column rounded to 1/1000, ``ht.topk`` (against
+   the head of the stable descending sort), ``ht.isin`` and the four set
+   operations on 2^20 int64 draws (against numpy), ``histogram``,
+   ``histc`` and ``bincount`` (numpy on 2^20 rows; the full-size counts sum
+   to n), ``searchsorted``, ``digitize``, ``interp``, ``gradient`` and
+   ``trapz`` (against float64 on the card), each with its device ms, bound
+   ms, raw torch call and host µs; then ``examples/data_pipeline.py``'s
+   step 3 with its p90: ``F = X[X[:, 0] > percentile(X[:, 0], 90)]``,
+   ``KMeans(8, kmeans++, 20 iterations).fit(F)`` and ``ht.median(F[:, 0])``,
+   with peak memory and ``comm.stats``.
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -1244,6 +1259,261 @@ def array_tour(torch, ht, tk, smi, bw):
     return ops
 
 
+def order_stats(torch, ht, tk, smi, bw):
+    """Phase 5d, order statistics (examples/data_pipeline.py step 3 with its
+    p90) on the array tour's X, nothing cut: ``sort`` along the split axis,
+    the percentiles and medians, ``unique``, ``topk``, ``isin`` and the set
+    operations, the counts, the searches and the calculus, each held by
+    properties or references that do not go through the port (torch's
+    ``kthvalue`` and ``searchsorted``, numpy on a host copy, float64 on the
+    card), with its device ms, its bound (each input read once, each output
+    written once, int64 indices counted), the raw torch call's ms where one
+    computes the same, and the host µs of both; then the p90 filter, a
+    KMeans fit on the kept rows and their median."""
+    from heat_tpu_torch.cluster.kmeans import _finish_update
+
+    comm = ht.get_comm()
+    n, d = N_POINTS, N_FEATURES
+    eps64 = 2.0**-52
+    torch.cuda.reset_peak_memory_stats()
+    ht.random.seed(0)
+    X = ht.random.uniform(0.0, 1.0, (n, d), split=0)
+    xl = X.larray
+    col = xl[:, 0].contiguous()
+    c64 = col.double()
+    nd = n * d * 4
+    comm.reset_stats()
+    ops, checks = {}, {}
+
+    def record(name, fn, raw, raw_what, nbytes, big=False):
+        """Device ms (CUDA events; sort-sized ops 3 samples of one call,
+        others 3 of 3) and host µs a call (5 calls twice, or 3 one by one;
+        the card drained before each) of ``fn``, beside the raw call's."""
+        reps, inner = (3, 1) if big else (3, 3)
+        hn, hc = (3, 1) if big else (10, 5)
+        row = {"device_ms": time_ms(torch, fn, reps=reps, inner=inner), "bytes": nbytes,
+               "bound_ms": nbytes / bw * 1e3, "host_us": host_us(torch, fn, n=hn, chunk=hc),
+               "raw_torch": raw_what, "raw_ms": None, "raw_host_us": None}
+        if raw is not None:
+            row["raw_ms"] = time_ms(torch, raw, reps=reps, inner=inner)
+            row["raw_host_us"] = host_us(torch, raw, n=hn, chunk=hc)
+        ops[name] = row
+        torch.cuda.empty_cache()
+
+    def within(name, got, want, tol):
+        err = (got.double() - want).abs()
+        bad = int((err > tol).sum())
+        assert bad == 0, f"order_stats {name}: {bad} values beyond their bound"
+        checks[name] = {"max_abs_err": float(err.max()), "limit": float(torch.as_tensor(
+            tol).max())}
+
+    def picks(sorted_or_kth, m, q):
+        """jax's local percentile of ``m`` sorted values: the neighbours of
+        q·fl(0.01·(m-1)) and ``low·(1-w) + high·w`` in float64, the
+        neighbours read by ``sorted_or_kth(k)`` (1-based)."""
+        qx = q * (0.01 * (m - 1))
+        lo, hi = math.floor(qx), math.ceil(qx)
+        w = qx - lo
+        low, high = sorted_or_kth(lo + 1).double(), sorted_or_kth(hi + 1).double()
+        return low * (1 - w) + high * w, 2 * eps64 * torch.maximum(low.abs(), high.abs())
+
+    # sort along the split axis: each column non-decreasing, the values
+    # the input gathered at the indices, the indices a permutation of each
+    # column, tied values in increasing index order
+    vals, idx = ht.sort(X, axis=0)
+    v, i = vals.larray, idx.larray
+    assert vals.split == 0 and idx.dtype is ht.int64 and v.shape == (n, d)
+    assert bool((v[1:] >= v[:-1]).all()), "sort: a column decreases"
+    assert torch.equal(xl.gather(0, i), v), "sort: values are not the input at the indices"
+    seen = torch.zeros((n, d), dtype=torch.bool, device=xl.device).scatter_(0, i, True)
+    assert bool(seen.all()), "sort: a column's indices are no permutation"
+    ties = v[1:] == v[:-1]
+    assert bool((i[1:][ties] > i[:-1][ties]).all()), "sort: tied values out of index order"
+    checks["sort"] = {"non_decreasing": True, "gather_bitwise": True, "permutation": True,
+                      "tied_pairs_in_index_order": int(ties.sum())}
+    del vals, idx, v, i, seen, ties
+    record("sort(X, 0)", lambda: ht.sort(X, axis=0), lambda: torch.sort(xl, dim=0, stable=True),
+           "torch.sort(x, 0, stable=True)", nd * 2 + n * d * 8, big=True)
+
+    # percentiles and medians against torch.kthvalue and jax's formula
+    got = ht.percentile(X[:, 0], [10, 50, 90]).larray
+    for j, q in enumerate((10, 50, 90)):
+        want, tol = picks(lambda k: torch.kthvalue(col, k).values, n, q)
+        within(f"percentile(X[:, 0], {q})", got[j], want, tol)
+    record("percentile(X[:, 0], [10, 50, 90])",
+           lambda: ht.percentile(X[:, 0], [10, 50, 90]),
+           lambda: torch.quantile(col, torch.tensor([0.1, 0.5, 0.9], device=col.device)),
+           "torch.quantile(x[:, 0], [0.1, 0.5, 0.9]) (float32)", n * 4 + 3 * 8, big=True)
+    got = ht.median(X, axis=0).larray
+    want, tol = picks(lambda k: torch.kthvalue(xl, k, dim=0).values, n, 50)
+    within("median(X, 0)", got, want, tol)
+    record("median(X, 0)", lambda: ht.median(X, axis=0), None,
+           "none (torch.quantile refuses above 2^24 elements)", nd + d * 8, big=True)
+    got = ht.percentile(X, 90).larray
+    want, tol = picks(lambda k: torch.kthvalue(xl.reshape(-1), k).values, n * d, 90)
+    within("percentile(X, 90) over 2^29", got, want, tol)
+    record("percentile(X, 90)", lambda: ht.percentile(X, 90), None,
+           "none (torch.quantile refuses above 2^24 elements)", nd + 8, big=True)
+
+    # unique with counts and inverse of the column rounded to 1/1000
+    R = ht.round(X[:, 0] * 1000)
+    r = R.larray
+    u, inv, cnt = ht.unique(R, return_inverse=True, return_counts=True)
+    ul, il, cl = u.larray, inv.larray, cnt.larray
+    assert bool((ul[1:] > ul[:-1]).all()), "unique: not strictly increasing"
+    assert int(cl.sum()) == n and torch.equal(ul[il], r), "unique: counts or inverse"
+    checks["unique"] = {"uniques": int(ul.shape[0]), "counts_sum": int(cl.sum()),
+                        "rebuilt_bitwise": True}
+    record("unique(round(X[:, 0]·1000), inverse, counts)",
+           lambda: ht.unique(R, return_inverse=True, return_counts=True),
+           lambda: torch.unique(r, return_inverse=True, return_counts=True),
+           "torch.unique(r, return_inverse=True, return_counts=True)",
+           n * 4 + ul.shape[0] * 12 + n * 8, big=True)
+    del u, inv, cnt, ul, il, cl
+
+    # topk against the head of the stable descending sort
+    tv, ti = ht.topk(X[:, 0], 1000)
+    head = torch.sort(col, descending=True, stable=True)
+    assert torch.equal(tv.larray, head.values[:1000]) and \
+        torch.equal(ti.larray, head.indices[:1000]), "topk: not the sort's head"
+    checks["topk"] = {"bitwise_vs_stable_sort_head": True}
+    del head
+    record("topk(X[:, 0], 1000)", lambda: ht.topk(X[:, 0], 1000),
+           lambda: torch.topk(col, 1000), "torch.topk(x[:, 0], 1000)", n * 4 + 1000 * 12,
+           big=True)
+
+    # isin and the set operations on int64 draws, against numpy
+    m = 2**20
+    A = ht.random.randint(0, 2**21, (m,), split=0)
+    B = ht.random.randint(0, 2**21, (m,), split=0)
+    a_np, b_np = A.numpy(), B.numpy()
+    al, bl = A.larray, B.larray
+    for name, fn, ref, raw, what, out_n in (
+            ("isin", lambda: ht.isin(A, B), np.isin(a_np, b_np), lambda: torch.isin(al, bl),
+             "torch.isin(a, b)", m),
+            ("union1d", lambda: ht.union1d(A, B), np.union1d(a_np, b_np),
+             lambda: torch.unique(torch.cat([al, bl])), "torch.unique(torch.cat([a, b]))", None),
+            ("intersect1d", lambda: ht.intersect1d(A, B), np.intersect1d(a_np, b_np), None,
+             "none", None),
+            ("setdiff1d", lambda: ht.setdiff1d(A, B), np.setdiff1d(a_np, b_np), None, "none",
+             None),
+            ("setxor1d", lambda: ht.setxor1d(A, B), np.setxor1d(a_np, b_np), None, "none",
+             None)):
+        res = fn().numpy()
+        assert res.dtype == ref.dtype and np.array_equal(res, ref), f"{name}: not numpy's"
+        checks[name] = {"equal_to_numpy": True, "length": int(ref.shape[0])}
+        nbytes = 2 * m * 8 + (m if out_n else ref.shape[0] * 8)
+        record(name, fn, raw, what, nbytes, big=name != "isin")
+
+    # histograms and bincount: numpy on a host copy of 2^20 rows, the full
+    # size counts summing to n
+    rows = 2**20
+    sub = X[:rows, 0]
+    h, e = ht.histogram(sub, 100)
+    edges = e.larray.double()
+    lo, hi = float(edges[0]), float(edges[-1])
+    np_counts, _ = np.histogram(sub.numpy(), bins=edges.cpu().numpy())
+    assert np.array_equal(h.numpy(), np_counts.astype(np.float32)), "histogram: not numpy's"
+    lin = torch.linspace(lo, hi, 101, dtype=torch.float64, device=edges.device)
+    within("histogram edges", edges, lin, 4 * U32 * max(abs(lo), abs(hi)))
+    hf, _ = ht.histogram(X[:, 0], 100)
+    hc = ht.histc(X[:, 0], 100)
+    assert float(hf.larray.sum()) == n and torch.equal(hc.larray, hf.larray), "histc/histogram"
+    checks["histogram"] = {"equal_to_numpy_2^20": True, "full_size_sum": n,
+                           "histc_equal": True}
+    cmin, cmax = float(col.min()), float(col.max())
+    record("histogram(X[:, 0], 100)", lambda: ht.histogram(X[:, 0], 100),
+           lambda: torch.histc(col, 100, cmin, cmax), "torch.histc(x[:, 0], 100, min, max)",
+           n * 4 + 100 * 4 + 101 * 4)
+    record("histc(X[:, 0], 100)", lambda: ht.histc(X[:, 0], 100),
+           lambda: torch.histc(col, 100, cmin, cmax), "torch.histc(x[:, 0], 100, min, max)",
+           n * 4 + 100 * 4)
+    C = ht.random.randint(0, 1000, (n,), split=0)
+    bc = ht.bincount(C)
+    assert int(bc.larray.sum()) == n
+    np_bc = np.bincount(C[:rows].numpy(), minlength=1000)
+    assert np.array_equal(ht.bincount(C[:rows], minlength=1000).numpy(), np_bc), "bincount"
+    checks["bincount"] = {"equal_to_numpy_2^20": True, "full_size_sum": n}
+    cl_ = C.larray
+    record("bincount(randint(0, 1000, 2^23))", lambda: ht.bincount(C),
+           lambda: torch.bincount(cl_), "torch.bincount(c)", n * 8 + 1000 * 8)
+
+    # searches, interpolation and calculus against float64 on the card
+    T = ht.linspace(0.0, 1.0, 101, dtype=ht.float64, split=None)
+    tl = T.larray
+    FP = ht.sin(T)
+    fp = FP.larray
+    ss = ht.searchsorted(T, X[:, 0])
+    assert torch.equal(ss.larray, torch.searchsorted(tl, c64)), "searchsorted"
+    dg = ht.digitize(X[:, 0], T)
+    assert dg.dtype is ht.int32 and torch.equal(
+        dg.larray, torch.searchsorted(tl, c64, right=True).int()), "digitize"
+    checks["searchsorted"] = checks["digitize"] = {"bitwise_vs_torch_float64": True}
+    record("searchsorted(T, X[:, 0])", lambda: ht.searchsorted(T, X[:, 0]),
+           lambda: torch.searchsorted(tl, c64), "torch.searchsorted(t, x[:, 0] (float64))",
+           n * 4 + 101 * 8 + n * 8)
+    record("digitize(X[:, 0], T)", lambda: ht.digitize(X[:, 0], T),
+           lambda: torch.bucketize(c64, tl, right=True),
+           "torch.bucketize(x[:, 0] (float64), t, right=True)", n * 4 + 101 * 8 + n * 4)
+    ip = ht.interp(X[:, 0], T, FP).larray
+    j = torch.searchsorted(tl, c64, right=True).clamp(1, 100)
+    want = fp[j - 1] + (c64 - tl[j - 1]) / (tl[j] - tl[j - 1]) * (fp[j] - fp[j - 1])
+    within("interp", ip, want, 8 * eps64)
+    record("interp(X[:, 0], T, sin(T))", lambda: ht.interp(X[:, 0], T, FP), None, "none",
+           n * 4 + 2 * 101 * 8 + n * 8)
+    g = ht.gradient(X[:, 0]).larray
+    g64 = torch.cat([c64[1:2] - c64[:1], (c64[2:] - c64[:-2]) / 2, c64[-1:] - c64[-2:-1]])
+    within("gradient", g, g64, U32 * g64.abs())
+    record("gradient(X[:, 0])", lambda: ht.gradient(X[:, 0]), lambda: torch.gradient(col),
+           "torch.gradient(x[:, 0])", n * 4 * 2)
+    tz = ht.trapz(X[:, 0]).larray
+    pair = c64[1:] + c64[:-1]
+    absum = float(pair.abs().sum())
+    within("trapz", tz, pair.sum() * 0.5, 0.5 * (U32 * absum + sum_tol(absum, n - 1)))
+    record("trapz(X[:, 0])", lambda: ht.trapz(X[:, 0]), lambda: torch.trapezoid(col),
+           "torch.trapezoid(x[:, 0])", n * 4 + 4)
+    stats = dict(comm.stats)
+    assert comm.size > 1 or stats == {}, stats
+
+    # the closing flow: data_pipeline.py step 3 with its p90, then the
+    # median of the kept rows
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    p90 = ht.percentile(X[:, 0], 90)
+    F = X[X[:, 0] > p90]
+    km = ht.cluster.KMeans(n_clusters=K, init="kmeans++", max_iter=ITERS, tol=-1,
+                           random_state=0).fit(F)
+    med = ht.median(F[:, 0])
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    assert launches["kmeans_step"] == ITERS, launches
+    kept = col.double() > p90.larray
+    assert F.shape[0] == int(kept.sum()), (F.shape, int(kept.sum()))
+    fcol = F.larray[:, 0].contiguous()
+    want, tol = picks(lambda k: torch.kthvalue(fcol, k).values, F.shape[0], 50)
+    within("closing median(F[:, 0])", med.larray, want, tol)
+    seeded = ht.cluster.KMeans(n_clusters=K, init="kmeans++", random_state=0)
+    seeded._initialize_cluster_centers(F)
+    cp = seeded.cluster_centers_.larray.clone()
+    for _ in range(ITERS):
+        s_, n_, _ = tk.kmeans_step_plain(F.larray, cp)
+        cp, _ = _finish_update(s_, n_, cp)
+    d_centers = float((km.cluster_centers_.larray - cp).abs().max())
+    assert d_centers <= 1e-3, d_centers
+    assert km.n_iter_ == ITERS and math.isfinite(km.inertia_)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "order_stats", "card": smi, "shape": [n, d], "dtype": "float32",
+          "ops": ops, "checks": checks, "comm_stats": stats,
+          "closing_flow": {"p90": float(p90.item()), "rows_kept": F.shape[0],
+                           "median_kept": float(med.item()), "seconds": flow_s,
+                           "launches": launches, "n_iter": km.n_iter_,
+                           "inertia": km.inertia_,
+                           "max_abs_err_centers_vs_plain_lloyd": d_centers},
+          "peak_memory_bytes": peak})
+    return ops
+
+
 def serving_path(torch, ht, tk, dev, smi):
     """The serving main path at the flagship width, through the entry points
     a user calls; returns the figures and the path's launch counts."""
@@ -2060,6 +2330,11 @@ def main():
 
     # 5c. the array tour: masks, keys, manipulations, factories, filter-fit
     array_tour(torch, ht, tk, smi, bw)
+    torch.cuda.empty_cache()
+
+    # 5d. order statistics: sort, percentiles, unique, topk, set operations,
+    # counts, searches, calculus, then the p90 filter-fit-median flow
+    order_stats(torch, ht, tk, smi, bw)
     torch.cuda.empty_cache()
 
     # 6. the serving path, through the entry points a user calls -------- #

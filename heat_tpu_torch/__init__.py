@@ -4,7 +4,8 @@ A port of ``heat_tpu`` (the JAX/TPU package, which stays the reference) to
 PyTorch on NVIDIA Hopper: a NumPy-like ``DNDarray`` split along one axis
 across processes (one per card, ``torch.distributed``) with its operators,
 moments, cumulative operations, resplits, indexing and manipulations,
-factories and random draws, KMeans and cdist,
+sorting, the set operations and the order statistics, factories and random
+draws, KMeans and cdist,
 and the flagship transformer LM's training and serving paths (``nn``,
 ``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
@@ -17,6 +18,7 @@ from .core import *  # noqa: F401,F403
 from . import core
 from .core import communication, devices, factories, kernels, random, types
 from . import cluster
+from . import data
 from . import nn
 from . import optim
 from . import serve

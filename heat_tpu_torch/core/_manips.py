@@ -338,3 +338,78 @@ def ring_reshape(local, gshape_in, gshape_out, comm):
     _window_gather(flat, rounds, comm.chunk_size(gshape_in[0]) * row_in,
                    [c * row_in for c in counts], comm, [f], [out])
     return out.reshape((hi - lo,) + tuple(gshape_out[1:]))
+
+
+# ---------------------------------------------------------------------- #
+# top-k along the split axis                                              #
+# ---------------------------------------------------------------------- #
+def _total_order_key(v: torch.Tensor) -> torch.Tensor:
+    """An integer key of ``lax.top_k``'s order: floats by IEEE total order
+    (``-NaN < -inf < … < -0.0 < +0.0 < … < +inf < +NaN``, bf16 and float16
+    widened exactly), integers as they are."""
+    if not v.dtype.is_floating_point:
+        return v
+    if v.dtype in (torch.bfloat16, torch.float16):
+        v = v.float()
+    idt = torch.int64 if v.dtype == torch.float64 else torch.int32
+    b = v.view(idt)
+    return b ^ ((b >> (b.element_size() * 8 - 1)) & torch.iinfo(idt).max)
+
+
+def topk_keyed(v: torch.Tensor, largest: bool) -> torch.Tensor:
+    """heat_tpu's selection key (``_manips.py:443``): bool as int32,
+    unsigned widened to a signed type, negated for the smallest (so a NaN
+    comes first either way, and an integer minimum wraps as in XLA)."""
+    if v.dtype == torch.bool:
+        v = v.to(torch.int32)
+    elif v.dtype == torch.uint8:
+        v = v.to(torch.int32)
+    return v if largest else -v
+
+
+def topk_order(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest of ``key`` along the last axis, in
+    ``lax.top_k``'s order: descending, ties to the lower index (a stable
+    descending sort of the total-order key; ``torch.topk`` leaves the order
+    of ties undefined on the card)."""
+    return torch.sort(_total_order_key(key), dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def split_topk(local, axis: int, n: int, k: int, largest: bool, comm):
+    """``(values, global indices)`` of the top ``k`` along the split axis,
+    the same on every rank, shaped ``(..., k)`` with the split axis moved
+    last (heat_tpu ``split_topk_fn``, ``_manips.py:414``): a local top-k
+    over the shard filled to ``c`` with the sentinel, ONE all-gather of the
+    ``p·min(k, c)`` candidate values and their positions packed as bytes,
+    and a final top-k. heat_tpu gathers values and positions as two
+    all-gathers."""
+    p = comm.size
+    c = comm.chunk_size(n)
+    kk = min(k, c)
+    buf = local.movedim(axis, -1)
+    dt = buf.dtype
+    if dt.is_floating_point:
+        sentinel = -float("inf") if largest else float("inf")
+    elif dt == torch.bool:
+        sentinel = not largest
+    else:
+        info = torch.iinfo(dt)
+        sentinel = info.min if largest else info.max
+    lead = tuple(buf.shape[:-1])
+    short = c - buf.shape[-1]
+    if short:
+        buf = torch.cat([buf, torch.full(lead + (short,), sentinel, dtype=dt,
+                                         device=buf.device)], dim=-1)
+    gpos = (comm.rank * c + torch.arange(c, dtype=torch.int64, device=buf.device)).expand(
+        lead + (c,))
+    li = topk_order(topk_keyed(buf, largest), kk)
+    lv = torch.gather(buf, -1, li).contiguous()
+    gi = torch.gather(gpos, -1, li).contiguous()
+    vb, ib = lv.view(torch.uint8), gi.view(torch.uint8)
+    both = comm.Allgather(torch.cat([vb, ib], dim=-1), axis=-1)
+    both = both.reshape(lead + (p, vb.shape[-1] + ib.shape[-1]))
+    cand_v = both[..., :vb.shape[-1]].contiguous().view(dt).reshape(lead + (p * kk,))
+    cand_i = both[..., vb.shape[-1]:].contiguous().view(torch.int64).reshape(lead + (p * kk,))
+    fi = topk_order(topk_keyed(cand_v, largest), k)
+    return torch.gather(cand_v, -1, fi), torch.gather(cand_i, -1, fi)

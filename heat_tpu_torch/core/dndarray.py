@@ -32,6 +32,27 @@ from .stride_tricks import sanitize_axis
 __all__ = ["DNDarray"]
 
 
+class LocalIndex:
+    """``lloc``: indexing of this rank's shard (heat_tpu ``dndarray.py:65``;
+    the original Heat's local indexing). A write replaces the owner's shard
+    with a written copy, since a shard may be shared with another array."""
+
+    def __init__(self, owner: "DNDarray"):
+        self._owner = owner
+
+    @property
+    def obj(self) -> torch.Tensor:
+        return self._owner.larray
+
+    def __getitem__(self, key):
+        return self._owner.larray[key]
+
+    def __setitem__(self, key, value):
+        t = self._owner.larray.clone()
+        t[key] = value
+        self._owner.larray = t
+
+
 class DNDarray:
     """Distributed n-dimensional array.
 
@@ -142,6 +163,105 @@ class DNDarray:
         if self.__split is None:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
         return self.__comm.counts_displs(self.__gshape[self.__split])
+
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        """:attr:`lshape_map` (heat_tpu ``dndarray.py:395``)."""
+        return self.lshape_map
+
+    @property
+    def balanced(self) -> bool:
+        """Always True: the canonical layout (heat_tpu ``dndarray.py:317``)."""
+        return True
+
+    @property
+    def pad(self) -> int:
+        """Rows the canonical layout pads the split axis with to a multiple
+        of the world size (heat_tpu ``dndarray.py:203``, its physical
+        padding); the port's shards store none of them."""
+        if self.__split is None:
+            return 0
+        n = self.__gshape[self.__split]
+        return self.__comm.padded_size(n) - n
+
+    @property
+    def itemsize(self) -> int:
+        return self.__dtype.torch_type().itemsize
+
+    @property
+    def gnumel(self) -> int:
+        return self.size
+
+    @property
+    def gnbytes(self) -> int:
+        return self.size * self.itemsize
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.itemsize
+
+    @property
+    def lnumel(self) -> int:
+        """Elements in this rank's shard (heat_tpu ``dndarray.py:1263``)."""
+        return int(np.prod(self.lshape)) if self.lshape else 1
+
+    @property
+    def lnbytes(self) -> int:
+        return self.lnumel * self.itemsize
+
+    def stride(self) -> Tuple[int, ...]:
+        """Row-major element strides of this rank's shard (heat_tpu
+        ``dndarray.py:1267``)."""
+        st, acc = [], 1
+        for s in reversed(self.lshape):
+            st.append(acc)
+            acc *= max(s, 1)
+        return tuple(reversed(st))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """NumPy byte strides of this rank's shard (heat_tpu ``:1278``)."""
+        return tuple(s * self.itemsize for s in self.stride())
+
+    @property
+    def lloc(self) -> LocalIndex:
+        return LocalIndex(self)
+
+    def filled(self, fill_value) -> torch.Tensor:
+        """heat_tpu ``dndarray.py:251`` returns its physical array with the
+        padding set to ``fill_value``; the port's shard has no padding, so
+        this is the shard itself."""
+        return self.__array
+
+    def valid_mask(self) -> torch.Tensor:
+        """True on every element of the shard (heat_tpu ``dndarray.py:279``:
+        the logical, not the padding, positions)."""
+        return torch.ones(self.__array.shape, dtype=torch.bool, device=self.__array.device)
+
+    def cpu(self) -> "DNDarray":
+        """heat_tpu ``dndarray.py:1257``: the array itself."""
+        return self
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Set the main diagonal of the first two axes to ``value``, in place
+        (heat_tpu ``dndarray.py:1297``): each rank writes the diagonal
+        positions its shard holds, no communication."""
+        if self.ndim < 2:
+            raise ValueError("fill_diagonal requires at least a 2-D array")
+        n = min(self.__gshape[:2])
+        local = self.__array.clone()
+        idx = torch.arange(n, device=local.device)
+        rows, cols = idx, idx
+        if self.__split in (0, 1):
+            offset, lshape, _ = self.__comm.chunk(self.__gshape, self.__split)
+            if self.__split == 0:
+                rows = idx - offset
+            else:
+                cols = idx - offset
+            keep = (rows >= 0) & (rows < lshape[0]) & (cols >= 0) & (cols < lshape[1])
+            rows, cols = rows[keep], cols[keep]
+        local[rows, cols] = torch.as_tensor(value, dtype=local.dtype, device=local.device)
+        self.__array = local
+        return self
 
     @property
     def T(self) -> "DNDarray":
@@ -259,6 +379,12 @@ class DNDarray:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        """``np.asarray(x)``: :meth:`numpy`, cast to ``dtype`` when asked
+        (heat_tpu ``dndarray.py:635``)."""
+        out = self.numpy()
+        return out.astype(dtype) if dtype is not None else out
 
     def tolist(self) -> list:
         return self.numpy().tolist()
@@ -617,7 +743,153 @@ class DNDarray:
 
         return logical.isclose(self, other, rtol=rtol, atol=atol, equal_nan=equal_nan)
 
+    def average(self, axis=None, weights=None, returned: bool = False):
+        from . import statistics
 
+        return statistics.average(self, axis=axis, weights=weights, returned=returned)
+
+    def kurtosis(self, axis=None, unbiased: bool = True, Fischer: bool = True):
+        from . import statistics
+
+        return statistics.kurtosis(self, axis=axis, unbiased=unbiased, Fischer=Fischer)
+
+    def skew(self, axis=None, unbiased: bool = True):
+        from . import statistics
+
+        return statistics.skew(self, axis=axis, unbiased=unbiased)
+
+    def median(self, axis=None, keepdim: bool = False, keepdims=None):
+        from . import statistics
+
+        return statistics.median(self, axis=axis,
+                                 keepdims=keepdim if keepdims is None else keepdims)
+
+    def unique(self, sorted=True, return_inverse=False, axis=None, return_counts=False):
+        from . import manipulations
+
+        return manipulations.unique(self, sorted=sorted, return_inverse=return_inverse,
+                                    axis=axis, return_counts=return_counts)
+
+    # -- elementwise methods (heat_tpu ``dndarray.py:1053-1230``) --
+    def absolute(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out, dtype)
+
+    def ceil(self, out=None):
+        from . import rounding
+
+        return rounding.ceil(self, out)
+
+    def floor(self, out=None):
+        from . import rounding
+
+        return rounding.floor(self, out)
+
+    def trunc(self, out=None):
+        from . import rounding
+
+        return rounding.trunc(self, out)
+
+    def round(self, decimals: int = 0, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.round(self, decimals, out, dtype)
+
+    def fabs(self, out=None):
+        from . import rounding
+
+        return rounding.fabs(self, out)
+
+    def modf(self, out=None):
+        from . import rounding
+
+        return rounding.modf(self, out)
+
+    def sign(self, out=None):
+        from . import rounding
+
+        return rounding.sign(self, out)
+
+    def sgn(self, out=None):
+        from . import rounding
+
+        return rounding.sgn(self, out)
+
+    def acos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arccos(self, out)
+
+    def asin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arcsin(self, out)
+
+    def atan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.arctan(self, out)
+
+    def atan2(self, x2):
+        from . import trigonometrics
+
+        return trigonometrics.arctan2(self, x2)
+
+    def tan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tan(self, out)
+
+    def sinh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sinh(self, out)
+
+    def cosh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cosh(self, out)
+
+    def tanh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tanh(self, out)
+
+    def exp2(self, out=None):
+        from . import exponential
+
+        return exponential.exp2(self, out)
+
+    def expm1(self, out=None):
+        from . import exponential
+
+        return exponential.expm1(self, out)
+
+    def log2(self, out=None):
+        from . import exponential
+
+        return exponential.log2(self, out)
+
+    def log10(self, out=None):
+        from . import exponential
+
+        return exponential.log10(self, out)
+
+    def log1p(self, out=None):
+        from . import exponential
+
+        return exponential.log1p(self, out)
+
+    def square(self, out=None):
+        from . import exponential
+
+        return exponential.square(self, out)
+
+    def conj(self, out=None):
+        from . import complex_math
+
+        return complex_math.conjugate(self, out)
 
     # ------------------------------------------------------------------ #
     # methods over manipulations and indexing (heat_tpu ``dndarray.py``)  #

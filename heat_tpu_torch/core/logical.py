@@ -1,15 +1,15 @@
-"""Logical operations (heat_tpu ``core/logical.py``). ``isin`` and ``in1d``
-need the set operations and are not ported yet."""
+"""Logical operations (heat_tpu ``core/logical.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _operations
 from .dndarray import DNDarray
 
-__all__ = ["all", "allclose", "any", "count_nonzero", "isclose", "isfinite", "isinf", "isnan",
-           "isneginf", "isposinf", "logical_and", "logical_not", "logical_or", "logical_xor",
+__all__ = ["all", "allclose", "any", "count_nonzero", "in1d", "isclose", "isfinite", "isin",
+           "isinf", "isnan", "isneginf", "isposinf", "logical_and", "logical_not", "logical_or", "logical_xor",
            "signbit"]
 
 
@@ -110,3 +110,35 @@ def _signbit(t: torch.Tensor) -> torch.Tensor:
 def signbit(x: DNDarray, out=None) -> DNDarray:
     """Element-wise sign-bit test (heat_tpu ``:171``)."""
     return _operations._local_op(_signbit, x, out)
+
+
+def isin(element, test_elements, assume_unique: bool = False, invert: bool = False) -> DNDarray:
+    """Membership test (heat_tpu ``logical.py:110``): ``test_elements`` is
+    the lookup set, replicated (a split DNDarray gathered once);
+    ``element`` keeps its split. Both compare in their promoted type; a
+    NaN is in no set."""
+    from . import factories
+
+    if not isinstance(element, DNDarray):
+        element = factories.array(element)
+    if isinstance(test_elements, DNDarray):
+        table = test_elements._logical()
+    else:
+        table = torch.as_tensor(np.asarray(test_elements))
+    table = table.to(element.larray.device).reshape(-1)
+
+    def member(a):
+        ct = torch.promote_types(a.dtype, table.dtype)
+        return torch.isin(a.to(ct), table.to(ct), assume_unique=assume_unique, invert=invert)
+
+    return _operations._local_op(member, element)
+
+
+def in1d(ar1, ar2, assume_unique: bool = False, invert: bool = False) -> DNDarray:
+    """1-D membership (heat_tpu ``logical.py:125``): :func:`isin` of the
+    flattened ``ar1``."""
+    from . import factories, manipulations
+
+    if not isinstance(ar1, DNDarray):
+        ar1 = factories.array(ar1)
+    return isin(manipulations.flatten(ar1), ar2, assume_unique=assume_unique, invert=invert)

@@ -6,8 +6,10 @@ scheduled window fetches (:mod:`._manips`: concatenate, flip, roll, pad,
 repeat, reshape, the diag pair) on every rank, each round one
 point-to-point permutation; none gathers the logical array. Where heat_tpu
 takes the logical array (``_logical()``), so does the port: one all-gather,
-counted in ``comm.stats``. Sorting, ``topk`` and the set operations wait for
-their own slice.
+counted in ``comm.stats``. ``sort`` and ``unique`` along the split axis run
+the merge-split network of :mod:`._sort` and :mod:`._setops`, ``topk``
+heat_tpu's tournament (one all-gather of the candidates); the set
+operations are ``unique`` and ``isin`` put together, as in heat_tpu.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from .stride_tricks import sanitize_axis, sanitize_shape
 __all__ = [
     "array_split", "balance", "broadcast_arrays", "broadcast_to", "column_stack",
     "concatenate", "diag", "diagonal", "dsplit", "dstack", "expand_dims", "flatten", "flip",
-    "fliplr", "flipud", "hsplit", "hstack", "moveaxis", "pad", "ravel", "redistribute",
-    "repeat", "reshape", "resplit", "roll", "rot90", "row_stack", "shape", "split", "squeeze",
-    "stack", "swapaxes", "tile", "vsplit", "vstack",
+    "fliplr", "flipud", "hsplit", "hstack", "intersect1d", "moveaxis", "pad", "ravel",
+    "redistribute", "repeat", "reshape", "resplit", "roll", "rot90", "row_stack", "setdiff1d",
+    "setxor1d", "shape", "sort", "split", "squeeze", "stack", "swapaxes", "tile", "topk",
+    "union1d", "unique", "vsplit", "vstack",
 ]
 
 
@@ -787,3 +790,238 @@ def tile(x: DNDarray, reps) -> DNDarray:
     if split is not None:
         split += res.ndim - x.ndim
     return _wrap(res, split, x)
+
+
+# ---------------------------------------------------------------------- #
+# sorting, top-k, unique and the set operations                           #
+# ---------------------------------------------------------------------- #
+def _argsort(t: torch.Tensor, dim: int, descending: bool = False) -> torch.Tensor:
+    """``jnp.argsort``: stable (ties keep their order, descending too), NaN
+    last ascending, first descending; bool as uint8; complex lexicographic
+    by (real, imag), which ``torch.sort`` refuses."""
+    if t.is_complex():
+        o = torch.sort(t.imag, dim=dim, descending=descending, stable=True).indices
+        o2 = torch.sort(torch.gather(t.real, dim, o), dim=dim, descending=descending,
+                        stable=True).indices
+        return torch.gather(o, dim, o2)
+    from ._sort import _sortable
+
+    return torch.sort(_sortable(t), dim=dim, descending=descending, stable=True).indices
+
+
+def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
+    """Sort along an axis (heat_tpu ``manipulations.py:795``); returns
+    ``(values, indices)``, the indices int64 positions along ``axis``.
+
+    Along the split axis at world size > 1 the merge-split network
+    (:func:`._sort.distributed_sort`): R(p) rounds of one point-to-point
+    permutation each, no all-gather; the result keeps the canonical layout.
+    Otherwise a stable local sort of the shard."""
+    axis = sanitize_axis(a.shape, axis)
+    if a.split == axis and a.comm.size > 1 and a.shape[axis] > 0:
+        from . import _sort
+
+        values, idx = _sort.distributed_sort(a.larray, axis, a.shape[axis], descending, a.comm)
+    elif a.larray.is_complex():
+        idx = _argsort(a.larray, axis, descending)
+        values = torch.gather(a.larray, axis, idx)
+    else:
+        from ._sort import _sortable
+
+        values, idx = torch.sort(_sortable(a.larray), dim=axis, descending=descending,
+                                 stable=True)
+        values = values.view(a.larray.dtype)
+    vals = DNDarray(values, a.gshape, a.dtype, a.split, a.device, a.comm)
+    indices = DNDarray(idx, a.gshape, types.int64, a.split, a.device, a.comm)
+    if out is not None:
+        out.larray = vals.larray
+        return out, indices
+    return vals, indices
+
+
+def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool = True,
+         out=None):
+    """The ``k`` largest (or smallest) values and their indices along
+    ``dim`` (heat_tpu ``manipulations.py:971``), in ``lax.top_k``'s order:
+    ties to the lower index, a NaN first (also for the smallest, which
+    heat_tpu selects as the largest of the negation).
+
+    Along the split axis at world size > 1: heat_tpu's tournament
+    (:func:`._manips.split_topk`), one all-gather of the candidates."""
+    from . import _manips
+
+    dim = sanitize_axis(a.shape, dim)
+    if a.split == dim and a.comm.size > 1 and 0 < k <= a.shape[dim]:
+        vals, idx = _manips.split_topk(a.larray, dim, a.shape[dim], int(k), bool(largest),
+                                       a.comm)
+        vals_d = _wrap(vals.movedim(-1, dim), a.split, a)
+        idx_d = _wrap(idx.movedim(-1, dim), a.split, a)
+    else:
+        logical = a._logical() if a.split == dim else a.larray
+        moved = logical.movedim(dim, -1)
+        i = _manips.topk_order(_manips.topk_keyed(moved, largest), k)
+        vals = torch.gather(moved, -1, i).movedim(-1, dim)
+        idx = i.movedim(-1, dim)
+        if a.split == dim:
+            vals_d, idx_d = _wrap(vals, a.split, a), _wrap(idx, a.split, a)
+        else:
+            gshape = tuple(k if i == dim else s for i, s in enumerate(a.shape))
+            vals_d = DNDarray(vals, gshape, a.dtype, a.split, a.device, a.comm)
+            idx_d = DNDarray(idx, gshape, types.int64, a.split, a.device, a.comm)
+    if out is not None:
+        out[0].larray = vals_d.larray
+        out[1].larray = idx_d.larray
+        return out
+    return vals_d, idx_d
+
+
+def _unique_local(t: torch.Tensor, return_inverse: bool, return_counts: bool, axis):
+    """``jnp.unique(..., equal_nan=False)`` of a whole tensor: a stable
+    lexicographic sort of the slices along ``axis`` (flattened for None),
+    first occurrences where a slice differs from its predecessor (so each
+    NaN is its own), the inverse by the prefix count, the counts by the
+    distances between first occurrences."""
+    aux = t.reshape(-1) if axis is None else t.movedim(axis, 0)
+    size = aux.shape[0]
+    rows = aux.reshape(size, -1)
+    order = torch.arange(size, device=t.device)
+    for j in range(rows.shape[1] - 1, -1, -1):
+        order = order[_argsort(rows[order, j], 0)]
+    aux = aux[order]
+    mask = torch.ones(size, dtype=torch.bool, device=t.device)
+    if size:
+        diff = aux[1:] != aux[:-1]
+        mask[1:] = diff.reshape(size - 1, -1).any(1) if diff.ndim > 1 else diff
+    res = aux[mask]
+    out = [res if axis is None else res.movedim(0, axis)]
+    if return_inverse:
+        inv = torch.zeros(size, dtype=torch.int64, device=t.device)
+        inv[order] = torch.cumsum(mask.to(torch.int64), 0) - 1
+        out.append(inv.reshape(t.shape) if axis is None else inv)
+    if return_counts:
+        first = torch.nonzero(mask).reshape(-1)
+        out.append(torch.diff(first, append=first.new_tensor([size])))
+    return out
+
+
+def _unique_split_1d(a: DNDarray, return_inverse: bool, return_counts: bool):
+    """The distributed pipeline of a 1-D split array (heat_tpu
+    ``_setops.distributed_unique``); results split 0."""
+    from . import _setops
+
+    n_unique, uniq, *rest = _setops.distributed_unique(a.larray, a.shape[0], return_inverse,
+                                                       return_counts, a.comm)
+    out = [DNDarray(uniq, (n_unique,), a.dtype, 0, a.device, a.comm)]
+    if return_inverse:
+        out.append(DNDarray(rest.pop(0), a.gshape, types.int64, 0, a.device, a.comm))
+    if return_counts:
+        out.append(DNDarray(rest.pop(0), (n_unique,), types.int64, 0, a.device, a.comm))
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False,
+           axis: Optional[int] = None, return_counts: bool = False):
+    """Unique elements, sorted (heat_tpu ``manipulations.py:1086``), with
+    the inverse and the counts on request.
+
+    At world size > 1 a split array runs the distributed pipelines of
+    :mod:`._setops` (network sort, halo compare, one host read of the
+    count, network compaction), never gathering it: a 1-D array directly,
+    an N-D one flattened first (its inverse reshaped back), and with
+    ``axis`` the rows pipeline over the slices along ``axis``. The results
+    are split. Otherwise ``jnp.unique``'s result on the logical array,
+    replicated. Each NaN is its own unique."""
+    dist = _distributed(a) and a.size > 0
+    if axis is None and dist and a.ndim == 1:
+        return _unique_split_1d(a, return_inverse, return_counts)
+    if axis is None and dist:
+        res = _unique_split_1d(flatten(a), return_inverse, return_counts)
+        if not return_inverse:
+            return res
+        out = list(res)
+        out[1] = reshape(out[1], a.shape)
+        return tuple(out)
+    if axis is not None and dist and not a.larray.is_complex():
+        from . import _setops
+
+        ax = sanitize_axis(a.shape, axis)
+        if a.ndim == 1:
+            return _unique_split_1d(a, return_inverse, return_counts)
+        b = moveaxis(a, ax, 0) if ax != 0 else a
+        if b.split != 0:
+            b = b.resplit(0)
+        n = b.shape[0]
+        trailing = tuple(b.shape[1:])
+        w = int(np.prod(trailing))
+        n_unique, uniq, *rest = _setops.distributed_unique_rows(
+            b.larray.reshape(b.larray.shape[0], w), n, return_inverse, return_counts, b.comm)
+        out = DNDarray(uniq.reshape((uniq.shape[0],) + trailing), (n_unique,) + trailing,
+                       b.dtype, 0, b.device, b.comm)
+        if ax != 0:
+            out = moveaxis(out, 0, ax)
+        outs = [out]
+        if return_inverse:
+            outs.append(DNDarray(rest.pop(0), (n,), types.int64, 0, b.device, b.comm))
+        if return_counts:
+            outs.append(DNDarray(rest.pop(0), (n_unique,), types.int64, 0, b.device, b.comm))
+        return tuple(outs) if len(outs) > 1 else out
+    logical = a._logical()
+    res = _unique_local(logical, return_inverse, return_counts, axis)
+    if return_inverse and axis is not None:
+        res[1] = res[1].reshape(-1)
+    out = [_wrap(r, None, a) for r in res]
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def _as_array(ar, like: Optional[DNDarray] = None) -> DNDarray:
+    if isinstance(ar, DNDarray):
+        return ar
+    if like is None:
+        return factories.array(ar)
+    return factories.array(ar, device=like.device, comm=like.comm)
+
+
+def union1d(ar1: DNDarray, ar2: DNDarray) -> DNDarray:
+    """Sorted union (``numpy.union1d``; heat_tpu ``manipulations.py:1025``):
+    one unique over the concatenated flattened inputs."""
+    ar1 = _as_array(ar1)
+    ar2 = _as_array(ar2, ar1)
+    return unique(concatenate([flatten(ar1), flatten(ar2)], axis=0), sorted=True)
+
+
+def intersect1d(ar1: DNDarray, ar2, assume_unique: bool = False) -> DNDarray:
+    """Sorted intersection (``numpy.intersect1d``; heat_tpu ``:1038``):
+    unique, then the members of ``ar2`` selected by a mask (staying split).
+    ``assume_unique`` skips the unique and sorts the selection."""
+    from . import logical
+
+    ar1 = _as_array(ar1)
+    if assume_unique:
+        sel = flatten(ar1)
+        return sort(sel[logical.isin(sel, ar2)], axis=0)[0]
+    u = unique(flatten(ar1), sorted=True)
+    return u[logical.isin(u, ar2)]
+
+
+def setdiff1d(ar1: DNDarray, ar2, assume_unique: bool = False) -> DNDarray:
+    """Sorted values of ``ar1`` not in ``ar2`` (``numpy.setdiff1d``;
+    heat_tpu ``:1055``); ``assume_unique`` keeps the input order."""
+    from . import logical
+
+    ar1 = _as_array(ar1)
+    u = flatten(ar1) if assume_unique else unique(flatten(ar1), sorted=True)
+    return u[logical.isin(u, ar2, invert=True)]
+
+
+def setxor1d(ar1: DNDarray, ar2, assume_unique: bool = False) -> DNDarray:
+    """Sorted symmetric difference (``numpy.setxor1d``; heat_tpu ``:1068``):
+    the elements of both inputs' uniques that occur once."""
+    ar1 = _as_array(ar1)
+    ar2 = _as_array(ar2, ar1)
+    if assume_unique:
+        u1, u2 = flatten(ar1), flatten(ar2)
+    else:
+        u1 = unique(flatten(ar1), sorted=True)
+        u2 = unique(flatten(ar2), sorted=True)
+    u, counts = unique(concatenate([u1, u2], axis=0), sorted=True, return_counts=True)
+    return u[counts == 1]

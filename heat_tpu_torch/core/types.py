@@ -23,7 +23,7 @@ __all__ = [
     "csingle", "complex128", "cdouble", "canonical_heat_type",
     "heat_type_is_exact", "promote_types", "result_type",
     "can_cast", "accumulation_dtype", "heat_type_of", "heat_type_is_inexact",
-    "heat_type_is_complexfloating", "issubdtype", "iscomplex", "isreal",
+    "heat_type_is_complexfloating", "issubdtype", "iscomplex", "isreal", "finfo", "iinfo",
 ]
 
 
@@ -383,3 +383,55 @@ def result_type(*arrays_and_types) -> type:
             t1 = t1 if k1 > k2 else t2
         p1 = min(p1, p2)
     return t1
+
+
+class finfo:
+    """Machine limits of a floating type (heat_tpu ``types.py:557``)."""
+
+    def __new__(cls, ht_dtype):
+        dt = canonical_heat_type(ht_dtype)
+        if not issubclass(dt, (floating, complexfloating)):
+            raise TypeError(f"data type {dt!r} not inexact")
+        return super().__new__(cls)
+
+    def __init__(self, ht_dtype):
+        dt = canonical_heat_type(ht_dtype)
+        info = torch.finfo(dt.torch_type())
+        self.bits = info.bits
+        self.eps = builtins.float(info.eps)
+        self.max = builtins.float(info.max)
+        self.min = builtins.float(info.min)
+        self.tiny = builtins.float(info.tiny)
+        # the resolution rounded to the type itself, as numpy's finfo gives it
+        real = {complex64: float32, complex128: float64}.get(dt, dt).torch_type()
+        self.resolution = builtins.float(torch.tensor(info.resolution, dtype=real))
+        self.dtype = dt
+
+    def __repr__(self):
+        return (f"finfo(resolution={self.resolution}, min={self.min}, max={self.max}, "
+                f"dtype={self.dtype.__name__})")
+
+
+class iinfo:
+    """Machine limits of an integer type (heat_tpu ``types.py:581``); bool
+    counts as 8 bits from 0 to 1."""
+
+    def __new__(cls, ht_dtype):
+        dt = canonical_heat_type(ht_dtype)
+        if not (issubclass(dt, integer) or dt is bool):
+            raise TypeError(f"data type {dt!r} not an integer type")
+        return super().__new__(cls)
+
+    def __init__(self, ht_dtype):
+        dt = canonical_heat_type(ht_dtype)
+        if dt is bool:
+            self.bits, self.max, self.min = 8, 1, 0
+        else:
+            info = torch.iinfo(dt.torch_type())
+            self.bits = info.bits
+            self.max = builtins.int(info.max)
+            self.min = builtins.int(info.min)
+        self.dtype = dt
+
+    def __repr__(self):
+        return f"iinfo(min={self.min}, max={self.max}, dtype={self.dtype.__name__})"
