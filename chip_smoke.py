@@ -68,6 +68,26 @@ Phases, one JSON line each:
    step 3 with its p90: ``F = X[X[:, 0] > percentile(X[:, 0], 90)]``,
    ``KMeans(8, kmeans++, 20 iterations).fit(F)`` and ``ht.median(F[:, 0])``,
    with peak memory and ``comm.stats``.
+5e. linear algebra: ``X @ W`` at bench.py:69's 8192^2 in bf16 and float32
+   (TF32 off; 256 rows against float64 within γ_k·|X||W|, plus bf16's
+   rounding) and bench.py's GEMM chain (2^14 x 32 split 0, bias, tanh, a
+   split-axis sum; against float64 within its error bound), each beside one
+   ``torch.matmul``; the 2^23 x 64 draw of 5c (its first 2^20 values, and
+   of ``randint``, bitwise the port's CPU draw; ``randn`` within 8 ulp)
+   timed beside ``torch.rand``; ``cov(X, rowvar=False)`` within 1e-4 of the
+   float64 covariance's largest entry; ``qr`` and ``svd`` of 2^22 x 64 (the
+   residual and ``QᵀQ - I`` within 1e-4, S within sqrt(rows)·u·s_max of
+   float64);
+   ``cholesky``/``solve`` of a 4096^2 SPD matrix and ``det``/``inv`` at
+   2048^2 (residuals, det within 1e-3 of float64), each beside the matching
+   ``torch.linalg`` call; ``Spectral(n_clusters=4, gamma=1/72,
+   n_lanczos=300)`` on four Gaussian blobs at distance_matrix's 40,000 x 18
+   (the Lanczos relation ``LV - VT`` and ``VᵀV - I`` within 1e-3, labels
+   against the blobs, wall seconds, peak memory, the ``cdist_tile`` (rbf)
+   and ``kmeans_step`` launches of the fit); Lasso at the lasso benchmark's
+   strong size (2^20 x 64, 100 sweeps, ``lam=0.01``, ``tol=-1``), theta
+   within 1e-4 of max |theta| of a plain float64 coordinate descent on the
+   card, and seconds per sweep.
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -1514,6 +1534,298 @@ def order_stats(torch, ht, tk, smi, bw):
     return ops
 
 
+# phase 5e sizes: bench.py's matmul probe (:69) and GEMM chain (:539-543),
+# the linear algebra at the array path's size, distance_matrix's and
+# lasso's strong sizes (benchmarks/config.json; benchmarks/lasso/
+# heat_tpu_bench.py:25-44)
+MATMUL_M = 8192
+GEMM_N, GEMM_D = 1 << 14, 32
+QR_ROWS = 2**22
+SOLVE_N, DET_N = 4096, 2048
+SPECTRAL_K, SPECTRAL_LANCZOS = 4, 300
+LASSO_N, LASSO_D, LASSO_SWEEPS, LASSO_LAM = 1_048_576, 64, 100, 0.01
+DRAW_CHECK = 2**20  # leading values of the 2^23 x 64 draw held against the CPU's
+
+
+def linalg_path(torch, ht, tk, smi, bw, f32, bf16_tc):
+    """Phase 5e: ``@`` at bench.py's sizes, the linear algebra layer at the
+    array path's, Spectral at distance_matrix's and Lasso at lasso's strong
+    size, and the Threefry draw; every check against float64 on the card or
+    the port's CPU draw. Returns the Spectral fit's kernel launches."""
+    dev = ht.get_device().torch_device
+    out, checks, times = {}, {}, {}
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must stay off"
+
+    def pair(name, port, raw, nbytes=None, ops=None, rate=None, reps=5, inner=2):
+        """Device ms of the port's call and of the matching torch call."""
+        row = {"ms": time_ms(torch, port, reps=reps, inner=inner),
+               "torch_ms": time_ms(torch, raw, reps=reps, inner=inner)}
+        if nbytes is not None:
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops or 0, bw, rate or f32)
+        times[name] = row
+        torch.cuda.empty_cache()
+
+    # -- matmul: X @ W at bench.py:69's size in bf16 and float32 ----------- #
+    m = MATMUL_M
+    for dtype, rate, size in ((ht.bfloat16, bf16_tc, 2), (ht.float32, f32, 4)):
+        ht.random.seed(1)
+        X = ht.random.randn(m, m, dtype=dtype)
+        W = ht.random.randn(m, m, dtype=dtype)
+        P = X @ W
+        x, w = X.larray, W.larray
+        same = bool(torch.equal(P.larray, torch.matmul(x, w)))
+        rows = slice(0, 256)
+        want = x[rows].double() @ w.double()
+        mag = x[rows].double().abs() @ w.double().abs()
+        tol = gamma(m) * mag + (2.0**-8 if size == 2 else 0.0) * want.abs()
+        err = (P.larray[rows].double() - want).abs()
+        assert bool((err <= tol).all()), f"matmul {dtype.__name__}: beyond its bound"
+        name = f"X @ W {m}^2 {dtype.__name__}"
+        checks[name] = {"max_abs_err_256_rows_vs_float64": float(err.max()),
+                        "max_err_over_limit": float((err / tol).max()),
+                        "bitwise_equal_torch_matmul": same, "split": P.split}
+        pair(name, lambda: X @ W, lambda: torch.matmul(x, w), 3 * m * m * size, 2 * m**3, rate)
+        del X, W, P, x, w, want, mag, tol, err
+    torch.cuda.empty_cache()
+
+    # bench.py's GEMM chain: a row-split GEMM, bias, tanh and a split-axis sum
+    rng = np.random.default_rng(0)
+    xg = ht.array(rng.standard_normal((GEMM_N, GEMM_D)).astype(np.float32), split=0)
+    wg = ht.array(rng.standard_normal((GEMM_D, GEMM_D)).astype(np.float32))
+    bg = ht.array(rng.standard_normal((GEMM_D,)).astype(np.float32))
+
+    def gemm_chain():
+        t = ht.matmul(xg, wg) + bg
+        t = ht.tanh(t * 0.5)
+        t = t * t + t
+        return t.sum(axis=0)
+
+    got = gemm_chain().larray.double()
+    x64, w64, b64 = xg.larray.double(), wg.larray.double(), bg.larray.double()
+    h = torch.tanh((x64 @ w64 + b64) * 0.5)
+    f = h * h + h
+    # |Δt| of the float32 GEMM and bias, through tanh(t/2) (slope <= 1/2) and
+    # its rounding, then h² + h and the sum
+    dt = gamma(GEMM_D + 1) * (x64.abs() @ w64.abs() + b64.abs())
+    dh = 0.5 * dt + 4 * U32 * h.abs() + 2 * U32
+    term = (2 * h.abs() + 1) * dh + 3 * U32 * (h * h + h.abs())
+    tol = term.sum(0) + sum_tol(float(f.abs().sum(0).max()), GEMM_N)
+    err = (got - f.sum(0)).abs()
+    assert bool((err <= tol).all()), "GEMM chain beyond its bound"
+    checks["gemm_chain 2^14x32"] = {"max_abs_err_vs_float64": float(err.max()),
+                                     "max_err_over_limit": float((err / tol).max())}
+    xl, wl, bl = xg.larray, wg.larray, bg.larray
+    pair("gemm_chain 2^14x32", gemm_chain,
+         lambda: ((lambda t: t * t + t)(torch.tanh((xl @ wl + bl) * 0.5))).sum(0),
+         (GEMM_N * GEMM_D + GEMM_D * GEMM_D + 2 * GEMM_D) * 4, 2 * GEMM_N * GEMM_D * GEMM_D)
+    del xg, wg, bg, x64, w64, h, f, dt, dh, term
+
+    # -- the array path's X: cov, and the Threefry draw it comes from ----- #
+    n, d = N_POINTS, N_FEATURES
+    ht.random.seed(0)
+    X = ht.random.uniform(0.0, 1.0, (n, d), split=0)
+    xl = X.larray
+    ht.random.seed(0)
+    rows = min(DRAW_CHECK // d, n)
+    cpu = ht.random.uniform(0.0, 1.0, (rows, d), device="cpu")
+    assert torch.equal(xl[:rows].cpu(), cpu.larray), "Threefry: card and CPU draws differ"
+    ht.random.seed(1)
+    g_card = ht.random.randn(rows, d).larray.cpu()
+    ht.random.seed(1)
+    g_cpu = ht.random.randn(rows, d, device="cpu").larray
+    g_ulp = float(((g_card - g_cpu).abs() / torch.clamp(g_cpu.abs(), min=1.0)).max()) / (2 * U32)
+    ht.random.seed(2)
+    i_card = ht.random.randint(-7, 2**40, (rows, d)).larray.cpu()
+    ht.random.seed(2)
+    assert torch.equal(i_card, ht.random.randint(-7, 2**40, (rows, d), device="cpu").larray)
+    checks["threefry"] = {"uniform_first_2^20_bitwise_cpu": True,
+                          "randint_first_2^20_bitwise_cpu": True,
+                          "randn_first_2^20_max_ulp_of_max(|x|,1)_vs_cpu": g_ulp}
+    assert g_ulp <= 8, g_ulp
+    pair("random.uniform 2^23x64", lambda: ht.random.uniform(0.0, 1.0, (n, d), split=0),
+         lambda: torch.rand(n, d, device=dev), n * d * 4, reps=3, inner=1)
+    del cpu, g_card, g_cpu, i_card
+
+    C = ht.cov(X, rowvar=False)
+    xd = xl.double()
+    cen = xd - xd.mean(0)
+    c64 = (cen.T @ cen) / (n - 1)
+    del xd, cen
+    err = float((C.larray.double() - c64).abs().max())
+    rel = err / float(c64.abs().max())
+    assert C.shape == (d, d) and rel <= 1e-4, rel
+    checks["cov 2^23x64 rowvar=False"] = {"max_abs_err_vs_float64": err,
+                                           "err_over_max_abs_cov": rel, "rtol": 1e-4}
+    pair("cov 2^23x64", lambda: ht.cov(X, rowvar=False),
+         lambda: torch.cov(xl.T), n * d * 4 + d * d * 4, 2 * n * d * d, reps=3, inner=1)
+    del X, xl, C, c64
+    torch.cuda.empty_cache()
+
+    # -- qr and svd of a 2^22 x 64 float32 split-0 array ------------------ #
+    ht.random.seed(3)
+    A = ht.random.randn(QR_ROWS, d, split=0)
+    al = A.larray
+    Q, R = ht.linalg.qr(A)
+    q, r = Q.larray, R.larray
+    anorm = float(torch.linalg.norm(al))
+    res_qr = float(torch.linalg.norm(q @ r - al)) / anorm
+    orth = float((q.T @ q - torch.eye(d, device=dev)).abs().max())
+    assert res_qr <= 1e-4 and orth <= 1e-4, (res_qr, orth)
+    checks["qr 2^22x64"] = {"rel_residual_QR_minus_A": res_qr, "max_abs_QtQ_minus_I": orth,
+                            "limits": [1e-4, 1e-4], "splits": [Q.split, R.split]}
+    del Q, R, q, r
+    pair("qr 2^22x64", lambda: ht.linalg.qr(A), lambda: torch.linalg.qr(al), 2 * QR_ROWS * d * 4,
+         2 * QR_ROWS * d * d, reps=2, inner=1)
+    U, S, V = ht.linalg.svd(A)
+    s = S.larray
+    ad = al.double()
+    s64 = torch.linalg.eigvalsh(ad.T @ ad).clamp_min(0).sqrt().flip(0)
+    del ad
+    res_svd = float(torch.linalg.norm((U.larray * s) @ V.larray.T - al)) / anorm
+    # a backward-stable SVD moves each singular value by about sqrt(rows)·u·‖A‖₂
+    s_lim = math.sqrt(QR_ROWS) * U32 * float(s64[0])
+    s_err = float((s.double() - s64).abs().max())
+    assert res_svd <= 1e-4 and s_err <= s_lim, (res_svd, s_err, s_lim)
+    checks["svd 2^22x64"] = {"rel_residual_USVt_minus_A": res_svd,
+                             "max_abs_err_S_vs_float64": s_err, "limit_S": s_lim,
+                             "limit_S_is": "sqrt(rows)·u·s_max", "limit_residual": 1e-4}
+    del U, S, V, s
+    pair("svd 2^22x64", lambda: ht.linalg.svd(A),
+         lambda: torch.linalg.svd(al, full_matrices=False), 2 * QR_ROWS * d * 4,
+         4 * QR_ROWS * d * d, reps=1, inner=1)
+    del A, al
+    torch.cuda.empty_cache()
+
+    # -- solve and cholesky at 4096^2, det and inv at 2048^2 --------------- #
+    ht.random.seed(4)
+    M = ht.random.randn(SOLVE_N, SOLVE_N)
+    ml = M.larray
+    spd = ml @ ml.T / SOLVE_N + torch.eye(SOLVE_N, device=dev)
+    SPD = ht.array(spd)
+    b = ht.random.randn(SOLVE_N)
+    L = ht.linalg.cholesky(SPD)
+    ll = L.larray
+    chol_res = float(torch.linalg.norm(ll @ ll.T - spd) / torch.linalg.norm(spd))
+    assert bool((torch.triu(ll, 1) == 0).all()) and chol_res <= 1e-5, chol_res
+    xs = ht.linalg.solve(SPD, b).larray
+    solve_res = float(torch.linalg.norm(spd @ xs - b.larray) /
+                      (torch.linalg.norm(spd) * torch.linalg.norm(xs)))
+    assert solve_res <= 1e-5, solve_res
+    checks["cholesky 4096^2"] = {"rel_residual_LLt_minus_A": chol_res, "limit": 1e-5}
+    checks["solve 4096^2"] = {"rel_residual_Ax_minus_b": solve_res, "limit": 1e-5}
+    pair("cholesky 4096^2", lambda: ht.linalg.cholesky(SPD), lambda: torch.linalg.cholesky(spd),
+         2 * SOLVE_N**2 * 4, SOLVE_N**3 // 3, reps=3, inner=1)
+    pair("solve 4096^2", lambda: ht.linalg.solve(SPD, b),
+         lambda: torch.linalg.solve(spd, b.larray), SOLVE_N**2 * 4 + 2 * SOLVE_N * 4,
+         2 * SOLVE_N**3 // 3, reps=3, inner=1)
+    del M, ml, spd, SPD, b, L, ll, xs
+    ht.random.seed(5)
+    G = ht.random.randn(DET_N, DET_N)
+    gl = torch.eye(DET_N, device=dev) + G.larray * (0.5 / math.sqrt(DET_N))
+    Gm = ht.array(gl)
+    det = float(ht.linalg.det(Gm).item())
+    sgn, logabs = torch.linalg.slogdet(gl.double())
+    det64 = float(sgn) * math.exp(float(logabs))
+    det_rel = abs(det - det64) / abs(det64)
+    inv_res = float((gl @ ht.linalg.inv(Gm).larray - torch.eye(DET_N, device=dev)).abs().max())
+    assert det_rel <= 1e-3 and inv_res <= 1e-4, (det_rel, inv_res)
+    checks["det 2048^2"] = {"det": det, "rel_err_vs_float64": det_rel, "limit": 1e-3}
+    checks["inv 2048^2"] = {"max_abs_A_inv_minus_I": inv_res, "limit": 1e-4}
+    pair("det 2048^2", lambda: ht.linalg.det(Gm), lambda: torch.linalg.det(gl),
+         DET_N**2 * 4, 2 * DET_N**3 // 3, reps=3, inner=1)
+    pair("inv 2048^2", lambda: ht.linalg.inv(Gm), lambda: torch.linalg.inv(gl),
+         2 * DET_N**2 * 4, 2 * DET_N**3, reps=3, inner=1)
+    del G, gl, Gm
+    torch.cuda.empty_cache()
+
+    # -- Spectral at distance_matrix's shape: four Gaussian blobs --------- #
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((SPECTRAL_K, CDIST_D)) * 10
+    truth = rng.integers(0, SPECTRAL_K, CDIST_N)
+    pts = (centers[truth] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    gam = 1.0 / (4 * CDIST_D)  # 2 sigma^2 = 4 d: a blob's own pairs near exp(-1/2)
+    Xs = ht.array(pts, split=0)
+    sp = ht.cluster.Spectral(n_clusters=SPECTRAL_K, gamma=gam, n_lanczos=SPECTRAL_LANCZOS)
+    ht.random.seed(6)
+    tk.reset_launches()
+    Lap = sp._laplacian.construct(Xs)
+    rbf_launches = tk.launches["cdist_tile"]  # the rbf route: sqrt=False, float32 out
+    assert rbf_launches >= 1, rbf_launches
+    V, T = ht.linalg.lanczos(Lap, SPECTRAL_LANCZOS)
+    vl, tl = V.larray, T.larray
+    lv = Lap.larray @ vl
+    rel_lanczos = float((lv - vl @ tl)[:, :-1].abs().max())
+    orth_v = float((vl.T @ vl - torch.eye(vl.shape[1], device=dev)).abs().max())
+    assert rel_lanczos <= 1e-3 and orth_v <= 1e-3, (rel_lanczos, orth_v)
+    del Lap, V, T, vl, tl, lv
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    ht.random.seed(6)
+    t0 = time.perf_counter()
+    sp.fit(Xs)
+    labels = sp.labels_.larray
+    torch.cuda.synchronize()
+    spectral_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["cdist_tile"] >= 1 and launches["kmeans_step"] == sp.n_iter_ >= 1, launches
+    table = torch.bincount(torch.as_tensor(truth, device=labels.device) * SPECTRAL_K + labels,
+                           minlength=SPECTRAL_K**2).reshape(SPECTRAL_K, SPECTRAL_K)
+    agree = float(table.max(1).values.sum()) / CDIST_N
+    one_to_one = len(set(table.argmax(1).tolist())) == SPECTRAL_K
+    assert agree >= 0.99 and one_to_one, (agree, table.tolist())
+    checks["spectral 40000x18"] = {"lanczos_max_abs_LV_minus_VT": rel_lanczos,
+                                   "lanczos_max_abs_VtV_minus_I": orth_v, "limits": [1e-3, 1e-3],
+                                   "label_agreement_with_blobs": agree,
+                                   "clusters_one_to_one": one_to_one}
+    out["spectral"] = {"wall_s": spectral_s, "peak_memory_bytes": peak, "launches": launches,
+                       "cdist_tile_launches_of_the_laplacian_alone": rbf_launches,
+                       "n_iter": sp.n_iter_, "gamma": gam, "n_lanczos": SPECTRAL_LANCZOS}
+    del Xs, sp, labels
+    torch.cuda.empty_cache()
+
+    # -- Lasso at the lasso benchmark's strong size ----------------------- #
+    rng = np.random.default_rng(0)
+    xn = rng.normal(size=(LASSO_N, LASSO_D)).astype(np.float32)
+    wn = np.zeros(LASSO_D, np.float32)
+    wn[:LASSO_D // 4] = rng.normal(size=LASSO_D // 4)
+    yn = xn @ wn + 0.01 * rng.normal(size=LASSO_N).astype(np.float32)
+    xd, yd = ht.array(xn, split=0), ht.array(yn, split=0)
+    del xn, yn
+    est = ht.regression.Lasso(lam=LASSO_LAM, max_iter=LASSO_SWEEPS, tol=-1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(xd, yd)
+    theta = est.theta.larray.reshape(-1)
+    torch.cuda.synchronize()
+    lasso_s = time.perf_counter() - t0
+    # a plain float64 coordinate descent on the card, the same sweeps
+    X64 = torch.cat([torch.ones((LASSO_N, 1), dtype=torch.float64, device=dev),
+                     xd.larray.double()], 1)
+    y64 = yd.larray.double()
+    col = (X64 * X64).sum(0)
+    th = torch.zeros(LASSO_D + 1, dtype=torch.float64, device=dev)
+    lam_n = LASSO_LAM * LASSO_N
+    for _ in range(LASSO_SWEEPS):
+        for j in range(LASSO_D + 1):
+            rho = X64[:, j] @ (y64 - X64 @ th + X64[:, j] * th[j])
+            th[j] = rho / col[j] if j == 0 else \
+                torch.sign(rho) * torch.clamp(rho.abs() - lam_n, min=0) / col[j]
+    err = float((theta.double() - th).abs().max())
+    lasso_tol = 1e-4 * float(th.abs().max())
+    assert est.n_iter == LASSO_SWEEPS and err <= lasso_tol, (err, lasso_tol)
+    checks["lasso 2^20x64"] = {"max_abs_err_theta_vs_float64": err, "limit": lasso_tol,
+                               "limit_is": "1e-4 of max |theta|"}
+    out["lasso"] = {"seconds": lasso_s, "seconds_per_sweep": lasso_s / LASSO_SWEEPS,
+                    "sweeps": est.n_iter}
+    del xd, yd, est, X64, y64, th
+    torch.cuda.empty_cache()
+    emit({"phase": "linalg_path", "card": smi, "checks": checks, "times_ms": times, **out,
+          "comm_stats": dict(ht.get_comm().stats)})
+    return launches
+
+
 def serving_path(torch, ht, tk, dev, smi):
     """The serving main path at the flagship width, through the entry points
     a user calls; returns the figures and the path's launch counts."""
@@ -2337,6 +2649,11 @@ def main():
     order_stats(torch, ht, tk, smi, bw)
     torch.cuda.empty_cache()
 
+    # 5e. the linear algebra path: @, cov, qr, svd, the solvers, Spectral,
+    # Lasso and the Threefry draw
+    spectral_launches = linalg_path(torch, ht, tk, smi, bw, f32, bf16_tc)
+    torch.cuda.empty_cache()
+
     # 6. the serving path, through the entry points a user calls -------- #
     serve_launches = serving_path(torch, ht, tk, dev, smi)
     fp, fl = fl_times["prefill_1x16x1024x64_bf16"], fl_times["logits_8x16x1024x64_bf16"]
@@ -2348,14 +2665,20 @@ def main():
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
-         "replaces": "heat_tpu/core/pallas_kernels.py:189", "launches": launches["cdist_tile"],
+         "replaces": "heat_tpu/core/pallas_kernels.py:189",
+         "launches": launches["cdist_tile"] + spectral_launches["cdist_tile"],
+         "launches_by_path": {"kmeans": launches["cdist_tile"],
+                              "spectral": spectral_launches["cdist_tile"]},
          "max_abs_err": err_40k, "ms": ms_40k, "plain_ms": plain_40k, "bound_ms": b_40k[0],
          "bound_by": b_40k[1], "library_ms": lib_40k, "shape": "40000x40000x18 f32, sqrt",
          "variants": [{"shape": "2^23x64 vs 8 f32, sqrt", "max_abs_err": err_pp,
                        "ms": ms_pp, "plain_ms": plain_pp, "bound_ms": b_pp[0],
                        "bound_by": b_pp[1], "library_ms": lib_pp}]},
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
-         "replaces": "heat_tpu/core/pallas_kernels.py:858", "launches": launches["kmeans_step"],
+         "replaces": "heat_tpu/core/pallas_kernels.py:858",
+         "launches": launches["kmeans_step"] + spectral_launches["kmeans_step"],
+         "launches_by_path": {"kmeans": launches["kmeans_step"],
+                              "spectral": spectral_launches["kmeans_step"]},
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
          "variants": [{"shape": f"{name} f32 (streaming path)",

@@ -5,7 +5,9 @@ PyTorch on NVIDIA Hopper: a NumPy-like ``DNDarray`` split along one axis
 across processes (one per card, ``torch.distributed``) with its operators,
 moments, cumulative operations, resplits, indexing and manipulations,
 sorting, the set operations and the order statistics, factories and random
-draws, KMeans and cdist,
+draws (heat_tpu's Threefry stream, bit for bit), the linear algebra layer
+(``@``, ``ht.linalg``), KMeans, Spectral clustering, Lasso, the graph
+Laplacian and the distance matrices,
 and the flagship transformer LM's training and serving paths (``nn``,
 ``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
@@ -16,11 +18,13 @@ Usage matches heat_tpu: ``import heat_tpu_torch as ht``.
 
 from .core import *  # noqa: F401,F403
 from . import core
-from .core import communication, devices, factories, kernels, random, types
+from .core import communication, devices, factories, kernels, linalg, random, types
 from . import cluster
 from . import data
+from . import graph
 from . import nn
 from . import optim
+from . import regression
 from . import serve
 from . import spatial
 from . import utils

@@ -22,7 +22,8 @@ from .statistics import *  # noqa: F401,F403
 from .indexing import *  # noqa: F401,F403
 from .manipulations import *  # noqa: F401,F403
 from .printing import *  # noqa: F401,F403
-from . import (arithmetics, complex_math, exponential, factories, indexing, logical,
+from .linalg import *  # noqa: F401,F403
+from . import (arithmetics, complex_math, exponential, factories, indexing, linalg, logical,
                manipulations, memory, printing, random, relational, resharding, rounding,
                sanitation, statistics, trigonometrics)
 from .version import __version__

@@ -7,7 +7,7 @@ from typing import Dict, List
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin"]
 
 
 class BaseEstimator:
@@ -69,3 +69,17 @@ class ClusteringMixin:
     def fit_predict(self, x):
         self.fit(x)
         return self.predict(x)
+
+
+class RegressionMixin:
+    """fit/predict contract for regressors (heat_tpu ``base.py:101``)."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()

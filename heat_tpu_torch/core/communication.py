@@ -137,6 +137,9 @@ class TorchCommunication:
             return tensor
         self._count("all_reduce", tensor.numel() * tensor.element_size())
         wire = tensor.to(torch.uint8) if tensor.dtype == torch.bool else tensor
+        # the wire is the buffer in memory order: a strided tensor (a LAPACK
+        # factor is column-major) would mix its elements with other ranks'
+        wire = wire.contiguous()
         dist.all_reduce(wire, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=self.group)
         if wire is not tensor:
             tensor.copy_(wire)
@@ -175,9 +178,11 @@ class TorchCommunication:
             pad_shape[axis] = width - tensor.shape[axis]
             send = torch.cat([tensor, tensor.new_zeros(pad_shape)], dim=axis)
         send = send.contiguous()
-        parts = [torch.empty_like(send) for _ in range(self.size)]
-        self._count("all_gather", send.numel() * send.element_size())
-        dist.all_gather(parts, send, group=self.group)
+        wire = _as_bytes(send)  # any dtype travels (gloo has no bfloat16)
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        self._count("all_gather", wire.numel())
+        dist.all_gather(parts, wire, group=self.group)
+        parts = [p.view(send.dtype).view(send.shape) for p in parts]
         return torch.cat([p.narrow(axis, 0, c) for p, c in zip(parts, counts)], dim=axis)
 
     def Alltoall(self, tensor: torch.Tensor, split_axis: int, concat_axis: int,
@@ -329,7 +334,10 @@ def _as_bytes(tensor: torch.Tensor) -> torch.Tensor:
     """A contiguous copy-free (where possible) byte view of ``tensor``: bool
     and complex travel as bytes, as :meth:`TorchCommunication.Alltoall`
     sends them."""
-    return tensor.contiguous().reshape(-1).view(torch.uint8)
+    flat = tensor.contiguous().reshape(-1)
+    if flat.numel() == 1:  # a one-element view may keep any stride
+        flat = flat.as_strided((1,), (1,))
+    return flat.view(torch.uint8)
 
 
 class MeshAxisComm(TorchCommunication):

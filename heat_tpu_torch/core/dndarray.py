@@ -515,6 +515,11 @@ class DNDarray:
 
         return arithmetics.pow(other, self)
 
+    def __matmul__(self, other):
+        from .linalg import matmul
+
+        return matmul(self, other)
+
     def __neg__(self):
         from . import arithmetics
 
@@ -769,6 +774,32 @@ class DNDarray:
 
         return manipulations.unique(self, sorted=sorted, return_inverse=return_inverse,
                                     axis=axis, return_counts=return_counts)
+
+    # -- linear algebra (heat_tpu ``dndarray.py:1169-1191``) --
+    def norm(self):
+        from .linalg import norm as _norm
+
+        return _norm(self)
+
+    def qr(self, tiles_per_proc: int = 1, calc_q: bool = True, overwrite_a: bool = False):
+        from .linalg import qr as _qr
+
+        return _qr(self, tiles_per_proc=tiles_per_proc, calc_q=calc_q, overwrite_a=overwrite_a)
+
+    def trace(self, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None):
+        from .linalg import trace as _trace
+
+        return _trace(self, offset=offset, axis1=axis1, axis2=axis2, dtype=dtype, out=out)
+
+    def tril(self, k: int = 0):
+        from .linalg import tril as _tril
+
+        return _tril(self, k)
+
+    def triu(self, k: int = 0):
+        from .linalg import triu as _triu
+
+        return _triu(self, k)
 
     # -- elementwise methods (heat_tpu ``dndarray.py:1053-1230``) --
     def absolute(self, out=None, dtype=None):

@@ -30,7 +30,8 @@ from . import _operations, arithmetics, exponential, logical, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
-__all__ = ["argmax", "argmin", "average", "bincount", "bucketize", "digitize", "gradient",
+__all__ = ["argmax", "argmin", "average", "bincount", "bucketize", "corrcoef", "cov",
+           "digitize", "gradient",
            "histc", "histogram", "histogram2d", "histogramdd", "interp", "kurtosis", "max",
            "maximum", "mean", "median", "min", "minimum", "nanargmax", "nanargmin", "nanmax",
            "nanmean", "nanmedian", "nanmin", "nanpercentile", "nanprod", "nanquantile",
@@ -400,6 +401,45 @@ def nanargmax(x: DNDarray, axis=None) -> DNDarray:
 def nanargmin(x: DNDarray, axis=None) -> DNDarray:
     """Index of the minimum ignoring NaNs (heat_tpu ``:739``)."""
     return _nan_arg_extremum(x, axis, float("inf"), argmin)
+
+
+def cov(m: DNDarray, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarray:
+    """Covariance matrix (heat_tpu ``statistics.py:278``): the centered Gram
+    matrix through the distributed ``matmul``."""
+    if ddof is not None and not isinstance(ddof, int):
+        raise TypeError("ddof must be integer")
+    if m.ndim > 2:
+        raise ValueError("m has more than 2 dimensions")
+    from . import manipulations
+    from .linalg import matmul, transpose
+
+    x = m if m.ndim == 2 else m.reshape((1, m.shape[0]))
+    if not rowvar and x.shape[0] != 1:
+        x = transpose(x)
+    if y is not None:
+        if y.ndim > 2:
+            raise ValueError("y has more than 2 dimensions")
+        yy = y if y.ndim == 2 else y.reshape((1, y.shape[0]))
+        if not rowvar and yy.shape[0] != 1:
+            yy = transpose(yy)
+        x = manipulations.concatenate([x, yy], axis=0)
+    if ddof is None:
+        ddof = 0 if bias else 1
+    centered = arithmetics.sub(x, mean(x, axis=1).reshape((x.shape[0], 1)))
+    return arithmetics.div(matmul(centered, transpose(centered)), float(x.shape[1] - ddof))
+
+
+def corrcoef(m: DNDarray, y=None, rowvar: bool = True) -> DNDarray:
+    """Pearson correlation coefficients (heat_tpu ``statistics.py:843``):
+    ``C[i,j] / sqrt(C[i,i] C[j,j])`` of :func:`cov`, clipped to [-1, 1]."""
+    from . import exponential, factories, manipulations
+
+    c = cov(m, y, rowvar=rowvar)
+    if c.ndim == 0:
+        return factories.array(1.0, dtype=c.dtype, comm=m.comm, device=m.device)
+    d = exponential.sqrt(manipulations.diag(c))
+    outer_d = arithmetics.mul(d.reshape((d.shape[0], 1)), d.reshape((1, d.shape[0])))
+    return arithmetics.div(c, outer_d).clip(-1.0, 1.0)
 
 
 def ptp(x: DNDarray, axis=None, out=None, keepdims: bool = False) -> DNDarray:

@@ -1,0 +1,5 @@
+"""Regression estimators (heat_tpu ``regression``)."""
+
+from .lasso import Lasso
+
+__all__ = ["Lasso"]

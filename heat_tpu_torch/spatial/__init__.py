@@ -1,5 +1,5 @@
 """Spatial algorithms (heat_tpu ``spatial``)."""
 
-from .distance import cdist
+from .distance import cdist, manhattan, rbf
 
-__all__ = ["cdist"]
+__all__ = ["cdist", "manhattan", "rbf"]

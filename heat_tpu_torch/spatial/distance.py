@@ -4,8 +4,10 @@ heat_tpu's ``_dist`` carries over: a replicated ``Y`` takes one local tile
 per shard with no communication (the KMeans case); two split-0 operands run
 the systolic ring — ``X`` stays, ``Y`` blocks travel one rank per step — and
 at world size 1 the one tile is the whole output. The quadratic-expansion
-tile is the ``cdist_tile`` kernel; the difference form is plain torch, as
-heat_tpu computes it outside Pallas too.
+tile is the ``cdist_tile`` kernel; the difference form and ``manhattan`` are
+plain torch, as heat_tpu computes them outside Pallas too. ``rbf`` takes the
+kernel's float32 output (heat_tpu's ``keep_acc``), so the exp sees unrounded
+squared distances also for half-precision input.
 """
 
 from __future__ import annotations
@@ -18,22 +20,43 @@ from ..core import types
 from ..core.dndarray import DNDarray
 from ..core.kernels import cdist_tile
 
-__all__ = ["cdist"]
+__all__ = ["cdist", "manhattan", "rbf"]
 
 
-def _l2_tile(x: torch.Tensor, y: torch.Tensor, expand: bool, sqrt: bool) -> torch.Tensor:
+def _l2_tile(x: torch.Tensor, y: torch.Tensor, expand: bool, sqrt: bool,
+             keep_acc: bool = False) -> torch.Tensor:
     """One block of pairwise L2 distances (heat_tpu ``distance.py:36``),
-    accumulated in ``accumulation_dtype``, returned in the input dtype."""
-    if expand:  # the kernel takes contiguous rows; a column slice is a strided view
-        return cdist_tile(x.contiguous(), y.contiguous(), sqrt=sqrt, out_dtype=x.dtype)
+    accumulated in ``accumulation_dtype``, returned in the input dtype, or
+    in the accumulation dtype with ``keep_acc``."""
     acc = types.accumulation_dtype(x.dtype)
+    out_dt = acc if keep_acc else x.dtype
+    if expand:  # the kernel takes contiguous rows; a column slice is a strided view
+        return cdist_tile(x.contiguous(), y.contiguous(), sqrt=sqrt, out_dtype=out_dt)
     diff = x.to(acc)[:, None, :] - y.to(acc)[None, :, :]
     d2 = torch.sum(diff * diff, dim=-1)
-    return (torch.sqrt(d2) if sqrt else d2).to(x.dtype)
+    return (torch.sqrt(d2) if sqrt else d2).to(out_dt)
 
 
 def _euclidean_tile(x, y, expand: bool):
     return _l2_tile(x, y, expand, sqrt=True)
+
+
+def _manhattan_tile(x, y, expand: bool):
+    """heat_tpu ``distance.py:68``: summed absolute differences, in the
+    accumulation dtype."""
+    acc = types.accumulation_dtype(x.dtype)
+    diff = torch.abs(x.to(acc)[:, None, :] - y.to(acc)[None, :, :])
+    return torch.sum(diff, dim=-1).to(x.dtype)
+
+
+def _gaussian_tile(sigma: float):
+    """heat_tpu ``distance.py:74``: ``exp(-d² / (2σ²))`` of the float32
+    squared distances, in place on the tile."""
+    def tile(x, y, expand: bool):
+        d2 = _l2_tile(x, y, expand, sqrt=False, keep_acc=True)
+        return d2.div_(-(2.0 * sigma * sigma)).exp_().to(x.dtype)
+
+    return tile
 
 
 def _dist(X: DNDarray, Y: Optional[DNDarray], tile_fn: Callable, expand: bool) -> DNDarray:
@@ -109,3 +132,14 @@ def _ring_kernel(X, Y, tile_fn, expand, dt) -> torch.Tensor:
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
     """Euclidean distance matrix (heat_tpu ``distance.py:195``)."""
     return _dist(X, Y, _euclidean_tile, quadratic_expansion)
+
+
+def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:
+    """Manhattan distance matrix (heat_tpu ``distance.py:200``)."""
+    return _dist(X, Y, _manhattan_tile, False)
+
+
+def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0,
+        quadratic_expansion: bool = False) -> DNDarray:
+    """Gaussian (RBF) kernel matrix (heat_tpu ``distance.py:205``)."""
+    return _dist(X, Y, _gaussian_tile(sigma), quadratic_expansion)
