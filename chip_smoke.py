@@ -88,6 +88,24 @@ Phases, one JSON line each:
    strong size (2^20 x 64, 100 sweeps, ``lam=0.01``, ``tol=-1``), theta
    within 1e-4 of max |theta| of a plain float64 coordinate descent on the
    card, and seconds per sweep.
+5f. file I/O and the out-of-core fit: bench.py's out-of-core dataset
+   (100,000,000 float32 elements, 1,562,500 x 64, 400 MB; bench.py:1120-1147)
+   written by the port's ``save_netcdf`` (scipy's NetCDF-3 backend) and,
+   where h5py imports, ``save_hdf5``; each file streamed back by
+   ``load_*(stream=True)`` into ``KMeans(8, init=<seed rows>, max_iter=3,
+   tol=-1).fit_stream(stream, rows_per_chunk=2**17)``: 12 chunks a pass (the
+   last 120,708 rows), 49 chunks read (1 for the geometry, 36 for the epochs,
+   12 for the finalize pass) and 48 ``kmeans_step`` launches, asserted; the
+   centroids within 1e-3 and the inertia within a relative 1e-4 of the
+   in-memory fit, the peak chunk 2^17 x 64 x 4 bytes and the card's peak
+   allocation during the fit under four chunks plus the centroids;
+   ``save_csv``/``load_csv`` of 40,000 x 18 float32 (distance_matrix's strong
+   size) on the native parser, bitwise, with the MB/s of each direction; and
+   ``KMedians``/``KMedoids(8, init="kmeans++", 10 iterations)`` on 2^20 x 64
+   float32 (the kmeans cell's width and k at an eighth of its rows), the last
+   step checked again in float64 (the medians equal, the medoids member rows
+   within the float32 band, labels differing only at near-ties), with the
+   seconds per iteration and the launches.
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -1826,6 +1844,258 @@ def linalg_path(torch, ht, tk, smi, bw, f32, bf16_tc):
     return launches
 
 
+# phase 5f sizes: bench.py's out-of-core scenario (:1120-1147: 100M float32
+# elements, n x 64, 2^17 rows a chunk, 3 epochs), distance_matrix's strong
+# size for the CSV leg (benchmarks/config.json), and the kmeans cell's width
+# and k at an eighth of its rows for KMedians and KMedoids
+STREAM_ROWS, STREAM_CHUNK, STREAM_EPOCHS = 100_000_000 // N_FEATURES, 2**17, 3
+MED_ROWS, MED_ITERS = 2**20, 10
+IO_DIR = "chip_smoke_io"  # gitignored; removed when the phase ends
+
+
+def manhattan64(x, c):
+    """(n, k) float64 manhattan distances, one centroid at a time."""
+    return np.stack([np.abs(x - cj).sum(axis=1) for cj in c], axis=1)
+
+
+def label_check(x64, prev, labels, d):
+    """Labels of the last step against float64 distances to the centroids it
+    started from: a label that differs from the float64 argmin must lie
+    within twice a float32 manhattan sum's error bound ((d + 1)·u·D) of it."""
+    dist = manhattan64(x64, prev.astype(np.float64))
+    best = dist.argmin(axis=1)
+    gap = dist[np.arange(len(labels)), labels] - dist.min(axis=1)
+    band = 2 * (d + 1) * U32 * dist.max(axis=1)
+    differ = labels != best
+    return int(differ.sum()), int((differ & (gap > band)).sum())
+
+
+def io_stream(torch, ht, tk, smi):
+    """Phase 5f: file I/O and the out-of-core fit. bench.py's 100M-element
+    dataset written by the port's ``save_netcdf`` (and ``save_hdf5`` where
+    h5py imports), streamed back by ``load_*(stream=True)`` into
+    ``KMeans.fit_stream`` (one ``kmeans_step`` launch a chunk a pass), held
+    against the in-memory fit; ``save_csv``/``load_csv`` at 40,000 x 18 on
+    the native parser; KMedians and KMedoids at 2^20 x 64, their last step
+    checked again in float64. Returns the phase's kernel launches."""
+    import os
+    import shutil
+
+    from heat_tpu_torch import native
+    from heat_tpu_torch.core import io as htio
+
+    checks, out, launches = {}, {}, {"cdist_tile": 0, "kmeans_step": 0}
+    os.makedirs(IO_DIR, exist_ok=True)
+    try:
+        # -- bench.py's out-of-core dataset ---------------------------- #
+        rng = np.random.default_rng(1120)
+        xn = rng.standard_normal((STREAM_ROWS, N_FEATURES), dtype=np.float32)
+        seed = ht.array(rng.standard_normal((K, N_FEATURES)).astype(np.float32))
+        X = ht.array(xn, split=0)
+        legs = {"netcdf": (htio.save_netcdf, htio.load_netcdf, f"{IO_DIR}/stream.nc")}
+        if htio.supports_hdf5():
+            legs["hdf5"] = (htio.save_hdf5, htio.load_hdf5, f"{IO_DIR}/stream.h5")
+        else:
+            print("io_stream: h5py does not import here: the HDF5 leg does not run, "
+                  "the NetCDF leg does", flush=True)
+        for name, (save, _, path) in legs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(X, path, "data")
+            out[f"{name}_save_s"] = time.perf_counter() - t0
+        del X
+        torch.cuda.empty_cache()
+        n_chunks = -(-STREAM_ROWS // STREAM_CHUNK)
+        tail = STREAM_ROWS - (n_chunks - 1) * STREAM_CHUNK
+        # the geometry pass reads one chunk (explicit init), each epoch and
+        # the finalize pass all of them; each chunk of a pass one launch
+        want_chunks = 1 + (STREAM_EPOCHS + 1) * n_chunks
+        want_launches = (STREAM_EPOCHS + 1) * n_chunks
+        chunk_bytes = STREAM_CHUNK * N_FEATURES * 4
+        fits = {}
+        for name, (_, load, path) in legs.items():
+            stream = load(path, "data", stream=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tk.reset_launches()
+            t0 = time.perf_counter()
+            km = ht.cluster.KMeans(n_clusters=K, init=seed, max_iter=STREAM_EPOCHS,
+                                   tol=-1).fit_stream(stream, rows_per_chunk=STREAM_CHUNK)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            got = dict(tk.launches)
+            peak = torch.cuda.max_memory_allocated() - base
+            launches["kmeans_step"] += got["kmeans_step"]
+            assert got["kmeans_step"] == want_launches, (name, got)
+            assert stream.chunks_read == want_chunks, (name, stream.chunks_read)
+            assert stream.peak_chunk_bytes == chunk_bytes, stream.peak_chunk_bytes
+            assert km.labels_ is None and km.n_iter_ == STREAM_EPOCHS
+            assert peak < 4 * chunk_bytes + K * N_FEATURES * 4, (name, peak)
+            fits[name] = km
+            out[name] = {"file_MB": os.path.getsize(path) / 1e6,
+                         "backend": "h5py" if name == "hdf5" else htio._NETCDF,
+                         "seconds": fit_s,
+                         "Mrows_per_s": STREAM_EPOCHS * STREAM_ROWS / fit_s / 1e6,
+                         "chunks_read": stream.chunks_read, "chunks_a_pass": n_chunks,
+                         "last_chunk_rows": tail, "bytes_read": stream.bytes_read,
+                         "peak_chunk_MB": stream.peak_chunk_bytes / 1e6,
+                         "peak_device_MB_during_fit": peak / 1e6,
+                         "kmeans_step_launches": got["kmeans_step"],
+                         "inertia": km.inertia_}
+        # the in-memory fit of the same data and seed rows
+        X = ht.array(xn, split=0)
+        tk.reset_launches()
+        ref = ht.cluster.KMeans(n_clusters=K, init=seed, max_iter=STREAM_EPOCHS,
+                                tol=-1).fit(X)
+        launches["kmeans_step"] += tk.launches["kmeans_step"]
+        assert tk.launches["kmeans_step"] == STREAM_EPOCHS, tk.launches
+        for name, km in fits.items():
+            d_c = float((km.cluster_centers_.larray - ref.cluster_centers_.larray).abs().max())
+            d_i = abs(km.inertia_ - ref.inertia_) / abs(ref.inertia_)
+            assert d_c <= 1e-3 and d_i <= 1e-4, (name, d_c, d_i)
+            checks[f"{name}_stream_vs_in_memory_fit"] = {
+                "max_abs_err_centers": d_c, "limit": 1e-3, "inertia_rel_err": d_i,
+                "inertia_limit": 1e-4}
+        # the kernel at the streamed path's two shapes, unmasked, against
+        # its plain version: a full chunk and the last, with the centroids
+        # of the finalize pass
+        cf = fits["netcdf"].cluster_centers_.larray.contiguous()
+        for label, rows in (("full_chunk", slice(0, STREAM_CHUNK)),
+                            ("last_chunk", slice(STREAM_ROWS - tail, STREAM_ROWS))):
+            xc = torch.from_numpy(xn[rows]).to(cf.device)
+            path_call = tk.kmeans_step(xc, cf)
+            got = tk.kmeans_step(xc, cf, return_labels=True)
+            assert all(torch.equal(a, b) for a, b in zip(path_call, got)), \
+                f"kmeans_step {label}: the unlabelled call differs from the labelled one"
+            want = tk.kmeans_step_plain(xc, cf, return_labels=True)
+            every = torch.ones(xc.shape[0], dtype=torch.bool, device=xc.device)
+            checks[f"kmeans_step_{label}_{xc.shape[0]}x{N_FEATURES}_vs_plain"] = \
+                check_kmeans_step(torch, xc, cf, every, got, want)
+            del xc, path_call, got, want, every
+        del X, xn, fits, ref, cf
+        torch.cuda.empty_cache()
+
+        # -- CSV at distance_matrix's strong size ---------------------- #
+        # the parser is built by g++ at its first use: build it untimed
+        t0 = time.perf_counter()
+        assert native.available(), "the native CSV parser does not build"
+        out["csv_parser_build_s"] = time.perf_counter() - t0
+        yn = np.random.default_rng(40000).random((CDIST_N, CDIST_D), dtype=np.float32)
+        Yd = ht.array(yn, split=0)
+        path = f"{IO_DIR}/y.csv"
+        t0 = time.perf_counter()
+        ht.save_csv(Yd, path)
+        save_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        native_before = htio.csv_routes["native"]
+        t0 = time.perf_counter()
+        Z = ht.load_csv(path, split=0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert htio.csv_routes["native"] == native_before + 1, htio.csv_routes
+        assert Z.larray.device == Yd.larray.device and torch.equal(Z.larray, Yd.larray), \
+            "load_csv differs"
+        out["csv"] = {"shape": [CDIST_N, CDIST_D], "file_MB": mb, "save_s": save_s,
+                      "save_MB_per_s": mb / save_s, "load_s": load_s,
+                      "load_MB_per_s": mb / load_s, "route": "native", "bitwise_equal": True}
+        del Yd, Z
+
+        # -- KMedians and KMedoids at 2^20 x 64 ------------------------ #
+        ht.random.seed(3)
+        Xm = ht.random.rand(MED_ROWS, N_FEATURES, split=0)
+        x32 = Xm.larray.cpu().numpy()
+        x64 = x32.astype(np.float64)
+        for name in ("KMedians", "KMedoids"):
+            kw = {"tol": -1} if name == "KMedians" else {}
+            est = getattr(ht.cluster, name)(n_clusters=K, init="kmeans++", max_iter=MED_ITERS,
+                                            random_state=0, **kw)
+            rec = {"steps_s": []}
+            local_step = est._local_step
+
+            def recording(x, c, _step=local_step, _rec=rec):
+                _rec.setdefault("seeds", c.clone())
+                _rec["prev"] = c.clone()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = _step(x, c)
+                torch.cuda.synchronize()
+                _rec["steps_s"].append(time.perf_counter() - t)
+                return res
+
+            est._local_step = recording
+            tk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.fit(Xm)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            got = dict(tk.launches)
+            launches["cdist_tile"] += got["cdist_tile"]
+            assert got["cdist_tile"] == K - 1, got  # the k-means++ seeds
+            # cdist_tile at the seeding's smallest and largest shapes, as
+            # spatial.distance.cdist launches it, against its plain version
+            for j in (1, K - 1):
+                err, ratio = check_cdist(torch, tk, Xm.larray, rec["seeds"][:j].contiguous(),
+                                         sqrt=True)
+                checks[f"{name} cdist_tile {MED_ROWS}x{N_FEATURES} vs {j} seeds"] = {
+                    "max_abs_err": err, "max_err_over_limit": ratio}
+            prev = rec["prev"].cpu().numpy()
+            centers = est.cluster_centers_.larray.cpu().numpy()
+            labels = est.labels_.larray.cpu().numpy()
+            n_differ, n_unexplained = label_check(x64, prev, labels, N_FEATURES)
+            assert n_unexplained == 0, (name, n_differ, n_unexplained)
+            chk = {"labels_differing_from_float64": n_differ,
+                   "labels_differing_not_near_tie": n_unexplained}
+            if name == "KMedians":
+                want = prev.copy()
+                for j in range(K):
+                    m = x32[labels == j]
+                    if len(m):
+                        lo, hi = (len(m) - 1) // 2, len(m) // 2
+                        part = np.partition(m, [lo, hi], axis=0)
+                        want[j] = (0.5 * (part[lo].astype(np.float64)
+                                          + part[hi].astype(np.float64))).astype(np.float32)
+                assert np.array_equal(centers, want), "medians differ from float64's"
+                chk["medians_equal_float64"] = True
+            else:
+                xl = Xm.larray
+                lab = est.labels_.larray
+                onehot = (lab[:, None] == torch.arange(K, device=lab.device)[None, :]).float()
+                mean32 = ((onehot.T @ xl) / onehot.sum(0).clamp(min=1)[:, None]).cpu().numpy()
+                exact = 0
+                for j in range(K):
+                    m64 = x64[labels == j]
+                    if not len(m64):
+                        assert np.array_equal(centers[j], prev[j])
+                        continue
+                    mean64 = m64.mean(axis=0)
+                    dm = np.abs(m64 - mean64).sum(axis=1)
+                    is_row = np.all(x32[labels == j] == centers[j], axis=1)
+                    assert is_row.any(), f"medoid {j} is no member row"
+                    d_med = np.abs(centers[j].astype(np.float64) - mean64).sum()
+                    band = (2 * (N_FEATURES + 1) * U32 * dm.max()
+                            + 2 * np.abs(mean32[j] - mean64).sum())
+                    assert d_med - dm.min() <= band, (j, d_med - dm.min(), band)
+                    exact += int(np.array_equal(centers[j], x32[labels == j][dm.argmin()]))
+                chk["medoids_member_rows_within_band"] = True
+                chk["medoids_equal_float64_argmin_row"] = exact
+            checks[f"{name} 2^20x64"] = chk
+            steps = rec["steps_s"]
+            out[name] = {"rows": MED_ROWS, "reduced": "2^20 rows: an eighth of the kmeans "
+                         "cell's 2^23, its width 64 and k 8", "n_iter": est.n_iter_,
+                         "fit_s": fit_s, "s_per_iteration": statistics.median(steps),
+                         "seeding_and_rest_s": fit_s - sum(steps), "launches": got}
+            del est
+        del Xm, x32, x64
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(IO_DIR, ignore_errors=True)
+    emit({"phase": "io_stream", "card": smi, "checks": checks, **out, "launches": launches,
+          "comm_stats": dict(ht.get_comm().stats)})
+    return launches
+
+
 def serving_path(torch, ht, tk, dev, smi):
     """The serving main path at the flagship width, through the entry points
     a user calls; returns the figures and the path's launch counts."""
@@ -2616,7 +2886,7 @@ def main():
     del dl, D
 
     # Lloyd iterations per second over the 20 steps of the same fit
-    step = km._lloyd_step(comm, 0, torch.float32)
+    step = km._lloyd_step(comm, 0)
     lloyd = ht.cluster.KMeans(n_clusters=K, max_iter=ITERS, tol=-1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2654,6 +2924,10 @@ def main():
     spectral_launches = linalg_path(torch, ht, tk, smi, bw, f32, bf16_tc)
     torch.cuda.empty_cache()
 
+    # 5f. file I/O and the out-of-core fit, KMedians and KMedoids
+    io_launches = io_stream(torch, ht, tk, smi)
+    torch.cuda.empty_cache()
+
     # 6. the serving path, through the entry points a user calls -------- #
     serve_launches = serving_path(torch, ht, tk, dev, smi)
     fp, fl = fl_times["prefill_1x16x1024x64_bf16"], fl_times["logits_8x16x1024x64_bf16"]
@@ -2666,9 +2940,11 @@ def main():
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:189",
-         "launches": launches["cdist_tile"] + spectral_launches["cdist_tile"],
+         "launches": (launches["cdist_tile"] + spectral_launches["cdist_tile"]
+                      + io_launches["cdist_tile"]),
          "launches_by_path": {"kmeans": launches["cdist_tile"],
-                              "spectral": spectral_launches["cdist_tile"]},
+                              "spectral": spectral_launches["cdist_tile"],
+                              "io_stream": io_launches["cdist_tile"]},
          "max_abs_err": err_40k, "ms": ms_40k, "plain_ms": plain_40k, "bound_ms": b_40k[0],
          "bound_by": b_40k[1], "library_ms": lib_40k, "shape": "40000x40000x18 f32, sqrt",
          "variants": [{"shape": "2^23x64 vs 8 f32, sqrt", "max_abs_err": err_pp,
@@ -2676,9 +2952,11 @@ def main():
                        "bound_by": b_pp[1], "library_ms": lib_pp}]},
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:858",
-         "launches": launches["kmeans_step"] + spectral_launches["kmeans_step"],
+         "launches": (launches["kmeans_step"] + spectral_launches["kmeans_step"]
+                      + io_launches["kmeans_step"]),
          "launches_by_path": {"kmeans": launches["kmeans_step"],
-                              "spectral": spectral_launches["kmeans_step"]},
+                              "spectral": spectral_launches["kmeans_step"],
+                              "io_stream": io_launches["kmeans_step"]},
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
          "variants": [{"shape": f"{name} f32 (streaming path)",

@@ -6,8 +6,10 @@ across processes (one per card, ``torch.distributed``) with its operators,
 moments, cumulative operations, resplits, indexing and manipulations,
 sorting, the set operations and the order statistics, factories and random
 draws (heat_tpu's Threefry stream, bit for bit), the linear algebra layer
-(``@``, ``ht.linalg``), KMeans, Spectral clustering, Lasso, the graph
-Laplacian and the distance matrices,
+(``@``, ``ht.linalg``), file I/O (HDF5, NetCDF, CSV, ``.npy``) with
+out-of-core streams, KMeans (also out of core), KMedians, KMedoids,
+Spectral clustering, Lasso, the graph Laplacian, the distance matrices,
+halos and tilings,
 and the flagship transformer LM's training and serving paths (``nn``,
 ``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
@@ -21,6 +23,7 @@ from . import core
 from .core import communication, devices, factories, kernels, linalg, random, types
 from . import cluster
 from . import data
+from . import datasets
 from . import graph
 from . import nn
 from . import optim

@@ -4,6 +4,10 @@ One Lloyd step on split-0 data is the ``kmeans_step`` kernel over the local
 shard (X read once), then ONE packed all-reduce of the sums, counts and
 inertia, then the centroid update. At world size 1 the all-reduce emits
 nothing. Labels are computed once, after the loop.
+
+``fit_stream`` runs heat_tpu's exact out-of-core epoch: each chunk's
+partials (one ``kmeans_step`` launch, then one packed all-reduce) add into
+device buffers, and the centroids update once per epoch.
 """
 
 from __future__ import annotations
@@ -47,6 +51,23 @@ def _lloyd_partial(xp, centroids, acc):
     return onehot.T @ xf, onehot.sum(dim=0), min_d2.sum()
 
 
+def _partials(xp, centroids):
+    """Lloyd partials ``(sums, counts, inertia)`` of one shard or chunk, by
+    heat_tpu's dtype rule (``_use_pallas_step``, ``kmeans.py:134``):
+    float32 and float64 take the ``kmeans_step`` kernel; half precision
+    takes ``_lloyd_partial`` in float32, since the kernel's outputs are in
+    the input dtype, which would round counts above 256. An empty shard
+    launches nothing."""
+    acc = types.accumulation_dtype(xp.dtype)
+    if xp.shape[0] == 0:
+        k, d = centroids.shape
+        return (xp.new_zeros((k, d), dtype=acc), xp.new_zeros(k, dtype=acc),
+                xp.new_zeros((), dtype=acc))
+    if acc == xp.dtype:
+        return kmeans_step(xp, centroids)
+    return _lloyd_partial(xp, centroids, acc)
+
+
 def _assign(xp, centroids):
     """Final assignment: labels and inertia against the same centroids
     (heat_tpu ``kmeans.py:310``)."""
@@ -77,21 +98,12 @@ class KMeans(_KCluster):
             n_clusters=n_clusters, init=init, max_iter=max_iter, tol=tol,
             random_state=random_state)
 
-    def _lloyd_step(self, comm, split, dtype: torch.dtype):
+    def _lloyd_step(self, comm, split):
         """``step(xp, centroids) -> (new_centroids, shift, inertia)`` on the
-        local shard. float32/float64 take the ``kmeans_step`` kernel;
-        half-precision data takes ``_lloyd_partial``, the dtype rule of
-        heat_tpu (``_use_pallas_step``, ``kmeans.py:134``: the kernel's
-        outputs are in the input dtype, which would round counts above 256),
-        not a fallback."""
-        acc = types.accumulation_dtype(dtype)
-        use_kernel = acc == dtype
-
+        local shard: :func:`_partials`, one packed all-reduce for split-0
+        data, the centroid update."""
         def step(xp, centroids):
-            if use_kernel:
-                sums, counts, inertia = kmeans_step(xp, centroids)
-            else:
-                sums, counts, inertia = _lloyd_partial(xp, centroids, acc)
+            sums, counts, inertia = _partials(xp, centroids)
             if split == 0:
                 sums, counts, inertia = comm.packed_allreduce([sums, counts, inertia])
             new_centroids, shift = _finish_update(sums, counts, centroids)
@@ -113,7 +125,7 @@ class KMeans(_KCluster):
             else x.dtype.torch_type()
         xp = x.larray.to(dtype).contiguous()  # a column slice is a strided view
         centroids = self._cluster_centers.larray.to(dtype).clone()
-        step = self._lloyd_step(x.comm, x.split, dtype)
+        step = self._lloyd_step(x.comm, x.split)
         centroids, _, it = self._run_lloyd(step, xp, centroids)
 
         self._cluster_centers = DNDarray.from_global(centroids, None, x.device, x.comm)
@@ -125,3 +137,44 @@ class KMeans(_KCluster):
         self._inertia = float(inertia)
         self._n_iter = it
         return self
+
+    # ------------------------------------------------------------------ #
+    # out-of-core fit: the exact epoch (heat_tpu ``kmeans.py:506-557``)  #
+    # ------------------------------------------------------------------ #
+    def _stream_dtype(self, chunk: DNDarray) -> torch.dtype:
+        return (types.float32 if types.heat_type_is_exact(chunk.dtype)
+                else chunk.dtype).torch_type()
+
+    def _stream_accumulate(self, chunks, centroids, meta):
+        """One pass over the stream: each chunk's :func:`_partials` (one
+        ``kmeans_step`` launch for float32/float64), one packed all-reduce
+        of them for a split-0 chunk (none at world size 1, as heat_tpu's
+        per-chunk ``packed_psum``), added into device buffers."""
+        acc = types.accumulation_dtype(meta["dtype"])
+        k, d = self.n_clusters, meta["d"]
+        dev = centroids.device
+        sums = torch.zeros((k, d), dtype=acc, device=dev)
+        counts = torch.zeros(k, dtype=acc, device=dev)
+        inertia = torch.zeros((), dtype=acc, device=dev)
+        for chunk in chunks():
+            xp = chunk.larray.to(meta["dtype"]).contiguous()
+            part = _partials(xp, centroids)
+            if chunk.split == 0:
+                part = chunk.comm.packed_allreduce(part)
+            sums += part[0]
+            counts += part[1]
+            inertia += part[2]
+        return sums, counts, inertia
+
+    def _stream_epoch(self, chunks, centroids, meta):
+        """One exact Lloyd epoch out of core: the centroids update once,
+        from the accumulated pass, so the streamed fit equals the in-memory
+        fit up to the order of the float sums."""
+        sums, counts, _ = self._stream_accumulate(chunks, centroids, meta)
+        return _finish_update(sums, counts, centroids)
+
+    def _stream_finalize(self, chunks, centroids, meta) -> None:
+        """One more pass against the final centroids, so that ``inertia_``
+        means what it does after ``fit``."""
+        _, _, inertia = self._stream_accumulate(chunks, centroids, meta)
+        self._inertia = float(inertia)

@@ -23,7 +23,9 @@ from .indexing import *  # noqa: F401,F403
 from .manipulations import *  # noqa: F401,F403
 from .printing import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
-from . import (arithmetics, complex_math, exponential, factories, indexing, linalg, logical,
+from .io import *  # noqa: F401,F403
+from .tiling import *  # noqa: F401,F403
+from . import (arithmetics, complex_math, exponential, factories, indexing, io, linalg, logical,
                manipulations, memory, printing, random, relational, resharding, rounding,
-               sanitation, statistics, trigonometrics)
+               sanitation, statistics, tiling, trigonometrics)
 from .version import __version__

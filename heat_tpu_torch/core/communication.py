@@ -252,6 +252,31 @@ class TorchCommunication:
             return stacked.sum(0, dtype=tensor.dtype)
         return stacked.prod(0, dtype=tensor.dtype)
 
+    def Bcast(self, tensor: torch.Tensor, root: int) -> torch.Tensor:
+        """Rank ``root``'s ``tensor`` on every rank (heat_tpu's tile reads,
+        ``tiling.py``): the other ranks pass a tensor of the same shape and
+        dtype to receive into. Any dtype travels, as bytes; counted as
+        ``broadcast`` on every rank."""
+        if self.size == 1:
+            return tensor
+        wire = _as_bytes(tensor)
+        self._count("broadcast", wire.numel())
+        dist.broadcast(wire, self._peer(root), group=self.group)
+        return wire.view(tensor.dtype).view(tensor.shape)
+
+    def Barrier(self, failed: bool = False, device=None) -> bool:
+        """Wait for every rank, and tell each whether any rank ``failed``:
+        ONE all-reduce (max) of a one-element flag, counted as ``barrier``
+        (the turns of a rank-ordered write, :mod:`.io`). ``device`` is where
+        the flag lives (the card for NCCL). At world size 1 it emits
+        nothing and returns ``failed``."""
+        if self.size == 1:
+            return failed
+        flag = torch.tensor([int(failed)], dtype=torch.int32, device=device)
+        self._count("barrier", flag.numel() * flag.element_size())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(flag.item())
+
     def _peer(self, rank: int) -> int:
         return dist.get_global_rank(self.group, rank) if self.group is not None else rank
 

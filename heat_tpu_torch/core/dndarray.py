@@ -360,6 +360,80 @@ class DNDarray:
         return manipulations.redistribute(self, lshape_map=lshape_map, target_map=target_map)
 
     # ------------------------------------------------------------------ #
+    # halo exchange (heat_tpu ``dndarray.py:523-594``)                   #
+    # ------------------------------------------------------------------ #
+    def _halo_exchange(self, halo_size: int):
+        """The neighbours' edges ``(from_prev, from_next)`` of this rank's
+        shard: the last ``halo_size`` rows along the split axis of rank-1's
+        ceil-chunk and the first ``halo_size`` of rank+1's, zeros on the
+        outer ranks and where a neighbour's chunk is short, as in heat_tpu's
+        zero-padded blocks. Two :meth:`~TorchCommunication.Permute` rounds,
+        one each way. None when nothing is exchanged (replicated,
+        ``halo_size == 0`` or world size 1)."""
+        if not isinstance(halo_size, int) or halo_size < 0:
+            raise TypeError("halo_size must be a non-negative integer")
+        comm = self.__comm
+        if self.__split is None or halo_size == 0 or comm.size == 1:
+            return None
+        k = self.__split
+        p = comm.size
+        chunk = comm.chunk_size(self.__gshape[k])
+        if halo_size > chunk:
+            raise ValueError(f"halo_size {halo_size} exceeds chunk size {chunk}")
+        x = self.__array
+        lc = x.shape[k]
+        if lc < chunk:  # the ceil-chunk heat_tpu pads with zeros
+            pad = list(x.shape)
+            pad[k] = chunk - lc
+            x = torch.cat([x, x.new_zeros(pad)], dim=k)
+        edge = list(x.shape)
+        edge[k] = halo_size
+        lo = x.narrow(k, 0, halo_size)
+        hi = x.narrow(k, chunk - halo_size, halo_size)
+        from_prev = comm.Permute(hi, [(i, i + 1) for i in range(p - 1)], edge)
+        from_next = comm.Permute(lo, [(i + 1, i) for i in range(p - 1)], edge)
+        return (x.new_zeros(edge) if from_prev is None else from_prev,
+                x.new_zeros(edge) if from_next is None else from_next)
+
+    def array_with_halos(self, halo_size: int) -> torch.Tensor:
+        """This rank's shard extended by its neighbours' edges along the
+        split axis, ``[from_prev; shard; from_next]`` (heat_tpu
+        ``dndarray.py:559``, whose shards carry their padding; the port's
+        do not). The shard itself when nothing is exchanged."""
+        parts = self._halo_exchange(halo_size)
+        if parts is None:
+            return self.__array
+        return torch.cat([parts[0], self.__array, parts[1]], dim=self.__split)
+
+    def get_halo(self, halo_size: int) -> None:
+        """Compute and keep the neighbours' edges as ``halo_prev`` (from
+        rank-1) and ``halo_next`` (from rank+1), this rank's tensors of
+        ``halo_size`` rows along the split axis, zeros on the outer ranks
+        (heat_tpu ``dndarray.py:579``); both None when nothing is
+        exchanged."""
+        parts = self._halo_exchange(halo_size)
+        self.halo_prev, self.halo_next = (None, None) if parts is None else parts
+        return None
+
+    # ------------------------------------------------------------------ #
+    # files (heat_tpu ``dndarray.py:1282-1295``)                         #
+    # ------------------------------------------------------------------ #
+    def save(self, path: str, *args, **kwargs) -> None:
+        from . import io
+
+        return io.save(self, path, *args, **kwargs)
+
+    def save_hdf5(self, path: str, dataset: str = "data", **kwargs) -> None:
+        from . import io
+
+        return io.save_hdf5(self, path, dataset, **kwargs)
+
+    def save_netcdf(self, path: str, variable: str = "data", **kwargs) -> None:
+        from . import io
+
+        return io.save_netcdf(self, path, variable, **kwargs)
+
+    # ------------------------------------------------------------------ #
     # conversion                                                         #
     # ------------------------------------------------------------------ #
     def astype(self, dtype, copy: bool = True) -> "DNDarray":

@@ -95,7 +95,7 @@ def main(root):
     seeded._initialize_cluster_centers(X)
     c0 = seeded.cluster_centers_.larray.clone()
     lloyd = ht.cluster.KMeans(n_clusters=cs.K, max_iter=cs.ITERS, tol=-1)
-    step = lloyd._lloyd_step(ht.get_comm(), 0, torch.float32)
+    step = lloyd._lloyd_step(ht.get_comm(), 0)
     lloyd._run_lloyd(step, X.larray, c0.clone())  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
