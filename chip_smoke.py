@@ -106,6 +106,27 @@ Phases, one JSON line each:
    step checked again in float64 (the medians equal, the medoids member rows
    within the float32 band, labels differing only at near-ties), with the
    seconds per iteration and the launches.
+5g. the data engine and the last estimators: bench.py's ``--data-bench``
+   sizes (:1217-1290) — ``groupby`` sum/mean/count/min/max of 10,000,000
+   float32 values by int64 keys in 64 groups (count, min, max bitwise
+   against ``torch.bincount``/``scatter_reduce``, sum and mean within the
+   float32 summation bound of a float64 sum), ``data.topk`` of 64 (bitwise
+   the head of a stable descending sort), and the exact
+   ``stream_quantile`` p50 and p99 of a 100,000,000-element float32
+   NetCDF-3 stream (``save_netcdf``) in 2^20-row chunks, linear, lower and
+   higher: the picked order statistics bitwise ``torch.kthvalue``'s, the
+   linear result numpy's rule on them in float64, with the passes and
+   chunks read; ``data.join`` of those 10M rows (keys in [0, 2^21)) to a
+   2^21-row dimension table, bitwise a sort-merge join; data_pipeline.py's
+   (station, magnitude) table at 10,000,000 rows streamed in 2^20-row
+   chunks through ``stream_groupby(16, "mean")`` and ``stream_topk(5)``
+   against the in-memory ``groupby`` and ``topk``; ``GaussianNB`` on 2^20 x
+   64 float32 in 8 blobs (counts exact, ``theta_``/``var_`` within 1e-10 of
+   float64, labels differing only at near-ties of the float64 joint log
+   likelihood); ``KNeighborsClassifier(5)`` on 40,000 x 18 against 40,000
+   test rows (one ``cdist_tile`` launch asserted, labels against a float64
+   top-5 vote, differing only at distance near-ties); the HDF5 loader
+   where h5py imports; the engine's counters with both fallbacks at 0.
 6. serving path: the flagship TransformerLM (vocab 32,768, d_model 1024,
    16 heads, 8 layers, d_ff 4096, RoPE, bf16; random weights from
    ``init(0)``) on one card — one ``logits_fn`` forward over (8, 1024)
@@ -2096,6 +2117,372 @@ def io_stream(torch, ht, tk, smi):
     return launches
 
 
+# phase 5g sizes: bench.py's --data-bench (:1217-1290: 10,000,000 rows in 64
+# groups, the top 64, the exact median and p99 of a 100,000,000-element
+# float32 stream in 2^20-row chunks); a fact table of those 10,000,000 rows
+# joined to a dimension table of 2^21 unique keys; examples/data_pipeline.py's
+# (station, magnitude) table (make_table, seed 7) at 10,000,000 rows;
+# GaussianNB at the kmeans cell's width and k at an eighth of its rows; KNN at
+# distance_matrix's strong size (benchmarks/config.json)
+ENGINE_ROWS, ENGINE_GROUPS, ENGINE_K = 10_000_000, 64, 64
+JOIN_RIGHT = 2**21
+QUANT_ELEMS, QUANT_CHUNK, QUANT_Q = 100_000_000, 2**20, (0.5, 0.99)
+TABLE_ROWS, TABLE_STATIONS, TABLE_TOPK = 10_000_000, 16, 5
+GNB_ROWS = 2**20
+KNN_K = 5
+PARTIAL_ROWS = 2**16
+U64 = 2.0**-53  # float64 unit roundoff
+
+
+def make_table(rng, rows, stations, feats, clusters):
+    """examples/data_pipeline.py's synthetic readings (its ``make_table``):
+    station id, magnitude, and a feature block drawn from ``clusters``
+    hidden modes."""
+    station = rng.integers(0, stations, rows).astype(np.float64)
+    mode = rng.integers(0, clusters, rows)
+    centers = rng.normal(0.0, 6.0, size=(clusters, feats))
+    x = centers[mode] + rng.normal(0.0, 0.4, size=(rows, feats))
+    magnitude = np.abs(rng.standard_normal(rows)) + (mode == 0) * 1.5
+    return station, magnitude.astype(np.float64), x.astype(np.float32)
+
+
+def merge_join(torch, lk, lv, rk, rv):
+    """A sort-merge inner join in torch, independent of the engine's hash
+    probe: both key columns sorted together (a right row before a left row
+    of its key), each left row matched to the last right row at or before
+    it; the matches in left-position order (the engine's order at world
+    size 1). Right keys unique."""
+    nr = rk.numel()
+    allk = torch.cat([rk, lk])
+    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(lk)])
+    order = torch.sort(allk * 2 + tag, stable=True).indices
+    is_r = order < nr
+    pos = torch.arange(order.numel(), device=lk.device)
+    last_r = torch.cummax(torch.where(is_r, pos, torch.full_like(pos, -1)), 0).values
+    sk = allk[order]
+    ok = ~is_r & (last_r >= 0) & (sk[last_r.clamp(min=0)] == sk)
+    li, ri = order[ok] - nr, order[last_r[ok]]
+    o = torch.argsort(li)
+    li, ri = li[o], ri[o]
+    return lk[li], lv[li], rv[ri]
+
+
+def group_sums64(torch, keys, vals, G):
+    """float64 per-group sums, counts and sums of |v|."""
+    v = vals.double()
+    z = torch.zeros(G, dtype=torch.float64, device=v.device)
+    return (z.clone().index_add_(0, keys, v), z.clone().index_add_(0, keys, torch.ones_like(v)),
+            z.clone().index_add_(0, keys, v.abs()))
+
+
+def data_engine(torch, ht, tk, smi, bw):
+    """Phase 5g: the data engine and the last estimators at the sizes users
+    run them at. groupby, top-k and join on 10M rows, the exact streamed
+    quantiles of a 100M-element NetCDF stream, the streamed groupby and
+    top-k of data_pipeline.py's table, GaussianNB at 2^20 x 64, KNN at
+    40,000^2 x 18 (one ``cdist_tile`` launch, asserted), and, where h5py
+    imports, the HDF5 loader; each held against a plain computation on the
+    same card tensors. Returns the phase's kernel launches."""
+    import os
+    import shutil
+
+    from heat_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    checks, ops, out = {}, {}, {}
+    launches = {"cdist_tile": 0, "kmeans_step": 0}
+    comm = ht.get_comm()
+    comm.reset_stats()
+    stats0 = ht.data.stats()
+
+    def timed(name, fn, rows, nbytes, reps=3):
+        """device ms (CUDA events, median of ``reps`` calls after a warm-up)
+        and host µs of one call, Mrows/s and the bytes bound."""
+        ms = time_ms(torch, fn, reps=reps, inner=1)
+        _, us = once_ms_us(torch, fn)
+        ops[name] = {"device_ms": ms, "host_us": us, "Mrows_per_s": rows / ms / 1e3,
+                     "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes"}
+
+    # -- 1. the engine in memory (bench.py:1217-1241) ----------------- #
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, ENGINE_GROUPS, ENGINE_ROWS).astype(np.int64)
+    vals = rng.standard_normal(ENGINE_ROWS).astype(np.float32)
+    Kd, Vd = ht.array(keys, split=0), ht.array(vals, split=0)
+    kl, vl = Kd.larray, Vd.larray
+    G = ENGINE_GROUPS
+    gb = ht.data.groupby(Kd, G)
+    res = {op: gb.agg(op, None if op == "count" else Vd).larray
+           for op in ("sum", "mean", "count", "min", "max")}
+    s64, n64, a64 = group_sums64(torch, kl, vl, G)
+    assert torch.equal(res["count"], torch.bincount(kl, minlength=G)), "groupby count"
+    for op in ("min", "max"):
+        want = torch.full((G,), float("inf") if op == "min" else float("-inf"),
+                          device=vl.device).scatter_reduce(0, kl, vl, "a" + op)
+        assert torch.equal(res[op], want), f"groupby {op}"
+    # a float32 sum of n terms lies within (n - 1)·u·Σ|v| of the exact sum in
+    # any order; the float64 mean within n·2^-53·Σ|v| / n of the float64 one
+    err = (res["sum"].double() - s64).abs()
+    tol = (n64 - 1) * U32 * a64
+    assert bool((err <= tol).all()), "groupby sum beyond its float32 bound"
+    err_m = (res["mean"] - s64 / n64).abs()
+    tol_m = 2 * n64 * U64 * a64 / n64
+    assert res["mean"].dtype == torch.float64 and bool((err_m <= tol_m).all()), "groupby mean"
+    checks["groupby_10M_64"] = {"count_min_max_bitwise": True,
+                                "sum_max_err_over_bound": float((err / tol).max()),
+                                "mean_max_err_over_bound": float((err_m / tol_m).max())}
+    for op in ("sum", "mean", "count", "min", "max"):
+        timed(f"groupby_{op}", (lambda o=op: gb.agg(o, None if o == "count" else Vd)),
+              ENGINE_ROWS, ENGINE_ROWS * (8 + (0 if op == "count" else 4)))
+    del res, s64, n64, a64, err, tol, err_m, tol_m
+
+    tv, ti = ht.data.topk(Vd, ENGINE_K)
+    srt = torch.sort(vl, descending=True, stable=True)
+    assert torch.equal(tv.larray, srt.values[:ENGINE_K]) and \
+        torch.equal(ti.larray, srt.indices[:ENGINE_K]), "topk differs from the stable sort"
+    checks[f"topk_{ENGINE_K}_of_10M"] = {"values_and_indices_bitwise": True}
+    timed("topk_64", lambda: ht.data.topk(Vd, ENGINE_K), ENGINE_ROWS, ENGINE_ROWS * 4)
+    ops["topk_64"]["torch.topk_ms"] = time_ms(torch, lambda: torch.topk(vl, ENGINE_K), reps=3,
+                                              inner=1)
+    del srt, tv, ti
+
+    rk_np = rng.permutation(JOIN_RIGHT).astype(np.int64)
+    lk_np = rng.integers(0, JOIN_RIGHT, ENGINE_ROWS).astype(np.int64)
+    LK, LV = ht.array(lk_np, split=0), Vd
+    RK = ht.array(rk_np, split=0)
+    RV = ht.array(rng.standard_normal(JOIN_RIGHT).astype(np.float32), split=0)
+    jk, jl, jr = ht.data.join(LK, LV, RK, RV)
+    wk, wl, wr = merge_join(torch, LK.larray, LV.larray, RK.larray, RV.larray)
+    assert jk.shape == (wk.numel(),) and jk.split == 0, jk.shape
+    assert torch.equal(jk.larray, wk) and torch.equal(jl.larray, wl) and \
+        torch.equal(jr.larray, wr), "join differs from the sort-merge join"
+    checks["join_10M_x_2^21"] = {"rows": int(wk.numel()), "bitwise_vs_sort_merge": True}
+    timed("join_10M_x_2^21", lambda: ht.data.join(LK, LV, RK, RV), ENGINE_ROWS,
+          ENGINE_ROWS * (8 + 4) + JOIN_RIGHT * (8 + 4) + wk.numel() * (8 + 4 + 4))
+    del jk, jl, jr, wk, wl, wr, LK, LV, RK, RV, Kd, Vd, kl, vl, gb, keys, vals, lk_np, rk_np
+    torch.cuda.empty_cache()
+
+    os.makedirs(IO_DIR, exist_ok=True)
+    try:
+        # -- 2. the streamed folds (bench.py:1244-1290) --------------- #
+        data = np.random.default_rng(1244).standard_normal(QUANT_ELEMS, dtype=np.float32)
+        path = f"{IO_DIR}/quantile.nc"
+        D = ht.array(data, split=0)
+        t0 = time.perf_counter()
+        ht.save_netcdf(D, path, "data")
+        out["quantile_file_save_s"] = time.perf_counter() - t0
+        del D
+        n_chunks = -(-QUANT_ELEMS // QUANT_CHUNK)
+        vt = torch.from_numpy(data).to(torch.cuda.current_device()
+                                       if torch.cuda.is_available() else "cpu")
+        del data
+        got = {}
+        for interp in ("linear", "lower", "higher"):
+            stream = ht.load_netcdf(path, "data", stream=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = ht.data.stream_quantile(stream, list(QUANT_Q), rows_per_chunk=QUANT_CHUNK,
+                                        interpolation=interp)
+            secs = time.perf_counter() - t0
+            passes, rest = divmod(stream.chunks_read - 1, n_chunks)
+            assert rest == 0, stream.chunks_read
+            got[interp] = q
+            out[f"stream_quantile_{interp}"] = {
+                "seconds": secs, "passes": passes, "chunks_read": stream.chunks_read,
+                "Mrows_per_s": passes * QUANT_ELEMS / secs / 1e6,
+                "peak_chunk_MB": stream.peak_chunk_bytes / 1e6, "values": q.tolist()}
+        for i, qv in enumerate(QUANT_Q):
+            f = (QUANT_ELEMS - 1) * qv
+            lo, hi = int(np.floor(f)), int(np.ceil(f))
+            a = float(torch.kthvalue(vt, lo + 1).values)
+            b = float(torch.kthvalue(vt, hi + 1).values)
+            lin = np.float64(a) if lo == hi else \
+                np.float64(a) + (np.float64(b) - np.float64(a)) * np.float64(f - lo)
+            assert got["lower"][i] == a and got["higher"][i] == b, (qv, got, a, b)
+            assert got["linear"][i] == lin, (qv, got["linear"][i], lin)
+            checks[f"stream_quantile_q{qv}"] = {
+                "order_stats_equal_kthvalue": True, "linear_equals_numpy_rule_float64": True,
+                "ranks": [lo, hi]}
+        del vt
+
+        rng7 = np.random.default_rng(7)
+        station, magnitude, _ = make_table(rng7, TABLE_ROWS, TABLE_STATIONS, 8, 4)
+        table = np.stack([station, magnitude], axis=1)
+        tpath = f"{IO_DIR}/table.nc"
+        ht.save_netcdf(ht.array(table, split=0), tpath, "table")
+        del table
+        stream = ht.load_netcdf(tpath, "table", dtype=ht.float64, stream=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sg = ht.data.stream_groupby(stream, TABLE_STATIONS, "mean", rows_per_chunk=QUANT_CHUNK)
+        torch.cuda.synchronize()
+        sg_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sv, si = ht.data.stream_topk(stream, TABLE_TOPK, col=1, rows_per_chunk=QUANT_CHUNK)
+        torch.cuda.synchronize()
+        st_s = time.perf_counter() - t0
+        St = ht.array(station.astype(np.int64), split=0)
+        Mg = ht.array(magnitude, split=0)
+        mg = ht.data.groupby(St, TABLE_STATIONS).mean(Mg).larray
+        mv, mi = ht.data.topk(Mg, TABLE_TOPK)
+        s64, n64, a64 = group_sums64(torch, St.larray, Mg.larray, TABLE_STATIONS)
+        err = (sg.larray - mg).abs()
+        tol = 4 * n64 * U64 * a64 / n64  # two float64 sums of the same terms
+        assert bool((err <= tol).all()), "stream_groupby mean differs from the in-memory one"
+        assert torch.equal(sv.larray, mv.larray) and torch.equal(si.larray, mi.larray), \
+            "stream_topk differs from the in-memory topk"
+        checks["stream_groupby_mean_vs_in_memory"] = {
+            "max_err_over_bound": float((err / tol).max())}
+        checks["stream_topk_vs_in_memory"] = {"bitwise": True}
+        out["table_stream"] = {"rows": TABLE_ROWS, "chunks_read": stream.chunks_read,
+                               "stream_groupby_s": sg_s, "stream_topk_s": st_s,
+                               "Mrows_per_s_groupby": TABLE_ROWS / sg_s / 1e6,
+                               "Mrows_per_s_topk": TABLE_ROWS / st_s / 1e6,
+                               "per_station_mean": sg.larray.tolist()}
+        del St, Mg, mg, mv, mi, sg, sv, si, station, magnitude, s64, n64, a64, err, tol
+
+        # -- 5. the HDF5 loader, where h5py imports -------------------- #
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+            print("data_engine: h5py does not import here: the PartialH5DataLoaderIter step "
+                  "does not run", flush=True)
+        if h5py is not None:
+            hp = f"{IO_DIR}/partial.h5"
+            rows = np.random.default_rng(5).standard_normal((PARTIAL_ROWS, 64)).astype(
+                np.float32)
+            with h5py.File(hp, "w") as f:
+                f.create_dataset("data", data=rows)
+            ds = ht.utils.data.PartialH5Dataset(hp, initial_load=2**14, load_length=2**13)
+            t0 = time.perf_counter()
+            seen = torch.cat([b for b in ht.utils.data.PartialH5DataLoaderIter(
+                ds, batch_size=256, seed=0)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            want = torch.from_numpy(rows).to(seen.device)
+            assert seen.shape == want.shape and torch.equal(
+                torch.sort(seen[:, 0]).values, torch.sort(want[:, 0]).values)
+            out["partial_h5"] = {"rows": PARTIAL_ROWS, "seconds": secs, "ran": True}
+        else:
+            out["partial_h5"] = {"ran": False, "reason": "h5py does not import"}
+    finally:
+        shutil.rmtree(IO_DIR, ignore_errors=True)
+
+    # -- 3. GaussianNB at 2^20 x 64, 8 blobs ------------------------ #
+    rng = np.random.default_rng(20)
+    centers = rng.standard_normal((K, N_FEATURES)) * 3
+    y = rng.integers(0, K, GNB_ROWS)
+    x = (centers[y] + rng.standard_normal((GNB_ROWS, N_FEATURES))).astype(np.float32)
+    X, Y = ht.array(x, split=0), ht.array(y, split=0)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nb = ht.naive_bayes.GaussianNB().fit(X, Y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab = nb.predict(X).larray
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    x64, yl = X.larray.double(), Y.larray
+    cnt = torch.bincount(yl, minlength=K)
+    assert torch.equal(nb.class_count_.larray, cnt.double()), "GaussianNB class counts"
+    eps = 1e-9 * float(x64.var(0, unbiased=False).max())
+    theta = torch.stack([x64[yl == j].mean(0) for j in range(K)])
+    var = torch.stack([((x64[yl == j] - theta[j]) ** 2).mean(0) for j in range(K)]) + eps
+    d_t = float(((nb.theta_.larray - theta).abs() / theta.abs().max()).max())
+    d_v = float(((nb.var_.larray - var).abs() / var).max())
+    assert d_t <= 1e-10 and d_v <= 1e-10, (d_t, d_v)
+    prior = torch.log(cnt.double() / GNB_ROWS)
+    jll = torch.stack([prior[j] - 0.5 * torch.log(2 * math.pi * var[j]).sum()
+                       - 0.5 * ((x64 - theta[j]) ** 2 / var[j]).sum(1) for j in range(K)], 1)
+    top2 = torch.topk(jll, 2, dim=1)
+    plain = top2.indices[:, 0]
+    near = (top2.values[:, 0] - top2.values[:, 1]) <= 1e-9 * top2.values[:, 0].abs()
+    differ = lab != plain
+    n_differ, n_unexplained = int(differ.sum()), int((differ & ~near).sum())
+    assert n_unexplained == 0, (n_differ, n_unexplained)
+    checks["gaussiannb_2^20x64_k8"] = {
+        "counts_exact": True, "theta_max_rel_err": d_t, "var_max_rel_err": d_v,
+        "limit": 1e-10, "labels_differing_from_float64": n_differ,
+        "labels_differing_not_near_tie": n_unexplained}
+    out["gaussiannb"] = {"rows": GNB_ROWS, "features": N_FEATURES, "classes": K,
+                         "reduced": "2^20 rows: an eighth of the kmeans cell's 2^23, its width "
+                                    "64 and k 8", "fit_s": fit_s, "predict_s": pred_s,
+                         "peak_device_MB": peak / 1e6}
+    del X, Y, nb, x64, yl, theta, var, jll, top2, plain, near, differ, lab, cnt
+    torch.cuda.empty_cache()
+
+    # -- 4. KNeighborsClassifier(5) at 40,000^2 x 18 ----------------- #
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((SPECTRAL_K, CDIST_D)) * 10
+    truth = rng.integers(0, SPECTRAL_K, CDIST_N)
+    pts = (centers[truth] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    rng = np.random.default_rng(2)
+    tt = rng.integers(0, SPECTRAL_K, CDIST_N)
+    test = (centers[tt] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    Xtr, Ytr = ht.array(pts, split=0), ht.array(truth, split=0)
+    Xte = ht.array(test, split=0)
+    knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(Xtr, Ytr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    pred = knn.predict(Xte).larray
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    got = dict(tk.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert got["cdist_tile"] == 1 and got["kmeans_step"] == 0, got
+    launches["cdist_tile"] += got["cdist_tile"]
+    # the plain float64 top-5 vote, a stripe of test rows at a time
+    a, b = Xte.larray.double(), Xtr.larray.double()
+    labels = Ytr.larray
+    b2 = (b ** 2).sum(1)[None, :]
+    plain = torch.empty_like(pred)
+    near = torch.zeros_like(pred, dtype=torch.bool)
+    for r in range(0, CDIST_N, 8192):
+        ar = a[r:r + 8192]
+        d2 = ((ar ** 2).sum(1)[:, None] + b2 - 2.0 * ar @ b.T).clamp_min(0)
+        v6, i6 = torch.topk(d2, KNN_K + 1, dim=1, largest=False)
+        lab5 = labels[i6[:, :KNN_K]]
+        votes = (lab5[:, :, None] == torch.arange(SPECTRAL_K, device=lab5.device)).sum(1)
+        plain[r:r + 8192] = votes.argmax(1)
+        scale = (ar ** 2).sum(1) + float(b2.max())
+        near[r:r + 8192] = (v6[:, KNN_K] - v6[:, KNN_K - 1]) <= 2 * d2_tol(CDIST_D, scale)
+        del d2, v6, i6, lab5, votes
+    differ = pred != plain
+    n_differ, n_unexplained = int(differ.sum()), int((differ & ~near).sum())
+    assert n_unexplained == 0, (n_differ, n_unexplained)
+    err, ratio = check_cdist(torch, tk, Xte.larray, Xtr.larray, sqrt=True)
+    checks["knn_40000x40000x18_k5"] = {
+        "cdist_tile_launches": 1, "labels_differing_from_float64": n_differ,
+        "labels_differing_not_near_tie": n_unexplained,
+        "rows_with_distance_near_tie": int(near.sum()),
+        "label_agreement_with_blobs": float((pred.cpu().numpy() == tt).mean())}
+    checks["cdist_tile_40000x40000x18_test_vs_train"] = {"max_abs_err": err,
+                                                         "max_err_over_limit": ratio}
+    out["knn"] = {"train": CDIST_N, "test": CDIST_N, "features": CDIST_D, "k": KNN_K,
+                  "seconds": knn_s, "peak_device_MB": peak / 1e6, "launches": got}
+    del Xtr, Ytr, Xte, knn, pred, a, b, plain, near, differ, labels
+    torch.cuda.empty_cache()
+
+    st = ht.data.stats()
+    counters = {k: v for k, v in metrics.counters().items()
+                if k.startswith(("io.stream_", "data_engine."))}
+    assert st["exchange_fallbacks"] == 0 and st["stream_fallbacks"] == 0, st
+    out["data_stats"] = {k: (v - stats0[k] if k != "enabled" else v) for k, v in st.items()}
+    out["metrics_counters"] = counters
+    emit({"phase": "data_engine", "card": smi, "checks": checks, "ops": ops, **out,
+          "launches": launches, "comm_stats": dict(comm.stats),
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def serving_path(torch, ht, tk, dev, smi):
     """The serving main path at the flagship width, through the entry points
     a user calls; returns the figures and the path's launch counts."""
@@ -2928,6 +3315,10 @@ def main():
     io_launches = io_stream(torch, ht, tk, smi)
     torch.cuda.empty_cache()
 
+    # 5g. the data engine, its streamed folds, GaussianNB and KNN
+    data_launches = data_engine(torch, ht, tk, smi, bw)
+    torch.cuda.empty_cache()
+
     # 6. the serving path, through the entry points a user calls -------- #
     serve_launches = serving_path(torch, ht, tk, dev, smi)
     fp, fl = fl_times["prefill_1x16x1024x64_bf16"], fl_times["logits_8x16x1024x64_bf16"]
@@ -2941,10 +3332,11 @@ def main():
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:189",
          "launches": (launches["cdist_tile"] + spectral_launches["cdist_tile"]
-                      + io_launches["cdist_tile"]),
+                      + io_launches["cdist_tile"] + data_launches["cdist_tile"]),
          "launches_by_path": {"kmeans": launches["cdist_tile"],
                               "spectral": spectral_launches["cdist_tile"],
-                              "io_stream": io_launches["cdist_tile"]},
+                              "io_stream": io_launches["cdist_tile"],
+                              "data_engine": data_launches["cdist_tile"]},
          "max_abs_err": err_40k, "ms": ms_40k, "plain_ms": plain_40k, "bound_ms": b_40k[0],
          "bound_by": b_40k[1], "library_ms": lib_40k, "shape": "40000x40000x18 f32, sqrt",
          "variants": [{"shape": "2^23x64 vs 8 f32, sqrt", "max_abs_err": err_pp,
@@ -2953,10 +3345,11 @@ def main():
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:858",
          "launches": (launches["kmeans_step"] + spectral_launches["kmeans_step"]
-                      + io_launches["kmeans_step"]),
+                      + io_launches["kmeans_step"] + data_launches["kmeans_step"]),
          "launches_by_path": {"kmeans": launches["kmeans_step"],
                               "spectral": spectral_launches["kmeans_step"],
-                              "io_stream": io_launches["kmeans_step"]},
+                              "io_stream": io_launches["kmeans_step"],
+                              "data_engine": data_launches["kmeans_step"]},
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
          "variants": [{"shape": f"{name} f32 (streaming path)",

@@ -7,9 +7,11 @@ moments, cumulative operations, resplits, indexing and manipulations,
 sorting, the set operations and the order statistics, factories and random
 draws (heat_tpu's Threefry stream, bit for bit), the linear algebra layer
 (``@``, ``ht.linalg``), file I/O (HDF5, NetCDF, CSV, ``.npy``) with
-out-of-core streams, KMeans (also out of core), KMedians, KMedoids,
-Spectral clustering, Lasso, the graph Laplacian, the distance matrices,
-halos and tilings,
+out-of-core streams, the data engine (groupby, top-k, join, exact
+quantiles, in memory and streamed), KMeans (also out of core), KMedians,
+KMedoids, Spectral clustering, Lasso, Gaussian naive Bayes, the
+k-neighbours classifier, the graph Laplacian, the distance matrices, halos
+and tilings, datasets and loaders,
 and the flagship transformer LM's training and serving paths (``nn``,
 ``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
@@ -21,10 +23,12 @@ Usage matches heat_tpu: ``import heat_tpu_torch as ht``.
 from .core import *  # noqa: F401,F403
 from . import core
 from .core import communication, devices, factories, kernels, linalg, random, types
+from . import classification
 from . import cluster
 from . import data
 from . import datasets
 from . import graph
+from . import naive_bayes
 from . import nn
 from . import optim
 from . import regression

@@ -7,7 +7,7 @@ from typing import Dict, List
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin", "RegressionMixin"]
+__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "RegressionMixin"]
 
 
 class BaseEstimator:
@@ -58,6 +58,20 @@ class BaseEstimator:
             k: v for k, v in self.get_params(deep=False).items() if not isinstance(v, DNDarray)
         }
         return f"{self.__class__.__name__}({params})"
+
+
+class ClassificationMixin:
+    """fit/predict contract for classifiers (heat_tpu ``base.py:76``)."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
 
 
 class ClusteringMixin:

@@ -229,6 +229,27 @@ class TorchCommunication:
                   for p, shape in zip(recv.split(recv_bytes), recv_shapes)]
         return torch.cat(pieces, dim=ax).movedim(0, split_axis)
 
+    def Alltoallv(self, tensor: torch.Tensor, send_counts: Sequence[int],
+                  recv_counts: Sequence[int]) -> torch.Tensor:
+        """Exchange rows in ONE ``all_to_all_single`` whose counts the caller
+        plans: this rank sends ``send_counts[d]`` consecutive rows of
+        ``tensor`` to rank ``d`` (in rank order) and receives
+        ``recv_counts[s]`` rows from rank ``s``, concatenated in rank order.
+        Every rank's counts must agree with its peers'. Any dtype travels, as
+        bytes; counted as ``all_to_all``."""
+        if self.size == 1:
+            return tensor
+        rest = tuple(tensor.shape[1:])
+        row = int(np.prod(rest, dtype=np.int64)) * tensor.element_size()
+        send = tensor.contiguous().reshape(-1).view(torch.uint8)
+        recv = torch.empty(int(sum(recv_counts)) * row, dtype=torch.uint8,
+                           device=tensor.device)
+        self._count("all_to_all", send.numel())
+        dist.all_to_all_single(recv, send, output_split_sizes=[c * row for c in recv_counts],
+                               input_split_sizes=[c * row for c in send_counts],
+                               group=self.group)
+        return recv.view(tensor.dtype).view((int(sum(recv_counts)),) + rest)
+
     def Exscan(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Exclusive scan over ranks (heat_tpu ``communication.py:254``,
         ``:344``): rank ``r`` gets the ``sum`` (or ``prod``) of the

@@ -123,7 +123,10 @@ class DataStream:
     out-of-core ``fit_stream``). ``chunks_read`` and ``bytes_read``
     accumulate over the stream's life and ``peak_chunk_bytes`` is the
     largest chunk's payload, counted as heat_tpu counts it: the chunk's
-    rows padded to whole ceil-chunks of the ranks, times a row's bytes.
+    rows padded to whole ceil-chunks of the ranks, times a row's bytes. The
+    process-wide counters ``io.stream_chunks`` and ``io.stream_bytes`` of
+    :mod:`heat_tpu_torch.utils.metrics` mirror the totals (heat_tpu
+    ``io.py:114-115``).
     """
 
     def __init__(self, open_fn, gshape, dtype, device, comm, name=""):
@@ -152,6 +155,8 @@ class DataStream:
             * torch.empty((), dtype=self.dtype.torch_type()).element_size()
 
         def gen():
+            from ..utils import metrics
+
             with self._open() as read:
                 for lo in range(0, n, rows):
                     hi = min(lo + rows, n)
@@ -166,6 +171,8 @@ class DataStream:
                     self.chunks_read += 1
                     self.bytes_read += nbytes
                     self.peak_chunk_bytes = max(self.peak_chunk_bytes, nbytes)
+                    metrics.inc("io.stream_chunks")
+                    metrics.inc("io.stream_bytes", nbytes)
                     yield chunk
 
         return gen()

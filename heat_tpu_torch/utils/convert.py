@@ -19,9 +19,10 @@ from ..cluster.kmeans import KMeans
 from ..core import factories
 from ..core.devices import sanitize_device
 from ..core.dndarray import DNDarray
+from ..naive_bayes.gaussianNB import GaussianNB
 
-__all__ = ["dndarray_from_numpy", "kmeans_from_numpy_state", "transformer_params_from_numpy",
-           "transformer_tree_to_numpy"]
+__all__ = ["dndarray_from_numpy", "gaussiannb_from_numpy_state", "kmeans_from_numpy_state",
+           "transformer_params_from_numpy", "transformer_tree_to_numpy"]
 
 _LAYER_KEYS = ("ln1", "wqkv", "wproj", "ln2", "w_up", "w_down")
 
@@ -47,6 +48,33 @@ def kmeans_from_numpy_state(state: Mapping, device=None, comm=None) -> KMeans:
     km._inertia = state.get("inertia_")
     km._n_iter = state.get("n_iter_")
     return km
+
+
+def gaussiannb_from_numpy_state(state: Mapping, device=None, comm=None) -> GaussianNB:
+    """A fitted :class:`GaussianNB` from ``{"classes_": (k,), "theta_": (k, d),
+    "var_": (k, d), "class_count_": (k,), "class_prior_": (k,), "epsilon_":
+    float}`` (a fitted heat_tpu estimator's attributes as numpy arrays);
+    optional keys ``priors`` and ``var_smoothing`` are carried over too. The
+    moments stay float64, as heat_tpu keeps them."""
+    classes = np.asarray(state["classes_"])
+    k = classes.shape[0]
+    theta = np.asarray(state["theta_"], dtype=np.float64)
+    var = np.asarray(state["var_"], dtype=np.float64)
+    if theta.ndim != 2 or theta.shape[0] != k or var.shape != theta.shape:
+        raise ValueError(f"theta_ and var_ must have shape ({k}, d), got {theta.shape} "
+                         f"and {var.shape}")
+    params = {key: state[key] for key in ("priors", "var_smoothing") if key in state}
+    nb = GaussianNB(**params)
+    nb.classes_ = dndarray_from_numpy(classes, None, device=device, comm=comm)
+    nb.theta_ = dndarray_from_numpy(theta, None, device=device, comm=comm)
+    nb.var_ = dndarray_from_numpy(var, None, device=device, comm=comm)
+    for key in ("class_count_", "class_prior_"):
+        a = np.asarray(state[key], dtype=np.float64)
+        if a.shape != (k,):
+            raise ValueError(f"{key} must have shape ({k},), got {a.shape}")
+        setattr(nb, key, dndarray_from_numpy(a, None, device=device, comm=comm))
+    nb.epsilon_ = float(state["epsilon_"])
+    return nb
 
 
 def transformer_params_from_numpy(tree: Mapping, config, device=None,
