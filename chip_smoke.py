@@ -148,6 +148,25 @@ Phases, one JSON line each:
    a step and peak memory; before it, one ``loss_and_grad_fn`` call held
    against a float32 copy of the model (``bf16_loss_tol``,
    ``bf16_grad_tol``).
+8. grid path: the flagship with examples/nn/gpt_parallel.py's
+   ``--moe-experts 4`` (capacity factor 1.25), ``n_micro = 2`` and
+   ``remat``, float32 masters, bf16 compute, ``AdamW(1e-3)`` on the same
+   (8, 1024) batch, grid (1, 1, 1, 1) (one card: NCCL refuses two ranks on
+   one device): one ``loss_and_grad_fn`` held against a float32 copy that
+   routes every token to the bf16 model's expert (the routing flips
+   counted), 2 warm-up and 5 timed steps with the flash launches per step
+   held to remat's count (forward twice a layer and microbatch, each
+   backward once), step ms, tokens/s, the MoE drop share, the busy share,
+   and peak memory beside one step without remat (which must peak higher).
+   Then every rank's block calls of a 4-rank causal ring (blocks of 256
+   rows) and zigzag ring (chunks of 128) at the flagship's attention shape
+   (8, 16, 1024, 64) bf16, through ``nn.attention._block_attn`` and
+   ``_fold``: 16 and 36 forward launches and as many of each backward
+   kernel, the folded output, lse and q/k/v gradients held against one
+   causal flash call over the whole sequence and against the same
+   schedule on the plain version. Then ``nn.DataParallel`` on
+   examples/nn/mlp_train.py's network and first batch, three steps of
+   each of the six optimizer constructors: finite losses that fall.
 
 Phase 4 holds the flash forward (``csrc/flash_fwd_sm90.cu``) and the flash
 backward kernels (``csrc/flash_bwd_dkv_sm90.cu``,
@@ -578,7 +597,8 @@ def flash_bwd_bounds_f32(b, h, sq, sk, d, causal, bw, tc_rate):
     return dkv, dq
 
 
-def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, got=None):
+def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, got=None,
+                    want=None, term_step=0.0):
     """The backward kernels' (dq, dk, dv) (``got``, else new launches)
     against the plain versions on the same inputs, everywhere: NaN at
     identical positions; elsewhere |Δg| <= 1e-4·A + (1e-5 + ``out_step``)·|g|,
@@ -597,20 +617,30 @@ def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, go
     row whose one visible key takes all its probability, whose dS is
     exactly zero) that rounding is all either version computes, and
     |dO·vᵀ| + |dmb| would not cover it. ``out_step`` adds one rounding of a
-    half-precision output. Returns {name: (max abs err, largest ratio of
-    error to limit)}."""
+    half-precision output. ``want``: (dq, dk, dv) to hold ``got`` against
+    in place of the plain versions'. ``term_step`` widens the limit by that
+    share of A, for gradients whose pieces were rounded on the way (a ring
+    schedule's blocks, each output and cotangent rounded to bf16 once); W
+    then also counts P·Σ P|dO·vᵀ|, the size of what those roundings move in
+    a piece's dmb. Returns {name: (max abs err, largest ratio of error to
+    limit)}."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if got is None:
         dk, dv = tk.flash_bwd_dkv(q, k, v, dout, lse, dmb, causal=causal)
         got = (tk.flash_bwd_dq(q, k, v, dout, lse, dmb, causal=causal), dk, dv)
-    want_dk, want_dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
-    want = (tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal), want_dk, want_dv)
+    if want is None:
+        want_dk, want_dv = tk.flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, causal=causal)
+        want = (tk.flash_bwd_dq_plain(q, k, v, dout, lse, dmb, causal=causal), want_dk, want_dv)
     qf, kf, of, p, ds = tk._bwd_dense(q, k, v, dout, lse, dmb, scale, causal)
     del ds
     vf = v.float()
-    w_abs = p * ((of @ vf.transpose(-1, -2)).abs() + dmb.float().abs()[..., None]
+    dov = (of @ vf.transpose(-1, -2)).abs()
+    w_abs = p * (dov + dmb.float().abs()[..., None]
                  + (2 * math.sqrt(q.shape[-1]) * U32 / 1e-4)
                  * (of.abs() @ vf.abs().transpose(-1, -2)))
+    if term_step:
+        w_abs += p * (p * dov).sum(-1, keepdim=True)
+    del dov
     terms = ((w_abs @ kf.abs()) * scale, (w_abs.transpose(-1, -2) @ qf.abs()) * scale,
              p.transpose(-1, -2) @ of.abs())
     del qf, kf, vf, of, p, w_abs
@@ -624,7 +654,7 @@ def check_flash_bwd(torch, tk, q, k, v, dout, lse, dmb, causal, out_step=0.0, go
         zero = torch.zeros((), device=g.device)
         err = torch.where(nan, zero, (g - w).abs())
         one_rounding = out_step * w.abs().clamp_min(tiny)
-        lim = torch.where(nan, zero, 1e-4 * a + 1e-5 * w.abs() + one_rounding)
+        lim = torch.where(nan, zero, (1e-4 + term_step) * a + 1e-5 * w.abs() + one_rounding)
         bad = int((err > lim).sum())
         if bad:
             at = tuple(torch.nonzero(err - lim == (err - lim).max())[0].tolist())
@@ -3056,6 +3086,400 @@ def training_path(torch, ht, tk, smi, bf16_tc):
     return launches
 
 
+# phase 8: the flagship on a grid with every model feature of the slice --
+# gpt_parallel.py's --moe-experts 4 (examples/nn/gpt_parallel.py), the
+# default capacity factor, two microbatches and remat -- and the schedules
+# of a 4-rank sequence grid at the flagship's attention shape
+GRID_MOE = dict(moe_experts=4, capacity_factor=1.25, n_micro=2, remat=True)
+GRID_WARMUP, GRID_STEPS = 2, 5
+RING_RANKS = 4
+# examples/nn/mlp_train.py's synthetic data, batch and network widths
+MLP_DATA, MLP_BATCH, MLP_WIDTHS = (4096, 64, 10), 512, (128, 64)
+
+
+def _route_probe(par, forward_calls):
+    """A stand-in for ``nn.parallel._route`` that records the bf16 model's
+    expert choices of one forward (``forward_calls`` routings: layers x
+    microbatches, in the forward's order; the remat recomputations route
+    the same inputs again and are not recorded) and their kept shares, then
+    replays those choices in the float32 copy, counting the tokens whose
+    own float32 argmax differs (the routing flips). The replay builds the
+    dispatch and combine of the recorded choices as ``_route`` does (the
+    slot from an integer running count, the gate from this copy's softmax).
+    Both precisions then route alike, and the rounding rules of phase 7
+    apply."""
+    import torch
+
+    state = {"mode": "record", "choices": [], "kept": [], "i": 0, "flips": 0, "tokens": 0}
+    real = par._route
+
+    def replay(x, router_w, E, C, chosen):
+        probs = torch.softmax(x @ router_w, dim=-1)
+        gate = probs.gather(-1, chosen[:, None])[:, 0]
+        rows = torch.nn.functional.one_hot(chosen, E).t().to(torch.int32)
+        slot = rows.cumsum(dim=1).gather(0, chosen[None])[0] - 1
+        kept = slot < C
+        dispatch = torch.zeros((x.shape[0], E * C), dtype=x.dtype, device=x.device)
+        dispatch.scatter_(1, (chosen * C + slot.clamp(max=C - 1))[:, None],
+                          kept.to(x.dtype)[:, None])
+        dispatch = dispatch.view(x.shape[0], E, C)
+        return dispatch, dispatch * gate[:, None, None], kept
+
+    def route(x, router_w, E, C):
+        own = torch.argmax(torch.softmax(x @ router_w, dim=-1), dim=-1)
+        if state["mode"] == "replay":
+            chosen = state["choices"][state["i"] % forward_calls]
+            if state["i"] < forward_calls:
+                state["flips"] += int((own != chosen).sum())
+                state["tokens"] += own.numel()
+            state["i"] += 1
+            return replay(x, router_w, E, C, chosen)
+        out = real(x, router_w, E, C)
+        if state["mode"] == "record" and len(state["choices"]) < forward_calls:
+            state["choices"].append(own)
+            state["kept"].append(float(out[2].float().mean()))
+        return out
+
+    return state, route
+
+
+def _leaf_relnorms(torch, tree_flatten, g16, g32, params):
+    """Per leaf name (the layers' leaves together, as phase 7 stacks them),
+    ||g16 - g32|| / ||g32||, on the card."""
+    sums = {}
+
+    def names(node, prefix):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                yield from names(val, key if prefix in ("", "layers") else prefix)
+        elif isinstance(node, (list, tuple)):
+            for val in node:
+                yield from names(val, prefix)
+        else:
+            yield prefix
+
+    for name, a, b in zip(names(params, ""), tree_flatten(g16)[0], tree_flatten(g32)[0]):
+        assert bool(torch.isfinite(a).all()), f"bf16 gradient {name} is not finite"
+        d = float(((a.float() - b.float()) ** 2).sum())
+        n = float((b.float() ** 2).sum())
+        old = sums.get(name, (0.0, 0.0))
+        sums[name] = (old[0] + d, old[1] + n)
+    return {name: math.sqrt(d / n) for name, (d, n) in sums.items()}
+
+
+def _schedule(torch, block, fold, q, k, v, scale, kind):
+    """Every rank's per-step block calls of a 4-rank ring (``kind`` "ring":
+    blocks of S/4 rows, rank r's queries against the block of rank (r - t)
+    mod 4 at step t, causal at step 0, a block from a later rank folded with
+    lse = -inf) or zigzag ring (chunks of S/8 rows, rank d holding chunks d
+    and 7 - d, heat_tpu's ``_zigzag_core`` order), folded per rank with
+    ``fold`` and put back in sequence order. Returns the float32 output,
+    the lse, A = the sum over pieces of fold weight x |piece| (the size the
+    pieces' roundings move the output by) and the number of block calls."""
+    n = RING_RANKS
+    B, H, S, D = q.shape
+    dev = q.device
+    out = torch.empty((B, H, S, D), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    size = torch.empty_like(out)
+    calls = 0
+    pieces_of = {}
+
+    def rows(i, w):
+        return slice(i * w, (i + 1) * w)
+
+    def run(qs, ks, vs, causal):
+        nonlocal calls
+        calls += 1
+        return block(qs, ks, vs, scale, causal)
+
+    def fold_all(key, pieces):
+        acc = torch.zeros(pieces[0][0].shape, dtype=torch.float32, device=dev)
+        l = torch.full(pieces[0][1].shape, float("-inf"), dtype=torch.float32, device=dev)
+        for o, li in pieces:
+            acc, l = fold(acc, l, o, li)
+        pieces_of[key] = (pieces, l)
+        return acc, l
+
+    if kind == "ring":
+        w = S // n
+        outs = []
+        for r in range(n):
+            pieces = []
+            for t in range(n):
+                src = (r - t) % n
+                o, l = run(q[:, :, rows(r, w)], k[:, :, rows(src, w)], v[:, :, rows(src, w)],
+                           t == 0)
+                if t > 0 and not src < r:
+                    l = torch.full_like(l, float("-inf"))
+                pieces.append((o, l))
+            outs.append((rows(r, w), fold_all(r, pieces)))
+    else:
+        c = S // (2 * n)
+        outs = []
+        for d in range(n):
+            e, lt = d, 2 * n - 1 - d
+            qe, ql = q[:, :, rows(e, c)], q[:, :, rows(lt, c)]
+            early, late = [], []
+            for t in range(n):
+                j = (d - t) % n
+                ke, kl = k[:, :, rows(j, c)], k[:, :, rows(2 * n - 1 - j, c)]
+                ve, vl = v[:, :, rows(j, c)], v[:, :, rows(2 * n - 1 - j, c)]
+                late.append(run(ql, ke, ve, False))
+                if t == 0:
+                    early.append(run(qe, ke, ve, True))
+                    late.append(run(ql, kl, vl, True))
+                elif j < d:
+                    early.append(run(qe, ke, ve, False))
+                else:
+                    late.append(run(ql, kl, vl, False))
+            outs.append((rows(e, c), fold_all((d, "e"), early)))
+            outs.append((rows(lt, c), fold_all((d, "l"), late)))
+    for sl, (o, l) in outs:
+        out[:, :, sl] = o
+        lse[:, :, sl] = l
+    for sl, key in zip([sl for sl, _ in outs], pieces_of):
+        pieces, l = pieces_of[key]
+        a = torch.zeros_like(pieces[0][0], dtype=torch.float32)
+        for o, li in pieces:
+            wgt = torch.where(torch.isfinite(li), torch.exp(li - l), torch.zeros_like(li))
+            a = a + wgt[..., None] * o.detach().float().abs()
+        size[:, :, sl] = a
+    return out, lse, size, calls
+
+
+def ring_schedules(torch, tk, dev, gen, smi):
+    """Phase 8b: the ring and zigzag schedules' kernel calls at the
+    flagship's attention shape, through the port's ``_block_attn`` and
+    ``_fold``, held against one causal flash call over the whole sequence
+    and against the same schedule on the plain version, outputs and the
+    q/k/v gradients of sum(out · dout)."""
+    from heat_tpu_torch.nn.attention import _block_attn, _fold
+
+    B, S = TRAIN_BATCH
+    H, Dh = FLAGSHIP["n_heads"], FLAGSHIP["d_model"] // FLAGSHIP["n_heads"]
+    scale = 1.0 / math.sqrt(Dh)
+    q, k, v, dout = (torch.randn(B, H, S, Dh, device=dev, generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+
+    def plain_block(qs, ks, vs, sc, causal):
+        o, l = tk.flash_attention_plain(qs.contiguous(), ks.contiguous(), vs.contiguous(), sc,
+                                        causal, return_lse=True)
+        return o.float(), l
+
+    def grads_of(out):
+        return torch.autograd.grad((out * dout.float()).sum(), (qg, kg, vg))
+
+    # the whole sequence in one causal flash call: the reference's output,
+    # lse and backward inputs
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    tk.reset_launches()
+    whole_out, whole_lse = tk.flash_attention(qg, kg, vg, causal=True, return_lse=True)
+    whole_grads = grads_of(whole_out.float())
+    whole_out = whole_out.detach()
+    dmb = tk._dmb(whole_out, dout, None)
+    vmax = float(v.float().abs().max())
+    res = {}
+    for kind, want_calls in (("ring", RING_RANKS * RING_RANKS),
+                             ("zigzag", RING_RANKS * (3 + 2 * (RING_RANKS - 1)))):
+        got = {}
+        for variant, block in (("kernel", _block_attn), ("plain", plain_block)):
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            tk.reset_launches()
+            out, lse, size, calls = _schedule(torch, block, _fold, qg, kg, vg, scale, kind)
+            grads = grads_of(out)
+            torch.cuda.synchronize()
+            launches = dict(tk.launches)
+            assert calls == want_calls, (kind, calls)
+            want_launches = calls if variant == "kernel" else 0
+            for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+                assert launches[name] == want_launches, (kind, variant, launches)
+            got[variant] = (out.detach(), lse.detach(), size, grads, launches)
+        out, lse, size, grads, launches = got["kernel"]
+        checks = {}
+        for ref_name, (r_out, r_lse, r_grads) in (
+                ("whole_causal_kernel", (whole_out.float(), whole_lse.detach(), whole_grads)),
+                ("schedule_plain", got["plain"][:2] + (got["plain"][3],))):
+            # each piece rounds to bf16 once (at most U_BF16 of its size, so
+            # U_BF16·A over the fold), as does the whole call's output (at most
+            # U_BF16·|out| <= U_BF16·A); the kernel's and the plain schedule's
+            # pieces each round once from float32 values within 1e-5 of
+            # each other: at most 2·U_BF16·A + 1e-5·(max|v| + A) apart either way
+            assert bool(torch.isfinite(out).all()), f"{kind}: output not finite"
+            err = (out - r_out).abs()
+            lim = 1e-5 * vmax + (1e-5 + 2 * U_BF16) * size
+            bad = int((err > lim).sum())
+            assert bad == 0, f"{kind} vs {ref_name}: {bad} output elements beyond their limit"
+            lse_err = (lse - r_lse).abs()
+            lse_lim = 1e-5 * (1 + r_lse.abs())
+            assert int((lse_err > lse_lim).sum()) == 0, f"{kind} vs {ref_name}: lse"
+            g = check_flash_bwd(torch, tk, q, k, v, dout, whole_lse.detach(), dmb, True,
+                                out_step=U_BF16, got=grads, want=r_grads, term_step=2.0**-6)
+            checks[ref_name] = {"out_max_abs_err": float(err.max()),
+                                "out_err_over_limit": float((err / lim).max()),
+                                "lse_max_abs_err": float(lse_err.max()),
+                                "grad_max_abs_err_over_limit": {n: v_ for n, v_ in g.items()}}
+        res[kind] = {"block_calls": calls, "launches": launches, "checks": checks}
+    return res
+
+
+def data_parallel_mlp(torch, ht, dev):
+    """Phase 8c: ``DataParallel`` on examples/nn/mlp_train.py's network and
+    data, three steps of each optimizer constructor on its first batch."""
+    n, d, k = MLP_DATA
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(d, k))
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = np.argmax(X @ w, axis=1)
+    bx = torch.as_tensor(X[:MLP_BATCH], device=dev)
+    by = torch.as_tensor(y[:MLP_BATCH], device=dev)
+    res = {}
+    for name, tx in (("SGD(0.1)", ht.optim.SGD(0.1)), ("Adam", ht.optim.Adam()),
+                     ("AdamW", ht.optim.AdamW()), ("Adagrad", ht.optim.Adagrad()),
+                     ("Adadelta", ht.optim.Adadelta()), ("RMSprop", ht.optim.RMSprop())):
+        torch.manual_seed(0)
+        h1, h2 = MLP_WIDTHS
+        net = torch.nn.Sequential(torch.nn.Linear(d, h1), torch.nn.ReLU(), torch.nn.Linear(h1, h2),
+                                  torch.nn.ReLU(), torch.nn.Linear(h2, k))
+        dp = ht.nn.DataParallel(net, optimizer=ht.optim.DataParallelOptimizer(tx))
+        dp.init(bx)
+        losses = [dp.step(bx, by) for _ in range(3)]
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        assert losses[-1] < losses[0], (name, losses)
+        assert next(net.parameters()).device.type == "cuda"
+        res[name] = losses
+    return res
+
+
+def grid_path(torch, ht, tk, dev, gen, smi, bf16_tc):
+    """Phase 8: the flagship with experts, microbatches and remat through
+    the entry points a user calls (grid (1, 1, 1, 1): the card's world is
+    one, and NCCL refuses two ranks on one card), then the multi-rank
+    schedules' kernel calls and ``DataParallel`` with every optimizer.
+    Returns the launch counts of the timed steps."""
+    from heat_tpu_torch.core.tree import tree_flatten
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+    from heat_tpu_torch.nn import parallel as par
+
+    L, V, D = FLAGSHIP["n_layers"], FLAGSHIP["vocab"], FLAGSHIP["d_model"]
+    B, S = TRAIN_BATCH
+    n_micro = GRID_MOE["n_micro"]
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, **GRID_MOE,
+                                                    compute_dtype=torch.bfloat16))
+    toks = model.shard_batch(np.random.default_rng(0).integers(0, V, (B, S)).astype(np.int32))
+    params = model.init(0, dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+
+    # (a) the bf16 loss_and_grad_fn against a float32 copy on the bf16
+    # model's routing
+    probe, route = _route_probe(par, L * n_micro)
+    real_route = par._route
+    par._route = route
+    try:
+        loss16, g16 = model.loss_and_grad_fn()(params, toks)
+        probe["mode"] = "replay"
+        model32 = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP,
+                                                          **dict(GRID_MOE, remat=False)))
+        loss32, g32 = model32.loss_and_grad_fn()(params, toks)
+        flips, routed = probe["flips"], probe["tokens"]
+        probe["i"] = forward_calls = L * n_micro
+        logits32 = model32.logits_fn()(params, toks)
+    finally:
+        par._route = real_route
+    assert probe["i"] == 2 * forward_calls
+    loss_tol = bf16_loss_tol(torch, logits32, L)
+    del logits32
+    loss_ratio = abs(float(loss16) - float(loss32)) / loss_tol
+    assert loss_ratio <= 1.0, f"bf16 loss beyond bf16_loss_tol of float32: {loss_ratio}"
+    grad_tol = bf16_grad_tol(L)
+    grad_ratios = {name: r / grad_tol
+                   for name, r in _leaf_relnorms(torch, tree_flatten, g16, g32, params).items()}
+    assert max(grad_ratios.values()) <= 1.0, f"bf16 gradients beyond bf16_grad_tol: {grad_ratios}"
+    drop_share = 1.0 - sum(probe["kept"]) / len(probe["kept"])
+    del g16, g32, model32
+    torch.cuda.empty_cache()
+
+    # the train step: float32 masters, AdamW(1e-3)
+    tx = ht.optim.AdamW(1e-3)
+    opt_state = tx.init(params)
+    step = model.make_train_step(tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(GRID_WARMUP):
+        params, opt_state, loss = step(params, opt_state, toks)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    tk.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRID_STEPS):
+        params, opt_state, loss = step(params, opt_state, toks)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    launches = dict(tk.launches)
+    step_ms = start.elapsed_time(end) / GRID_STEPS
+    peak_remat = torch.cuda.max_memory_allocated() / 1e9
+    # remat: each layer's forward runs twice a step (the pass and its
+    # recomputation in the backward), its backward once; per microbatch
+    want = {"flash_attention": 2 * L * n_micro, "flash_bwd_dkv": L * n_micro,
+            "flash_bwd_dq": L * n_micro}
+    for name, per_step in want.items():
+        assert launches[name] == per_step * GRID_STEPS, (name, launches)
+    assert launches["cdist_tile"] == launches["kmeans_step"] == launches["probe"] == 0
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+
+    def profiled_step():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, toks)
+        torch.cuda.synchronize()
+
+    share = device_share(torch, profiled_step, 2, kinds=TRAIN_KINDS)
+    # the same step without remat: its peak
+    model_nr = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, **dict(GRID_MOE, remat=False),
+                                                       compute_dtype=torch.bfloat16))
+    step_nr = model_nr.make_train_step(tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    params, opt_state, loss_nr = step_nr(params, opt_state, toks)
+    end.record()
+    end.synchronize()
+    step_nr_ms = start.elapsed_time(end)
+    peak_plain = torch.cuda.max_memory_allocated() / 1e9
+    assert peak_remat < peak_plain, (peak_remat, peak_plain)
+    assert math.isfinite(float(loss_nr))
+    del params, opt_state, step, step_nr, model, model_nr
+    torch.cuda.empty_cache()
+
+    # (b) the multi-rank schedules' kernel calls; (c) DataParallel
+    rings = ring_schedules(torch, tk, dev, gen, smi)
+    torch.cuda.empty_cache()
+    mlp = data_parallel_mlp(torch, ht, dev)
+    tokens = B * S
+    emit({"phase": "grid_path", "card": smi, "config": dict(FLAGSHIP, **GRID_MOE),
+          "grid": [1, 1, 1, 1], "compute_dtype": "bfloat16", "master_dtype": "float32",
+          "optimizer": "AdamW(1e-3)", "batch": [B, S], "n_params": n_params,
+          "launches": launches, "launches_per_step": {n: c / GRID_STEPS
+                                                      for n, c in launches.items()},
+          "launches_per_step_expected": want, "step_ms": step_ms,
+          "training_tokens_per_s": tokens / (step_ms / 1e3), "losses_per_step": losses,
+          "moe_drop_share": drop_share, "peak_memory_gb_remat": peak_remat,
+          "peak_memory_gb_no_remat": peak_plain, "step_ms_no_remat_one_step": step_nr_ms,
+          "profiled": share,
+          "bf16_vs_f32": {"loss_bf16": float(loss16), "loss_f32": float(loss32),
+                          "loss_err_over_tol": loss_ratio, "loss_tol": loss_tol,
+                          "grad_relnorm_over_tol": grad_ratios, "grad_tol": grad_tol,
+                          "routing": "float32 copy on the bf16 model's expert choices",
+                          "routing_flips": flips, "tokens_routed": routed},
+          "ring_schedules": rings, "data_parallel_mlp_losses": mlp})
+    return launches
+
+
 def main():
     import torch
 
@@ -3327,6 +3751,11 @@ def main():
     # 7. the training path, through the entry points a user calls ------- #
     train_launches = training_path(torch, ht, tk, smi, bf16_tc)
     bt = bwd["timings_ms"]
+    torch.cuda.empty_cache()
+
+    # 8. the flagship on a grid: experts, microbatches, remat; the ring
+    # schedules' kernel calls; DataParallel ---------------------------- #
+    grid_launches = grid_path(torch, ht, tk, dev, gen, smi, bf16_tc)
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
@@ -3359,13 +3788,16 @@ def main():
                       for name, r in km_large.items()]},
         {"name": "flash_attention", "route": "cuda", "source": FWD_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
-         "launches": serve_launches["flash_attention"],
+         "launches": (serve_launches["flash_attention"] + train_launches["flash_attention"]
+                      + grid_launches["flash_attention"]),
+         "launches_by_path": {"serving": serve_launches["flash_attention"],
+                              "training": train_launches["flash_attention"],
+                              "grid_path": grid_launches["flash_attention"]},
          "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
          "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
          "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
          "shape": "1x16x1024x64 bf16, causal (prefill)",
          "device_ms": fp["device_ms"], "host_ms": fp["host_ms"], "ms_is": fp["ms_is"],
-         "training_launches": train_launches["flash_attention"],
          "variants": [
              {"shape": "8x16x1024x64 bf16, causal (logits forward)",
               "max_abs_err": fl_checks["logits_8x16x1024x64_bf16"]["max_abs_err"],
@@ -3393,7 +3825,9 @@ def main():
                                    ("logits_8x16x1024x64", "8x16x1024x64", fl))]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": DKV_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:412",
-         "launches": train_launches["flash_bwd_dkv"],
+         "launches": train_launches["flash_bwd_dkv"] + grid_launches["flash_bwd_dkv"],
+         "launches_by_path": {"training": train_launches["flash_bwd_dkv"],
+                              "grid_path": grid_launches["flash_bwd_dkv"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
          "ms": bt["dkv"]["kernel"], "plain_ms": bt["dkv"]["plain"], "bound_ms": bt["dkv"]["bound"],
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
@@ -3424,7 +3858,9 @@ def main():
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": DQ_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
-         "launches": train_launches["flash_bwd_dq"],
+         "launches": train_launches["flash_bwd_dq"] + grid_launches["flash_bwd_dq"],
+         "launches_by_path": {"training": train_launches["flash_bwd_dq"],
+                              "grid_path": grid_launches["flash_bwd_dq"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
          "ms": bt["dq"]["kernel"], "plain_ms": bt["dq"]["plain"], "bound_ms": bt["dq"]["bound"],
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],

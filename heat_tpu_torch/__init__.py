@@ -12,8 +12,10 @@ quantiles, in memory and streamed), KMeans (also out of core), KMedians,
 KMedoids, Spectral clustering, Lasso, Gaussian naive Bayes, the
 k-neighbours classifier, the graph Laplacian, the distance matrices, halos
 and tilings, datasets and loaders,
-and the flagship transformer LM's training and serving paths (``nn``,
-``optim``, ``serve``), with hand-written CUDA kernels on the hot paths. Arrays and models live on the
+and the flagship transformer LM's training (on any dp x pp x tp x sp grid,
+with experts, pipeline stages and the sequence rings) and serving paths
+(``nn``, ``optim``, ``serve``), with hand-written CUDA kernels on the hot
+paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
 ``use_device("cpu")``).
 

@@ -5,8 +5,10 @@ the operations over it, re-exported flat as heat_tpu's core namespace is
 from .constants import *  # noqa: F401,F403
 from .types import *  # noqa: F401,F403
 from .devices import Device, cpu, get_device, gpu, sanitize_device, use_device
-from .communication import (MeshGrid, TorchCommunication, get_comm, sanitize_comm,
-                            use_comm)
+from .communication import (Communication, MeshAxisComm, MeshGrid, Request, TorchCommunication,
+                            distributed_init, get_comm, sanitize_comm, use_comm)
+from .base import *  # noqa: F401,F403
+from .stride_tricks import *  # noqa: F401,F403
 from .dndarray import DNDarray
 from .factories import *  # noqa: F401,F403
 from .memory import *  # noqa: F401,F403
@@ -25,7 +27,7 @@ from .printing import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .tiling import *  # noqa: F401,F403
-from . import (arithmetics, complex_math, exponential, factories, indexing, io, linalg, logical,
+from . import (arithmetics, base, complex_math, exponential, factories, indexing, io, linalg, logical,
                manipulations, memory, printing, random, relational, resharding, rounding,
                sanitation, statistics, tiling, trigonometrics)
 from .version import __version__

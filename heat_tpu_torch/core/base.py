@@ -7,7 +7,8 @@ from typing import Dict, List
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "RegressionMixin"]
+__all__ = ["BaseEstimator", "ClassificationMixin", "ClusteringMixin", "RegressionMixin",
+           "TransformMixin", "is_classifier", "is_estimator", "is_regressor", "is_transformer"]
 
 
 class BaseEstimator:
@@ -97,3 +98,34 @@ class RegressionMixin:
 
     def predict(self, x):
         raise NotImplementedError()
+
+
+class TransformMixin:
+    """The fit/transform contract (heat_tpu ``base.py:115``)."""
+
+    def fit(self, x):
+        raise NotImplementedError()
+
+    def fit_transform(self, x):
+        self.fit(x)
+        return self.transform(x)
+
+    def transform(self, x):
+        raise NotImplementedError()
+
+
+def is_classifier(estimator) -> bool:
+    """Whether ``estimator`` is a classifier (heat_tpu ``base.py:129``)."""
+    return isinstance(estimator, ClassificationMixin)
+
+
+def is_estimator(estimator) -> bool:
+    return isinstance(estimator, BaseEstimator)
+
+
+def is_regressor(estimator) -> bool:
+    return isinstance(estimator, RegressionMixin)
+
+
+def is_transformer(estimator) -> bool:
+    return isinstance(estimator, TransformMixin)

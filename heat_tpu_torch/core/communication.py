@@ -27,13 +27,44 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["TorchCommunication", "MeshAxisComm", "MeshGrid", "get_comm", "use_comm",
-           "sanitize_comm"]
+__all__ = ["Communication", "Request", "TorchCommunication", "MeshAxisComm", "MeshGrid",
+           "get_comm", "use_comm", "sanitize_comm", "distributed_init", "psum", "copy_to",
+           "all_gather", "ring_shift", "ppermute", "all_to_all"]
 
 _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
 
 
-class TorchCommunication:
+class Request:
+    """A completed-request handle (heat_tpu ``communication.py:52``): every
+    collective of the port returns when its result is ready, so ``Wait``
+    and ``Test`` exist for call sites written against MPI requests."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, value):
+        self._value = value
+
+    def Wait(self, status=None):
+        return self._value
+
+    wait = Wait
+
+    def Test(self, status=None) -> bool:
+        return True
+
+
+class Communication:
+    """Base class of the communicators (heat_tpu ``communication.py:79``)."""
+
+    @staticmethod
+    def is_distributed() -> bool:
+        raise NotImplementedError()
+
+    def chunk(self, shape, split, rank=None):
+        raise NotImplementedError()
+
+
+class TorchCommunication(Communication):
     """A process group plus the collectives and chunk arithmetic over it.
 
     Parameters
@@ -312,11 +343,13 @@ class TorchCommunication:
         self._count("p2p_join", 0)
         dist.barrier(group=self.group)
 
-    def ring_step(self, tensor: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
-        """One systolic ring step: send ``tensor`` to rank+1, receive the
-        block of rank-1 — the communication skeleton of the cdist ring
+    def ring_step(self, tensor: torch.Tensor, width: Optional[int] = None,
+                  shift: int = 1) -> torch.Tensor:
+        """One systolic ring step: send ``tensor`` to rank+shift, receive the
+        block of rank-shift — the communication skeleton of the cdist ring
         (heat_tpu ``spatial/distance.py:150``) and of the indexing rings
-        (heat_tpu ``communication.py:289``). Every rank's block has one
+        (heat_tpu ``communication.py:289``); ``shift = -1`` runs the ring
+        backwards (the transpose of a step). Every rank's block has one
         shape; with ``width`` given, a shorter (or empty) block is padded
         with zeros along axis 0 to ``width`` rows on the wire, and the
         received block has ``width`` rows. Any dtype travels, as bytes."""
@@ -327,8 +360,8 @@ class TorchCommunication:
             tensor = torch.cat([tensor, pad])
         send = _as_bytes(tensor)
         recv = torch.empty_like(send)
-        nxt = self._peer((self.rank + 1) % self.size)
-        prv = self._peer((self.rank - 1) % self.size)
+        nxt = self._peer((self.rank + shift) % self.size)
+        prv = self._peer((self.rank - shift) % self.size)
         self._count("ring_step", send.numel())
         ops = [dist.P2POp(dist.isend, send, nxt, self.group),
                dist.P2POp(dist.irecv, recv, prv, self.group)]
@@ -387,38 +420,50 @@ def _as_bytes(tensor: torch.Tensor) -> torch.Tensor:
 
 
 class MeshAxisComm(TorchCommunication):
-    """The communicator view of one :class:`MeshGrid` axis (heat_tpu
-    ``communication.py:399``). Every axis has size 1 in this slice, so its
-    collectives are the identity and emit nothing."""
+    """The communicator of one :class:`MeshGrid` axis, or of several axes
+    together (heat_tpu ``communication.py:399``): its collectives run over
+    the ranks that share this rank's coordinates on every other axis of the
+    grid (one ``torch.distributed`` subgroup per such line), and ``size``
+    and ``rank`` are the line's. Each view counts its own collectives in
+    ``stats``."""
 
-    def __init__(self, grid: "MeshGrid", axis_name: str):
-        super().__init__()
+    def __init__(self, grid: "MeshGrid", axis_name: str, group, size: int, rank: int):
+        super().__init__(group)
         self.grid = grid
         self.axis_name = axis_name
+        self._size = size
+        self._rank = rank
 
     @property
     def size(self) -> int:
-        return self.grid.sizes[self.axis_name]
+        return self._size
 
     @property
     def rank(self) -> int:
-        return 0
+        return self._rank
 
     def __repr__(self) -> str:
-        return f"MeshAxisComm(axis={self.axis_name!r}, size={self.size}, grid={self.grid.sizes})"
+        return (f"MeshAxisComm(axis={self.axis_name!r}, size={self.size}, rank={self.rank}, "
+                f"grid={self.grid.sizes})")
 
 
 class MeshGrid:
     """A named N-D process grid for combined parallelism (heat_tpu
-    ``communication.py:440``), e.g. ``MeshGrid((1, 1, 1, 1), ("dp", "pp",
-    "tp", "sp"))`` for the transformer.
+    ``communication.py:440``), e.g. ``MeshGrid((2, 1, 2, 1), ("dp", "pp",
+    "tp", "sp"))`` for the transformer on four processes.
 
-    The product of ``shape`` must equal the world size. This slice runs on
-    one card: every axis must be 1, and a larger grid raises
-    :class:`NotImplementedError` (multi-card dp x tp serving is a later
-    slice, see ROADMAP). ``device`` is where the grid's work runs: the card
-    by default, ``"cpu"`` on request; it is resolved once, here, so threads
-    that use the grid later see the same card.
+    The product of ``shape`` must equal the world size. Rank ``r`` sits at
+    the grid coordinate ``np.unravel_index(r, shape)`` (row-major, heat_tpu's
+    device order). Building a grid is collective: every rank creates the
+    subgroup of every line of every axis above 1 and below the world size,
+    in the same order (``dist.new_subgroups_by_enumeration``), and
+    ``groups_created`` counts them apart from any collective's count; an
+    axis as large as the world runs on the world group. :meth:`group` builds
+    the communicator of several axes together on its first call, which every
+    rank must make in the same order. ``device`` is where the grid's work
+    runs: the card by default (this rank's card under ``torchrun``),
+    ``"cpu"`` on request; it is resolved once, here, so threads that use the
+    grid later see the same card.
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str] = ("dp", "sp"),
@@ -431,31 +476,239 @@ class MeshGrid:
             raise ValueError(f"shape {shape} and axis_names {axis_names} length mismatch")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"axis names must differ, got {axis_names}")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"grid axes must be at least 1, got {shape}")
         want = int(np.prod(shape))
-        world = get_comm().size
-        if want != world:
-            raise ValueError(f"grid shape {shape} needs {want} processes, the world has {world}")
-        if any(s != 1 for s in shape):
-            raise NotImplementedError(
-                f"MeshGrid {shape}: grids with an axis larger than 1 (multi-card dp x tp "
-                "serving) are a later slice of the port")
+        world = get_comm()
+        if want != world.size:
+            raise ValueError(f"grid shape {shape} needs {want} processes, the world has "
+                             f"{world.size}")
         self.shape = shape
         self.axis_names = axis_names
+        self.rank = world.rank
+        self.coords = tuple(int(c) for c in np.unravel_index(self.rank, shape))
         self.device = sanitize_device(device)
         self.torch_device = self.device.torch_device
-        self._axes = {name: MeshAxisComm(self, name) for name in axis_names}
+        self.groups_created = 0
+        self._groups: Dict[tuple, MeshAxisComm] = {}
+        self._axes = {name: self.group((name,)) for name in axis_names}
 
     @property
     def sizes(self) -> Dict[str, int]:
         """Axis name -> size (heat_tpu's ``grid.mesh.shape``)."""
         return dict(zip(self.axis_names, self.shape))
 
+    def coord(self, name: str) -> int:
+        """This rank's coordinate along axis ``name``."""
+        return self.coords[self.axis_names.index(name)]
+
     def axis(self, name: str) -> MeshAxisComm:
         """The communicator view of one grid axis."""
         return self._axes[name]
 
+    def group(self, names: Sequence[str]) -> MeshAxisComm:
+        """The communicator over the axes ``names`` together (rank row-major
+        over them), with every other coordinate fixed at this rank's: e.g.
+        ``group(("dp", "sp"))``, the transformer's data axes. ``names`` must
+        be in the grid's order: a ``torch.distributed`` group numbers its
+        ranks in ascending world rank, which is this row-major order only
+        then."""
+        names = tuple(names)
+        if names in self._groups:
+            return self._groups[names]
+        idx = [self.axis_names.index(n) for n in names]
+        if idx != sorted(idx) or len(set(idx)) != len(idx):
+            raise ValueError(f"group axes {names} must be distinct and in the grid's order "
+                             f"{self.axis_names}")
+        sizes = [self.shape[i] for i in idx]
+        size = int(np.prod(sizes))
+        rank = int(np.ravel_multi_index([self.coords[i] for i in idx], sizes)) if idx else 0
+        group = None
+        if 1 < size < int(np.prod(self.shape)):
+            ranks = np.arange(int(np.prod(self.shape))).reshape(self.shape)
+            # the grid's other axes first, then ``names`` in their order
+            rest = [i for i in range(len(self.shape)) if i not in idx]
+            lines = ranks.transpose(rest + idx).reshape(-1, size)
+            group, _ = dist.new_subgroups_by_enumeration([list(map(int, l)) for l in lines])
+            self.groups_created += len(lines)
+        comm = MeshAxisComm(self, "+".join(names), group, size, rank)
+        self._groups[names] = comm
+        return comm
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        """Calls per collective kind, per axis view (``"dp+sp"`` for
+        :meth:`group` views), leaving out views that ran none."""
+        return {c.axis_name: {k: v["calls"] for k, v in c.stats.items()}
+                for c in self._groups.values() if c.stats}
+
+    def reset_stats(self) -> None:
+        for c in self._groups.values():
+            c.reset_stats()
+
     def __repr__(self) -> str:
         return f"MeshGrid({self.sizes})"
+
+
+# --------------------------------------------------------------------------- #
+# collectives with their transposes, for autograd                             #
+# --------------------------------------------------------------------------- #
+# heat_tpu differentiates its collectives by JAX's transposition rules under
+# shard_map's replication typing; each pair below is one of those rules,
+# written out: psum <-> the identity on a replicated cotangent, the identity
+# on a replicated value <-> psum of its cotangents, a ring step or
+# permutation <-> the reverse one, an all-to-all <-> the inverse all-to-all.
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        out = x.contiguous().clone()
+        comm.Allreduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.comm.Allreduce(g)
+        return g, None
+
+
+def psum(x: torch.Tensor, comm: TorchCommunication) -> torch.Tensor:
+    """The sum of ``x`` over ``comm``'s ranks, whose cotangent is the same
+    on every rank and passes back unchanged (a ``psum`` whose result feeds
+    replicated work: Megatron's row-parallel reduction). One all-reduce
+    forward, none backward; the identity at size 1."""
+    if comm.size == 1:
+        return x
+    return _Psum.apply(x, comm)
+
+
+def copy_to(x: torch.Tensor, comm: TorchCommunication) -> torch.Tensor:
+    """``x``, replicated over ``comm``, entering work that differs by rank:
+    the identity forward, the sum of the ranks' cotangents backward (the
+    transpose of heat_tpu's implicit ``pvary``). None forward, one
+    all-reduce backward; the identity at size 1."""
+    if comm.size == 1:
+        return x
+    return _CopyTo.apply(x, comm)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, counts):
+        ctx.comm, ctx.axis = comm, axis
+        ctx.counts = counts or [x.shape[axis]] * comm.size
+        return comm.Allgather(x.contiguous(), axis=axis, counts=counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = sum(ctx.counts[:ctx.comm.rank])
+        return g.narrow(ctx.axis, start, ctx.counts[ctx.comm.rank]), None, None, None
+
+
+def all_gather(x: torch.Tensor, comm: TorchCommunication, axis: int = 0,
+               counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``axis`` (``counts``: each rank's
+    length there, where they differ), feeding work done alike on every
+    rank: its cotangent is the same on every rank, and each takes back its
+    own part. One ``all_gather`` forward, none backward."""
+    if comm.size == 1:
+        return x
+    return _GatherReplicated.apply(x, comm, axis % x.ndim, counts)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, shift, *tensors):
+        ctx.comm, ctx.shift = comm, shift
+        return tuple(comm.ring_step(t, shift=shift) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = tuple(None if g is None else ctx.comm.ring_step(g.contiguous(), shift=-ctx.shift)
+                     for g in grads)
+        return (None, None) + back
+
+
+def ring_shift(comm: TorchCommunication, *tensors: torch.Tensor, shift: int = 1):
+    """Each tensor moved one ring step (to rank + ``shift``), one
+    ``ring_step`` apiece in the order given; the backward sends each
+    cotangent the reverse step, in the same order, so every rank posts its
+    messages alike. Returns a tuple."""
+    if comm.size == 1:
+        return tuple(tensors)
+    return _RingShift.apply(comm, shift, *tensors)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, pairs):
+        ctx.comm, ctx.pairs, ctx.shape = comm, pairs, x.shape
+        return comm.Permute(x.contiguous(), pairs, x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.pairs]
+        return ctx.comm.Permute(g.contiguous(), back, ctx.shape), None, None
+
+
+def ppermute(x: torch.Tensor, comm: TorchCommunication, pairs) -> torch.Tensor:
+    """heat_tpu's ``lax.ppermute`` over a full permutation ``pairs`` of
+    ``comm``'s ranks (every rank sends once and receives once, blocks of one
+    shape): one ``permute`` round forward, the reverse round backward."""
+    if comm.size == 1:
+        return x
+    return _Ppermute.apply(x, comm, tuple(pairs))
+
+
+def _exchange(comm, x, split_axis: int, concat_axis: int, concat_size: int):
+    if split_axis == concat_axis:  # blocks of rows: the rows' rank changes, not the axis
+        front = x.movedim(split_axis, 0)
+        n = front.shape[0] // comm.size
+        out = comm.Alltoallv(front, [n] * comm.size, [n] * comm.size)
+        return out.movedim(0, split_axis)
+    return comm.Alltoall(x, split_axis, concat_axis, concat_size)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_axis, concat_axis):
+        ctx.comm, ctx.axes = comm, (split_axis, concat_axis)
+        ctx.split_size = x.shape[split_axis]
+        return _exchange(comm, x, split_axis, concat_axis, x.shape[concat_axis] * comm.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        back = _exchange(ctx.comm, g.contiguous(), concat_axis, split_axis, ctx.split_size)
+        return back, None, None, None
+
+
+def all_to_all(x: torch.Tensor, comm: TorchCommunication, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """heat_tpu's tiled ``lax.all_to_all``: ``x``'s ``split_axis`` is cut
+    into ``comm.size`` equal blocks, block ``r`` goes to rank ``r``, and the
+    blocks received are concatenated along ``concat_axis`` in rank order
+    (with ``split_axis == concat_axis``, heat_tpu's untiled exchange of the
+    MoE buffers: the axis keeps its length and indexes the source rank's
+    block). One ``all_to_all`` forward, the inverse one backward."""
+    if comm.size == 1:
+        return x
+    if x.shape[split_axis] % comm.size:
+        raise ValueError(f"all_to_all: axis {split_axis} of length {x.shape[split_axis]} does "
+                         f"not split over {comm.size} ranks")
+    return _AllToAll.apply(x, comm, split_axis % x.ndim, concat_axis % x.ndim)
 
 
 _default_comm: Optional[TorchCommunication] = None
@@ -483,4 +736,40 @@ def sanitize_comm(comm) -> TorchCommunication:
         return get_comm()
     if not isinstance(comm, TorchCommunication):
         raise TypeError(f"comm must be a TorchCommunication, got {type(comm)}")
+    return comm
+
+
+def distributed_init(backend: Optional[str] = None, init_method: Optional[str] = None,
+                     world_size: Optional[int] = None, rank: Optional[int] = None,
+                     **kwargs) -> TorchCommunication:
+    """Start the process group and install the world communicator
+    (heat_tpu ``communication.py:557``, which joins a pod with
+    ``jax.distributed.initialize``).
+
+    Under ``torchrun`` every argument may stay None: the world comes from
+    its environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``; ``init_method="env://"``), the backend is NCCL when a card is
+    visible and gloo otherwise, and each process takes the card
+    ``LOCAL_RANK``. Elsewhere pass ``init_method`` (for instance
+    ``"tcp://localhost:29500"``), ``world_size`` and ``rank``. ``kwargs``
+    go to ``torch.distributed.init_process_group``. An initialized group is
+    kept; without a launcher's environment (no ``RANK``) and without
+    ``init_method``, none is started and the world is this one process.
+    Returns the new default communicator."""
+    import os
+
+    launched = "RANK" in os.environ or init_method is not None
+    if launched and not dist.is_initialized():
+        if backend is None:
+            backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if backend == "nccl" and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        args = dict(kwargs)
+        if world_size is not None:
+            args["world_size"] = int(world_size)
+        if rank is not None:
+            args["rank"] = int(rank)
+        dist.init_process_group(backend, init_method=init_method, **args)
+    comm = TorchCommunication()
+    use_comm(comm)
     return comm

@@ -6,7 +6,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape",
+           "sanitize_slice"]
 
 
 def broadcast_shape(shape_a, shape_b) -> Tuple[int, ...]:
@@ -18,6 +19,15 @@ def broadcast_shape(shape_a, shape_b) -> Tuple[int, ...]:
         raise ValueError(
             f"operands could not be broadcast, input shapes {tuple(shape_a)} {tuple(shape_b)}"
         ) from exc
+
+
+def broadcast_shapes(*shapes) -> Tuple[int, ...]:
+    """NumPy broadcast of any number of shapes (heat_tpu
+    ``stride_tricks.py:23``)."""
+    try:
+        return tuple(np.broadcast_shapes(*[tuple(s) for s in shapes]))
+    except ValueError as exc:
+        raise ValueError(f"operands could not be broadcast, input shapes {shapes}") from exc
 
 
 def sanitize_axis(shape, axis):
@@ -57,3 +67,11 @@ def sanitize_shape(shape, lval: int = 0) -> Tuple[int, ...]:
             raise ValueError(f"negative dimensions are not allowed, got {dim}")
         out.append(dim)
     return tuple(out)
+
+
+def sanitize_slice(sl: slice, max_dim: int) -> slice:
+    """A slice with explicit non-negative bounds for an axis of length
+    ``max_dim`` (heat_tpu ``stride_tricks.py:69``)."""
+    if not isinstance(sl, slice):
+        raise TypeError("can only be applied to slice objects")
+    return slice(*sl.indices(max_dim))

@@ -236,6 +236,14 @@ def groupby_agg(keys: DNDarray, num_groups: int, op: str, values: DNDarray = Non
             raise ValueError(f"groupby agg {op!r} needs values")
         if values.ndim not in (1, 2) or int(values.shape[0]) != n:
             raise ValueError("groupby values must be (n,) or (n, d) row-aligned with keys")
+        if values.larray.dtype == torch.bool:
+            # heat_tpu's errors: a bool sum is refused by jax's add, a bool
+            # min/max by the integer extremes its identity needs (torch would
+            # add bools as a logical or)
+            if op == "sum":
+                raise TypeError("groupby sum does not accept dtype bool")
+            if op in ("min", "max"):
+                raise ValueError(f"groupby {op} has no identity for dtype bool")
         if values.split != keys.split:
             values = values.resplit(keys.split)
     metrics.inc("data_engine.groupby_calls")

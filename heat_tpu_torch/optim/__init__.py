@@ -1,12 +1,15 @@
-"""Optimizers for the training entry points (heat_tpu ``optim/``).
+"""Optimizers (heat_tpu ``optim/``): the torch.optim-style constructors with
+optax's formulas and defaults, the data-parallel wrappers and DASO.
 
-:func:`SGD` and :func:`Adam` are the counterparts of heat_tpu's
-constructors (``optim/dp_optimizer.py:31-55``), which return optax
-transforms: ``tx = ht.optim.Adam(1e-3)``, ``opt_state = tx.init(params)``,
-then ``model.make_train_step(tx)``. ``DataParallelOptimizer``, ``DASO`` and
-the other constructors come with later slices (ROADMAP).
+``tx = ht.optim.Adam(1e-3)``, ``opt_state = tx.init(params)``, then
+``model.make_train_step(tx)``; or ``DataParallelOptimizer(tx)`` for
+:class:`heat_tpu_torch.nn.DataParallel`.
 """
 
-from .optimizers import SGD, Adam, Transform
+from .optimizers import SGD, Adadelta, Adagrad, Adam, AdamW, RMSprop, Transform
+from .dp_optimizer import DASO, DataParallelOptimizer
+from . import utils
+from .utils import DetectMetricPlateau
 
-__all__ = ["SGD", "Adam", "Transform"]
+__all__ = ["SGD", "Adam", "AdamW", "Adagrad", "Adadelta", "RMSprop", "Transform",
+           "DataParallelOptimizer", "DASO", "DetectMetricPlateau", "utils"]

@@ -21,10 +21,9 @@ from ..core.devices import sanitize_device
 from ..core.dndarray import DNDarray
 from ..naive_bayes.gaussianNB import GaussianNB
 
-__all__ = ["dndarray_from_numpy", "gaussiannb_from_numpy_state", "kmeans_from_numpy_state",
+__all__ = ["dense_stack_state_from_numpy", "dndarray_from_numpy",
+           "gaussiannb_from_numpy_state", "kmeans_from_numpy_state",
            "transformer_params_from_numpy", "transformer_tree_to_numpy"]
-
-_LAYER_KEYS = ("ln1", "wqkv", "wproj", "ln2", "w_up", "w_down")
 
 
 def dndarray_from_numpy(arr: np.ndarray, split: Optional[int] = None, dtype=None,
@@ -77,21 +76,47 @@ def gaussiannb_from_numpy_state(state: Mapping, device=None, comm=None) -> Gauss
     return nb
 
 
-def transformer_params_from_numpy(tree: Mapping, config, device=None,
-                                  dtype=None) -> Dict[str, Any]:
-    """The port's transformer parameters from heat_tpu's parameter tree, as
+def _layer_shapes(c) -> Dict[str, tuple]:
+    """One layer's leaves in heat_tpu's tree, unsharded."""
+    H, Dh, D, Fd = c.n_heads, c.head_dim, c.d_model, c.d_ff
+    shapes = {"ln1": (D,), "wqkv": (D, 3, H, Dh), "wproj": (H, Dh, D), "ln2": (D,)}
+    if c.moe_experts:
+        E = c.moe_experts
+        shapes.update({"router": (D, E), "w_up": (E, D, Fd), "w_down": (E, Fd, D)})
+    else:
+        shapes.update({"w_up": (D, Fd), "w_down": (Fd, D)})
+    return shapes
+
+
+def _layer_specs(model, c) -> Dict[str, tuple]:
+    """The grid axis of each dimension of one layer's leaves (the stage
+    specs without their ``(pp, Ls)``); all None without a model."""
+    if model is None:
+        return {name: (None,) * len(shape) for name, shape in _layer_shapes(c).items()}
+    return {name: spec[2:] for name, spec in model.param_specs()["stages"].items()}
+
+
+def transformer_params_from_numpy(tree: Mapping, config, device=None, dtype=None,
+                                  model=None) -> Dict[str, Any]:
+    """This rank's transformer parameters from heat_tpu's parameter tree, as
     numpy arrays: ``embed (V, D)``, ``final_ln (D,)``, ``unembed (D, V)``
     and ``stages`` with a leading ``(pp, Ls)`` on ``wqkv (D, 3, H, Dh)``,
-    ``wproj (H, Dh, D)``, ``ln1``/``ln2 (D,)``, ``w_up (D, F)`` and
-    ``w_down (F, D)``.
+    ``wproj (H, Dh, D)``, ``ln1``/``ln2 (D,)``, and ``w_up (D, F)`` and
+    ``w_down (F, D)``, or with ``moe_experts`` ``router (D, E)``, ``w_up
+    (E, D, F)`` and ``w_down (E, F, D)``. Any ``(pp, Ls)`` stacking of the
+    ``n_layers`` layers is taken.
 
-    Returns ``{"embed", "final_ln", "unembed", "layers": [one dict per
-    layer with the stage keys]}``, every tensor on ``device`` (the card by
-    default) in ``dtype``: ``config.compute_dtype`` by default, for serving,
-    or ``torch.float32`` for training masters. Every tensor has a storage of
-    its own (no layer is a view of a stacked array), so each can be a leaf
-    of autograd and be updated in place by an optimizer. The layers run in
-    stage order.
+    With ``model`` (a :class:`~heat_tpu_torch.nn.TransformerLM`) each leaf
+    is cut to this rank's shard by ``model.param_specs()``: the layers of
+    its pp stage, its heads and MLP features over tp, its experts over dp.
+    Without, the whole tree (a grid of one).
+
+    Returns ``{"embed", "final_ln", "unembed", "layers": [one dict per layer
+    of the stage]}``, every tensor on ``device`` (the card by default) in
+    ``dtype``: ``config.compute_dtype`` by default, for serving, or
+    ``torch.float32`` for training masters. Every tensor has a storage of
+    its own, so each can be a leaf of autograd and be updated in place by
+    an optimizer.
     """
     if isinstance(device, torch.device):
         dev = device
@@ -99,13 +124,15 @@ def transformer_params_from_numpy(tree: Mapping, config, device=None,
         dev = sanitize_device(device).torch_device
     c = config
     dtype = c.compute_dtype if dtype is None else dtype
-    H, Dh, D, Fd, V = c.n_heads, c.head_dim, c.d_model, c.d_ff, c.vocab
-    if "router" in tree["stages"]:
-        raise NotImplementedError("the port runs the dense MLP only; MoE weights are a "
-                                  "later slice")
+    D, V = c.d_model, c.vocab
+    if ("router" in tree["stages"]) != bool(c.moe_experts):
+        raise ValueError(f"the tree's stages {sorted(tree['stages'])} do not match "
+                         f"moe_experts={c.moe_experts}")
     want = {"embed": (V, D), "final_ln": (D,), "unembed": (D, V)}
-    layer_shapes = {"ln1": (D,), "wqkv": (D, 3, H, Dh), "wproj": (H, Dh, D), "ln2": (D,),
-                    "w_up": (D, Fd), "w_down": (Fd, D)}
+    layer_shapes = _layer_shapes(c)
+    specs = _layer_specs(model, c)
+    sizes = model.grid.sizes if model is not None else {}
+    pp = sizes.get("pp", 1)
 
     def check(a, shape, name):
         a = np.asarray(a)
@@ -117,30 +144,43 @@ def transformer_params_from_numpy(tree: Mapping, config, device=None,
         a = np.require(a, requirements=["C", "W"])  # copies only read-only or strided input
         return torch.from_numpy(a).to(device=dev, dtype=dtype, copy=True)
 
+    def shard(a, spec):
+        for d, axis in enumerate(spec):
+            if axis is not None and sizes[axis] > 1:
+                n = a.shape[d + 1] // sizes[axis]
+                i = model.grid.coord(axis)
+                a = a[(slice(None),) * (d + 1) + (slice(i * n, (i + 1) * n),)]
+        return a
+
     out = {name: put(check(tree[name], shape, name)) for name, shape in want.items()}
+    Ls = c.n_layers // pp
+    stage = model.grid.coord("pp") if model is not None else 0
     stacked = {}
-    for name in _LAYER_KEYS:
+    for name, shape in layer_shapes.items():
         a = np.asarray(tree["stages"][name])
-        if a.ndim != len(layer_shapes[name]) + 2:
-            raise ValueError(f"stages/{name}: expected a leading (pp, Ls) on "
-                             f"{layer_shapes[name]}, got {tuple(a.shape)}")
+        if a.ndim != len(shape) + 2:
+            raise ValueError(f"stages/{name}: expected a leading (pp, Ls) on {shape}, got "
+                             f"{tuple(a.shape)}")
         n_layers = a.shape[0] * a.shape[1]
         if n_layers != c.n_layers:
             raise ValueError(f"stages/{name} holds {n_layers} layers, the config "
                              f"{c.n_layers}")
-        stacked[name] = check(a.reshape((n_layers,) + a.shape[2:]),
-                              (n_layers,) + layer_shapes[name], f"stages/{name}")
-    out["layers"] = [{name: put(stacked[name][l]) for name in _LAYER_KEYS}
-                     for l in range(c.n_layers)]
+        a = check(a.reshape((n_layers,) + a.shape[2:]), (n_layers,) + shape, f"stages/{name}")
+        stacked[name] = shard(a[stage * Ls:(stage + 1) * Ls], specs[name])
+    out["layers"] = [{name: put(stacked[name][l]) for name in layer_shapes}
+                     for l in range(Ls)]
     return out
 
 
-def transformer_tree_to_numpy(params: Mapping) -> Dict[str, Any]:
+def transformer_tree_to_numpy(params: Mapping, model=None) -> Dict[str, Any]:
     """heat_tpu's parameter tree from the port's parameters (or gradients,
     which share their layout): ``embed``, ``final_ln``, ``unembed`` and
     ``stages``, each stage key stacked over the layers with a leading
-    ``(pp, Ls) = (1, n_layers)``, as numpy arrays on the host (float32 for
-    bfloat16 and float16 tensors, whose dtypes numpy lacks)."""
+    ``(pp, Ls)``, as numpy arrays on the host (float32 for bfloat16 and
+    float16 tensors, whose dtypes numpy lacks). With ``model`` the shards
+    are gathered over the grid first (all-gathers over tp, dp and pp,
+    collective: every rank calls it) and every rank gets the whole tree;
+    without, ``(pp, Ls) = (1, n_layers)``."""
 
     def host(t):
         t = t.detach()
@@ -149,7 +189,45 @@ def transformer_tree_to_numpy(params: Mapping) -> Dict[str, Any]:
         return t.cpu().numpy()
 
     layers = params["layers"]
-    stages = {name: np.stack([host(p[name]) for p in layers])[None] for name in _LAYER_KEYS}
+    grid = model.grid if model is not None else None
+    stages = {}
+    for name in layers[0]:
+        a = torch.stack([p[name].detach() for p in layers])
+        if grid is not None:
+            for d, axis in enumerate(_layer_specs(model, model.cfg)[name]):
+                if axis is not None:
+                    a = grid.axis(axis).Allgather(a, axis=d + 1)
+            a = grid.axis("pp").Allgather(a, axis=0)
+            a = a.reshape((model.pp, model.layers_per_stage) + tuple(a.shape[1:]))
+        else:
+            a = a[None]
+        stages[name] = host(a)
     out = {name: host(params[name]) for name in ("embed", "final_ln", "unembed")}
     out["stages"] = stages
     return out
+
+
+def dense_stack_state_from_numpy(tree: Mapping, module: torch.nn.Module) -> Dict[str, Any]:
+    """A ``state_dict`` for ``module``'s ``torch.nn.Linear`` layers from a
+    flax ``Dense`` stack's parameters as numpy arrays (``{"params":
+    {"Dense_0": {"kernel": (in, out), "bias": (out,)}, ...}}``, or the inner
+    dictionary): ``Dense_i`` goes to the module's ``i``-th ``Linear`` in
+    registration order, its kernel transposed to torch's ``(out, in)``.
+    Load it with ``module.load_state_dict``."""
+    layers = tree.get("params", tree)
+    names = sorted((k for k in layers if k.startswith("Dense_")), key=lambda k: int(k[6:]))
+    linears = [(n, m) for n, m in module.named_modules() if isinstance(m, torch.nn.Linear)]
+    if len(names) != len(linears):
+        raise ValueError(f"{len(names)} Dense layers for {len(linears)} Linear layers")
+    state = {}
+    for key, (prefix, lin) in zip(names, linears):
+        kernel = np.asarray(layers[key]["kernel"])
+        if kernel.shape != (lin.in_features, lin.out_features):
+            raise ValueError(f"{key}: kernel {kernel.shape} for Linear({lin.in_features}, "
+                             f"{lin.out_features})")
+        state[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T)).to(
+            lin.weight.dtype)
+        if lin.bias is not None:
+            state[f"{prefix}.bias"] = torch.from_numpy(
+                np.array(layers[key]["bias"])).to(lin.bias.dtype)
+    return state

@@ -2,6 +2,7 @@
 the default device rule, and the import boundary of the port."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -226,3 +227,87 @@ def test_port_imports_no_jax_and_no_heat_tpu():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, names)
+
+
+# heat_tpu's engine switches and TPU backend names, which the port does not
+# carry: the fusion engine and its switches, the Pallas and mesh-tier
+# switches, runtime_stats (with the serving executor), the Pallas kernel
+# module (the port's kernels are heat_tpu_torch.core.kernels and csrc/) and
+# the jax communicator class (the port's is TorchCommunication)
+_ENGINE_NAMES = {"fusion", "set_fusion", "fusion_enabled", "pallas_enabled", "set_pallas",
+                 "mesh_tiers", "set_mesh_tiers", "runtime_stats", "pallas_kernels",
+                 "TPUCommunication"}
+
+
+_FLAT_NAMES: dict = {}
+
+
+def _flat_names():
+    """The public names of heat_tpu's and the port's flat namespaces as
+    their own imports make them: read once, in a fresh process (in this one
+    a submodule another test imported, such as ``heat_tpu.testing``, binds
+    a name of its own)."""
+    if not _FLAT_NAMES:
+        code = ("import json, heat_tpu, heat_tpu_torch; print(json.dumps([sorted(n for n in "
+                "dir(m) if not n.startswith('_')) for m in (heat_tpu, heat_tpu_torch)]))")
+        res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                             env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        ref, port = json.loads(res.stdout.splitlines()[-1])
+        _FLAT_NAMES.update(ref=set(ref), port=set(port))
+    return _FLAT_NAMES["ref"], _FLAT_NAMES["port"]
+
+
+@pytest.mark.parametrize("module", ["base", "printing", "sanitation", "memory",
+                                    "stride_tricks", "communication"])
+def test_public_names_match_heat_tpu(module):
+    """Every name of heat_tpu's ``core/<module>.__all__`` is in the port's
+    module and in its flat namespace, and every public name of heat_tpu's
+    flat namespace is in the port's (the engine switches aside)."""
+    import importlib
+
+    ref = importlib.import_module(f"heat_tpu.core.{module}")
+    port = importlib.import_module(f"heat_tpu_torch.core.{module}")
+    ref_flat, port_flat = _flat_names()
+    want = [n for n in ref.__all__ if n not in _ENGINE_NAMES]
+    assert [n for n in want if not hasattr(port, n)] == []
+    assert [n for n in want if n not in port_flat] == []
+    assert sorted(n for n in ref_flat - _ENGINE_NAMES if n not in port_flat) == []
+
+
+def test_namespace_helpers_behave_as_heat_tpu():
+    """The names the flat namespace gained, on heat_tpu's own inputs."""
+    from heat_tpu.naive_bayes import GaussianNB as JNB
+
+    nb = ht.naive_bayes.GaussianNB()
+    for fn in ("is_classifier", "is_estimator", "is_regressor", "is_transformer"):
+        assert getattr(ht, fn)(nb) == getattr(hj, fn)(JNB()), fn
+    assert isinstance(ht.base.TransformMixin(), ht.TransformMixin)
+    assert ht.get_printoptions() == hj.get_printoptions()
+    x = ht.arange(5, split=0)
+    ht.local_printing()
+    try:
+        assert "local=" in str(x)
+    finally:
+        ht.global_printing()
+    assert "local=" not in str(x)
+    assert ht.broadcast_shapes((3, 1), (1, 4), (4,)) == hj.broadcast_shapes((3, 1), (1, 4), (4,))
+    assert ht.sanitize_slice(slice(-3, None), 7) == hj.sanitize_slice(slice(-3, None), 7)
+    assert ht.sanitize_axis((2, 3), -1) == hj.sanitize_axis((2, 3), -1)
+    assert ht.sanitize_shape(4) == hj.sanitize_shape(4)
+    assert ht.sanitize_sequence((1, 2)) == hj.sanitize_sequence((1, 2))
+    assert ht.sanitize_memory_order("K") == hj.sanitize_memory_order("K")
+    with pytest.raises(NotImplementedError):
+        ht.sanitize_memory_layout(x, "F")
+    ht.sanitize_in_tensor(x.larray)
+    with pytest.raises(TypeError):
+        ht.sanitize_in_tensor(x)
+    ht.sanitize_lshape(x, x.larray)
+    with pytest.raises(ValueError):
+        ht.sanitize_lshape(x, x.larray[:2])
+    y = ht.sanitize_distribution(ht.arange(5), target=x)
+    assert y.split == 0
+    assert ht.Request(3).Wait() == 3 and ht.Request(3).Test()
+    assert isinstance(ht.get_comm(), ht.Communication)
+    assert ht.distributed_init() is ht.get_comm()  # no process group: a world of one

@@ -2,11 +2,12 @@
 counters and ``utils.metrics`` against heat_tpu, on the same seeded numpy
 data: 1,003 rows of keys in [-2, 9) bucketed into 7 groups (negative and
 out-of-range keys dropped) with float32, int32 and float64 two-column
-values; 41 float32 values with NaN, ±inf, -0.0, +0.0 and ties for top-k;
-57 left rows with duplicate and negative keys joined to 21 unique right
-keys; a 300-row (station, magnitude) float64 table and 300-element float32,
-float64 and int32 columns streamed in chunks of 64 rows from a list, a
-callable, ``.npy`` files and HDF5 ``DataStream`` s.
+values, and six bool values in 5 groups; 41 float32 values with NaN, ±inf,
+-0.0, +0.0 and ties for top-k; 57 left rows with duplicate and negative
+keys joined to 21 unique right keys; a 300-row (station, magnitude)
+float64 table and 300-element float32, float64 and int32 columns streamed
+in chunks of 64 rows from a list, a callable, ``.npy`` files and HDF5
+``DataStream`` s.
 
 One table of cases (``torch_data_cases.py``) runs twice: in process at world
 size 1, and in ONE spawned 2-rank gloo world shared by the module, against
@@ -155,3 +156,24 @@ def test_engine_stats_and_metrics(tmp_path):
     assert line["step"] == 3 and line["counters"] == {"a": 2.0} and "loss" in line["series"]
     assert m.to_dict()["series"] == {}  # dump clears the window
     assert metrics.counters()["io.stream_chunks"] >= 25
+
+
+def test_groupby_bool_values_raise_as_heat_tpu(references):
+    """A groupby of bool values at split None and 0 raises, for ``sum``,
+    ``min`` and ``max``, the exception class heat_tpu raises on one device
+    (case ``gb_bool_values``), and its ``mean`` and ``count`` equal
+    heat_tpu's. (torch's ``index_add_`` in bool is a logical or: the port
+    once returned that for the sum.)"""
+    import builtins
+
+    want = reference(_REFS["refs"], "C1", "gb_bool_values")
+    for split, (names, mean, count) in zip((None, 0), want):
+        keys = ht.array(np.array([3, 3, 1, 0, 2, 2], np.int32), split=split)
+        vals = ht.array(np.array([1, 0, 1, 1, 0, 1], bool), split=split)
+        for op, name in zip(("sum", "min", "max"), names):
+            assert name, op  # heat_tpu refuses each of them
+            with pytest.raises(getattr(builtins, name)) as err:
+                ht.data.groupby_agg(keys, 5, op, vals)
+            assert type(err.value).__name__ == name
+        _same(pack(ht.data.groupby_agg(keys, 5, "mean", vals)), mean, "exact")
+        _same(pack(ht.data.groupby_agg(keys, 5, "count", vals)), count, "exact")

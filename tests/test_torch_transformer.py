@@ -299,8 +299,10 @@ def test_meshgrid_rules(monkeypatch):
         size = 2
 
     monkeypatch.setattr(communication, "get_comm", lambda: Two())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ht.MeshGrid((2, 1, 1, 1), AXES, device="cpu")
+    # an axis as large as the world runs on the world group: no subgroup
+    two = ht.MeshGrid((2, 1, 1, 1), AXES, device="cpu")
+    assert two.axis("dp").size == 2 and two.axis("sp").size == 1
+    assert two.coords == (0, 0, 0, 0) and two.groups_created == 0
 
 
 def test_transformer_params_from_numpy_round_trip():

@@ -53,6 +53,8 @@ def _spec():
         "SI": rng.integers(-1000, 1000, 300).astype(np.int32),
     }
     spec["LKFAR"] = spec["LK"] + 100  # no key of the right side
+    spec["KB"] = np.array([3, 3, 1, 0, 2, 2], np.int32)
+    spec["VB"] = np.array([1, 0, 1, 1, 0, 1], bool)
     return spec
 
 
@@ -128,6 +130,15 @@ def _build_env(lib, spec, **kw):
         after = metrics.counters()
         return out, np.array([after.get(c, 0) - before.get(c, 0) for c in counters])
 
+    def gb_bool(split):
+        """A groupby of bool values: the exception names of sum, min and
+        max, then the mean and the count."""
+        def agg(op):
+            return lib.data.groupby_agg(arr("KB", split), 5, op, arr("VB", split))
+
+        return (raised(*(lambda op=op: agg(op) for op in ("sum", "min", "max"))),
+                agg("mean"), agg("count"))
+
     def raised(*calls):
         """The name of the exception each call raises."""
         names = []
@@ -141,7 +152,7 @@ def _build_env(lib, spec, **kw):
 
     return {"lib": lib, "np": np, "arr": arr, "gb": gb, "tk": tk, "jn": jn, "chunks": chunks,
             "calls": calls, "h5": h5, "npy": npy, "off": off, "counted": counted,
-            "raised": raised, "data": lib.data}
+            "raised": raised, "gb_bool": gb_bool, "data": lib.data}
 
 
 PACKED = {"packed_all_reduce": 1}
@@ -169,6 +180,7 @@ CASES = {
     "gb_min_block64": ("gb('min', 'V2')", MINMAX, "exact"),
     "gb_sum_int": ("gb('sum', 'VI')", PACKED, "exact"),
     "gb_max_int": ("gb('max', 'VI')", MINMAX, "exact"),
+    "gb_bool_values": ("[gb_bool(None), gb_bool(0)]", {"packed_all_reduce": 2}, "exact"),
     "gb_values_replicated": ("gb('mean', vsplit=None)", PACKED, "f64"),
     "gb_keys_replicated": ("gb('sum', ksplit=None, vsplit=None)", {}, "f32"),
     "topk_largest": ("tk('X', 5)", PACKED, "exact"),
@@ -220,6 +232,12 @@ CASES = {
                     "lambda: data.stream_topk(chunks('S32')[:1], 65))", {}, "exact"),
     "topk_counted_w1": ("counted(lambda: (tk('X', 3), gb('count'), jn()))", {}, "exact"),
 }
+
+
+def _preload():
+    """heat_tpu, imported once before the reference jobs fork (its import
+    starts no jax backend)."""
+    import heat_tpu  # noqa: F401
 
 
 def _heat_tpu(case, comm):

@@ -244,6 +244,12 @@ CASES = {
 }
 
 
+def _preload():
+    """heat_tpu, imported once before the reference jobs fork (its import
+    starts no jax backend)."""
+    import heat_tpu  # noqa: F401
+
+
 def _heat_tpu(case, comm):
     import heat_tpu as hj
 
