@@ -167,6 +167,30 @@ Phases, one JSON line each:
    schedule on the plain version. Then ``nn.DataParallel`` on
    examples/nn/mlp_train.py's network and first batch, three steps of
    each of the six optimizer constructors: finite losses that fall.
+9. serving executor: the flagship with float32 masters and bf16 compute,
+   ``make_train_step(Adam(1e-3))`` on the (8, 1024) batch for 4 steps under
+   ``run_with_recovery`` with a ``CheckpointManager(every_steps=1,
+   keep=2)``: the first save's leaf write fails once (the fault plan
+   ``checkpoint.leaf.write=once``, retried), the loop crashes after step 3's
+   save and resumes from it; the result held bitwise against two
+   uninterrupted runs (or within their difference, where they differ),
+   with seconds and bytes a save. Then ``load_checkpoint`` and
+   ``serve_transformer`` of the restored weights at 1024 tokens: warmup of
+   buckets 1-8 (4 programs), a paused wave of 8 one-row requests as one
+   bucket-8 batch (8 flash launches, every one on the worker's stream),
+   its logits bitwise the in-memory weights', each argmax under the
+   near-tie rule of a float32 copy, one prompt served alone within
+   ``bf16_logit_tol``; where a batch's time goes (payload copy, forward,
+   fetch of its 1 GiB of logits, the per-request copies), then an open
+   loop of 10 s with two tenants (priorities 0 and 1) at 0.5 and 0.3 of the
+   estimated capacity: latencies, outcomes, rows/s, 8 flash launches a
+   batch, no program built after warmup, no batch retried. Then
+   ``serve_estimator`` of phase 5's KMeans and of phase 5g's KNN with
+   requests of 1-4096 rows, labels held against ``predict`` (float64
+   near-ties aside), rows/s; and two decode engines at temperature 0.8
+   (seed 0, two tenants, one wave of 8 requests) whose tokens repeat
+   bitwise, with one step's Threefry words and uniforms on the card equal
+   to the CPU's.
 
 Phase 4 holds the flash forward (``csrc/flash_fwd_sm90.cu``) and the flash
 backward kernels (``csrc/flash_bwd_dkv_sm90.cu``,
@@ -2164,6 +2188,19 @@ PARTIAL_ROWS = 2**16
 U64 = 2.0**-53  # float64 unit roundoff
 
 
+def knn_blobs():
+    """Phase 5g's KNN data: 40,000 training points around SPECTRAL_K centres
+    with their labels, and 40,000 test points."""
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((SPECTRAL_K, CDIST_D)) * 10
+    truth = rng.integers(0, SPECTRAL_K, CDIST_N)
+    pts = (centers[truth] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    rng = np.random.default_rng(2)
+    tt = rng.integers(0, SPECTRAL_K, CDIST_N)
+    test = (centers[tt] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    return pts, truth, test, tt
+
+
 def make_table(rng, rows, stations, feats, clusters):
     """examples/data_pipeline.py's synthetic readings (its ``make_table``):
     station id, magnitude, and a feature block drawn from ``clusters``
@@ -2447,13 +2484,7 @@ def data_engine(torch, ht, tk, smi, bw):
     torch.cuda.empty_cache()
 
     # -- 4. KNeighborsClassifier(5) at 40,000^2 x 18 ----------------- #
-    rng = np.random.default_rng(1)
-    centers = rng.standard_normal((SPECTRAL_K, CDIST_D)) * 10
-    truth = rng.integers(0, SPECTRAL_K, CDIST_N)
-    pts = (centers[truth] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
-    rng = np.random.default_rng(2)
-    tt = rng.integers(0, SPECTRAL_K, CDIST_N)
-    test = (centers[tt] + rng.standard_normal((CDIST_N, CDIST_D))).astype(np.float32)
+    pts, truth, test, tt = knn_blobs()
     Xtr, Ytr = ht.array(pts, split=0), ht.array(truth, split=0)
     Xte = ht.array(test, split=0)
     knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(Xtr, Ytr)
@@ -3480,6 +3511,443 @@ def grid_path(torch, ht, tk, dev, gen, smi, bf16_tc):
     return launches
 
 
+# phase 9 sizes: the flagship (FLAGSHIP, bf16 compute, float32 masters) on the
+# training bench's (8, 1024) batch (bench.py:204-250) for 4 steps with a crash
+# after step 3's save; logits requests of one 1024-token row at buckets 1-8;
+# an open loop of 10 s with two tenants at 0.5 and 0.3 of the estimated
+# capacity; the estimators of phases 5 (KMeans 2^23 x 64, k = 8) and 5g
+# (KNeighborsClassifier(5), 40,000 x 18) with requests of 1-4096 rows; a
+# decode wave of SLOTS requests at temperature 0.8
+RECOVER_STEPS, RECOVER_CRASH = 4, 3
+SERVE_SEQ, SERVE_BUCKETS = 1024, range(1, 9)
+LOOP_S, LOOP_SHARES, CAPACITY_N = 10.0, (0.5, 0.3), 32
+EST_REQS, EST_MAX_ROWS, EST_MAX_BATCH = 32, 4096, 4
+DECODE_T, DECODE_NEW = 0.8, 16
+CKPT_DIR = "chip_smoke_ckpt"  # gitignored; removed when the phase ends
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _served(torch, ex, reqs, timeout=600):
+    """Every request of ``reqs`` submitted at once, then the answers and the
+    wall seconds."""
+    t0 = time.perf_counter()
+    futs = [ex.submit(r) for r in reqs]
+    got = [f.result(timeout) for f in futs]
+    return got, time.perf_counter() - t0
+
+
+def _label_near_ties(torch, x, centers, got, want):
+    """Rows where two label vectors of a nearest-centroid assignment differ,
+    and those of them whose two centroids are not a float64 near tie
+    (``2 d2_tol``, as phase 5 holds ``predict``)."""
+    differ = (got != want).nonzero().squeeze(1)
+    if differ.numel() == 0:
+        return 0, 0
+    xd, cd = x[differ].double(), centers.double()
+    d2 = (xd ** 2).sum(1)[:, None] + (cd ** 2).sum(1)[None, :] - 2.0 * xd @ cd.T
+    gap = (d2.gather(1, got[differ][:, None]) - d2.gather(1, want[differ][:, None])).abs()[:, 0]
+    scale = (xd ** 2).sum(1) + float((cd ** 2).sum(1).max())
+    return int(differ.numel()), int((gap > 2 * d2_tol(x.shape[1], scale)).sum())
+
+
+def serving_executor(torch, ht, tk, dev, smi, km):
+    """Phase 9: train the flagship with checkpoints through a crash, serve
+    the restored weights through the batching executor under per-tenant
+    admission, serve phase 5's KMeans and phase 5g's KNN, and decode with
+    heat_tpu's Threefry sampling. Returns the kernel launches of the
+    phase's main path (recovery steps, executor batches, decode engines)."""
+    import os
+    import resource
+    import shutil
+    import threading
+
+    from heat_tpu_torch.core import random as trandom
+    from heat_tpu_torch.core.tree import tree_flatten
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+    from heat_tpu_torch.serve import ServeConfig, TenantLoad, estimate_capacity, run_open_loop
+    from heat_tpu_torch.serve.executor import _to_host
+    from heat_tpu_torch.utils import checkpointing as ck
+    from heat_tpu_torch.utils import faults, metrics
+
+    t_phase = time.perf_counter()
+    L, V = FLAGSHIP["n_layers"], FLAGSHIP["vocab"]
+    B, S = TRAIN_BATCH
+    checks, out = {}, {}
+    launches = dict.fromkeys(tk.launches, 0)
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    def counter(name):
+        return metrics.counters().get(name, 0)
+
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, compute_dtype=torch.bfloat16))
+    toks = model.shard_batch(np.random.default_rng(0).integers(0, V, (B, S)).astype(np.int32))
+    tx = ht.optim.Adam(1e-3)
+    step = model.make_train_step(tx)
+    crashed = []
+
+    def fresh():
+        params = model.init(0, dtype=torch.float32)
+        return {"params": params, "opt": tx.init(params)}
+
+    def train(state, start, save, crash=False):
+        params, opt = state["params"], state["opt"]
+        for i in range(start, RECOVER_STEPS):
+            params, opt, _ = step(params, opt, toks)
+            save(i + 1, {"params": params, "opt": opt})
+            if crash and i + 1 == RECOVER_CRASH and not crashed:
+                crashed.append(i + 1)
+                raise RuntimeError("crash after the save of step 3")
+        return {"params": params, "opt": opt}
+
+    # -- 9a. recover: two uninterrupted runs, then the crashed one ------- #
+    runs = [tree_flatten(train(fresh(), 0, lambda *a: None)["params"])[0] for _ in range(2)]
+    torch.cuda.empty_cache()
+    repeatable = all(torch.equal(a, b) for a, b in zip(*runs))
+    spread = 0.0 if repeatable else max(float((a - b).abs().max()) for a, b in zip(*runs))
+    ref = runs[0]
+    del runs
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    saves = []
+    try:
+        mgr = ck.CheckpointManager(CKPT_DIR, every_steps=1, keep=2)
+
+        def timed_save(step_, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wrote = mgr.save(step_, state)
+            saves.append({"step": step_, "seconds": time.perf_counter() - t0,
+                          "bytes": _dir_bytes(mgr._path(step_))})
+            return wrote
+
+        r0, w0 = counter("checkpoint.recovery_restarts"), counter("checkpoint.write_retries")
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        with faults.inject("checkpoint.leaf.write=once"):
+            rec = ck.run_with_recovery(lambda st, s, _save: train(st, s, timed_save, crash=True),
+                                       mgr, fresh(), backoff_s=0.0)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        rec_launches = dict(tk.launches)
+        add(rec_launches)
+        restarts = int(counter("checkpoint.recovery_restarts") - r0)
+        retries = int(counter("checkpoint.write_retries") - w0)
+        assert crashed == [RECOVER_CRASH] and restarts == 1 and retries == 1, \
+            (crashed, restarts, retries)
+        assert [s["step"] for s in saves] == [1, 2, 3, 4] and mgr.all_steps() == [3, 4], \
+            (saves, mgr.all_steps())
+        for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+            assert rec_launches[name] == L * RECOVER_STEPS, rec_launches
+        got = tree_flatten(rec["params"])[0]
+        if repeatable:
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                "the recovered parameters differ from the uninterrupted run's"
+            rec_err = 0.0
+        else:
+            rec_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            assert rec_err <= spread, (rec_err, spread)
+        checks["recover"] = {"uninterrupted_runs_bitwise_equal": repeatable,
+                             "uninterrupted_runs_max_abs_diff": spread,
+                             "recovered_vs_uninterrupted_max_abs_diff": rec_err,
+                             "recovered_bitwise_equal": repeatable and rec_err == 0.0,
+                             "restarts": restarts, "write_retries": retries}
+        out["recover"] = {"steps": RECOVER_STEPS, "crash_after_step": RECOVER_CRASH,
+                          "seconds": recover_s, "saves": saves,
+                          "seconds_per_save": statistics.median(s["seconds"] for s in saves),
+                          "bytes_per_save": saves[-1]["bytes"], "launches": rec_launches}
+        del ref, rec["opt"]
+
+        # -- 9b. serve the restored weights --------------------------- #
+        t0 = time.perf_counter()
+        restored = ck.load_checkpoint(mgr._path(RECOVER_STEPS))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        assert restored["__step__"] == RECOVER_STEPS
+        rparams = restored.pop("params")
+        del restored
+        assert all(torch.equal(a, b) for a, b in zip(tree_flatten(rparams)[0], got))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    retries0 = counter("serve.batch_retries")
+    torch.cuda.reset_peak_memory_stats()
+    ex = ht.serve.serve_transformer(model, rparams, SERVE_SEQ,
+                                    config=ServeConfig(max_batch=8, queue_limit=64))
+    try:
+        t0 = time.perf_counter()
+        warm = ex.warmup(feat_shape=(SERVE_SEQ,), dtype=np.int32, rows=SERVE_BUCKETS)
+        warm_s = time.perf_counter() - t0
+        assert warm["compiles"] == 4 and warm["misses"] == 4, warm
+        wave = np.random.default_rng(9).integers(0, V, (8, SERVE_SEQ)).astype(np.int32)
+        b0 = ex.stats()["batches"]
+        tk.reset_launches()
+        seen = []  # (thread, stream) of every launch of the wave
+        real_launch = tk._launch
+
+        def spy(name, index, *args):
+            seen.append((threading.get_ident(), torch._C._cuda_getCurrentRawStream(index)))
+            return real_launch(name, index, *args)
+
+        tk._launch = spy
+        try:
+            ex.pause()
+            futs = [ex.submit(wave[i:i + 1]) for i in range(8)]
+            ex.resume()
+            answers = [f.result(600) for f in futs]
+        finally:
+            tk._launch = real_launch
+        assert ex.flush(60)
+        st = ex.stats()
+        wave_launches = dict(tk.launches)
+        add(wave_launches)
+        assert st["batches"] - b0 == 1 and st["batch_occupancy"]["last"] == 1.0, st
+        assert wave_launches["flash_attention"] == L, wave_launches
+        assert len(seen) == L and {t for t, _ in seen} == {ex._worker.ident}, seen
+        worker_stream = getattr(ex.stream, "cuda_stream", 0)
+        assert {s for _, s in seen} == {worker_stream}, (seen, worker_stream)
+        # the restored weights' logits are the in-memory ones', bitwise
+        direct = model.logits_fn()(rec["params"], torch.from_numpy(wave).to(dev))
+        for i, a in enumerate(answers):
+            assert a.shape == (1, SERVE_SEQ, V) and a.dtype == np.float32
+            assert torch.equal(torch.from_numpy(a).to(dev)[0], direct[i]), i
+        del direct
+        # each request's argmax against a float32 copy (the near-tie rule),
+        # and the first request served alone within bf16_logit_tol
+        model32 = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP))
+        fwd32 = model32.logits_fn()
+        ties, alone_ratio = {}, None
+        for i in range(8):
+            z32 = fwd32(rparams, torch.from_numpy(wave[i:i + 1]).to(dev))[0]
+            a = torch.from_numpy(answers[i]).to(dev)[0]
+            ties[f"request_{i}"] = near_tie_check(torch, z32, a.argmax(dim=-1), L)
+            if i == 0:
+                alone = torch.from_numpy(ex.predict(wave[:1], timeout=600)).to(dev)[0]
+                tol = bf16_logit_tol(z32.std(dim=-1, keepdim=True),
+                                     z32.abs().amax(dim=-1, keepdim=True), L)
+                alone_ratio = float(((alone - a).abs() / tol).max())
+                assert alone_ratio <= 1.0, alone_ratio
+                del alone, tol
+            answers[i] = None  # 128 MiB of logits a row: dropped once checked
+            del z32, a
+        del model32, fwd32, answers
+        torch.cuda.empty_cache()
+        checks["served_wave"] = {
+            "requests": 8, "batches": 1, "bucket": 8, "flash_launches": wave_launches[
+                "flash_attention"], "launch_stream_is_worker_stream": True,
+            "restored_logits_bitwise_in_memory": True,
+            "near_tie": {k: {"tokens_differing_from_f32_argmax": v[0], "max_gap_over_limit": v[1]}
+                         for k, v in ties.items()},
+            "alone_vs_batch_max_err_over_bf16_logit_tol": alone_ratio}
+
+        # where a batch's time goes, at bucket 8: the payload's copy to the
+        # card, the forward, the fetch of the logits and the per-request copies
+        prog = ex.program_cache.get(ex.model_fn, (8, SERVE_SEQ), np.int32, ex.cache_token,
+                                    device=ex.device)
+        parts = {"payload_copy": [], "forward": [], "fetch": [], "row_copies": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = torch.from_numpy(wave)
+            x = (x.pin_memory() if dev.type == "cuda" else x).to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                y = ex.model_fn(x)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            h = _to_host(y)
+            t3 = time.perf_counter()
+            rows = [h[i:i + 1].copy() for i in range(8)]
+            t4 = time.perf_counter()
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(v * 1e3)
+            del x, y, h, rows
+        batch_ms = {k: statistics.median(v) for k, v in parts.items()}
+        share = device_share(torch, lambda: _to_host(prog(wave)), 3)
+        del prog
+        torch.cuda.empty_cache()
+
+        # the open loop: two tenants at 0.5 and 0.3 of the capacity
+        cap = estimate_capacity(ex, (SERVE_SEQ,), rows=1, dtype=np.int32, n=CAPACITY_N, seed=1)
+        ex.register_tenant("bulk", priority=0)
+        ex.register_tenant("interactive", priority=1)
+        s0 = ex.stats()
+        tk.reset_launches()
+        loads = [TenantLoad("bulk", LOOP_SHARES[0] * cap, rows_mix=(1,)),
+                 TenantLoad("interactive", LOOP_SHARES[1] * cap, rows_mix=(1,))]
+        rep = run_open_loop(ex, loads, LOOP_S, (SERVE_SEQ,), dtype=np.int32, seed=3,
+                            drain_timeout_s=120.0)
+        assert ex.flush(120)
+        s1 = ex.stats()
+        loop_launches = dict(tk.launches)
+        add(loop_launches)
+        batches = s1["batches"] - s0["batches"]
+        assert loop_launches["flash_attention"] == L * batches, (loop_launches, batches)
+        assert s1["program_cache"]["compiles"] == 4, s1["program_cache"]  # none after warmup
+        assert rep["totals"]["untyped"] == 0, rep["totals"]
+        assert rep["totals"]["answered"] == rep["totals"]["offered"], rep["totals"]
+        tenants = ex.tenant_stats()
+    finally:
+        ex.close()
+    batch_retries = int(counter("serve.batch_retries") - retries0)
+    assert batch_retries == 0, batch_retries
+    out["serve"] = {
+        "config": dict(FLAGSHIP, compute_dtype="bfloat16", params="float32 restored"),
+        "load_checkpoint_s": load_s, "warmup_s": warm_s, "warmup": warm,
+        "batch_ms_at_bucket_8": batch_ms, "batch_profiled": share,
+        "capacity_rps": cap, "open_loop_s": LOOP_S,
+        "offered_rps": {ld.key: ld.rate_rps for ld in loads},
+        # a p99 of fewer than 100 latencies is only their largest: it is
+        # quoted from 100 on, and the count and the largest stand beside it
+        "latency_ms": {k: {"count": v["latency_ms"]["count"], "p50": v["latency_ms"].get("p50"),
+                           "p99": (v["latency_ms"].get("p99")
+                                   if v["latency_ms"]["count"] >= 100 else None),
+                           "max": v["latency_ms"].get("max")}
+                       for k, v in rep["tenants"].items()},
+        "outcomes": {k: v["outcomes"] for k, v in rep["tenants"].items()},
+        "completed": rep["totals"]["outcomes"]["ok"], "shed": rep["totals"]["shed"],
+        "rate_limited": rep["totals"]["outcomes"]["rate_limited"],
+        "rows_per_s": (s1["rows"] - s0["rows"]) / rep["wall_s"], "batches": batches,
+        "mean_occupancy": s1["batch_occupancy"]["mean"],
+        "flash_launches_per_batch": loop_launches["flash_attention"] / max(1, batches),
+        "program_compiles_after_warmup": s1["program_cache"]["compiles"] - warm["compiles"],
+        "batch_retries": batch_retries, "tenants": tenants,
+        "peak_device_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_host_GB": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6}
+    del rec
+    torch.cuda.empty_cache()
+
+    # -- 9c. the estimators ------------------------------------------- #
+    rng = np.random.default_rng(10)
+    ht.random.seed(0)  # phase 5's points, bit for bit
+    X = ht.random.rand(N_POINTS, N_FEATURES, split=0)
+    xl = X.larray
+    sizes = rng.integers(1, EST_MAX_ROWS + 1, EST_REQS)
+    starts = rng.integers(0, N_POINTS - EST_MAX_ROWS, EST_REQS)
+    reqs = [xl[s:s + n].cpu().numpy() for s, n in zip(starts, sizes)]
+    est = {}
+    with ht.serve.serve_estimator(km, config=ServeConfig(max_batch=EST_MAX_BATCH)) as ex:
+        ex.warmup(feat_shape=(N_FEATURES,), rows=[1 << i for i in range(15)])
+        tk.reset_launches()
+        labs, wall = _served(torch, ex, reqs)
+        add(dict(tk.launches))
+        assert all(v == 0 for v in tk.launches.values()), tk.launches  # matmul form
+        est["kmeans"] = {"requests": EST_REQS, "rows": int(sizes.sum()), "seconds": wall,
+                         "rows_per_s": int(sizes.sum()) / wall, "stats": {
+                             k: ex.stats()[k] for k in ("batches", "rows", "padded_rows")}}
+    rows_t = torch.cat([xl[s:s + n] for s, n in zip(starts, sizes)])
+    got = torch.from_numpy(np.concatenate(labs)).to(dev)
+    want = km.predict(ht.array(rows_t)).larray
+    n_diff, n_bad = _label_near_ties(torch, rows_t, km.cluster_centers_.larray, got, want)
+    assert n_bad == 0, (n_diff, n_bad)
+    checks["kmeans_labels"] = {"differing_from_predict": n_diff, "not_near_tie": n_bad}
+    del X, xl, reqs, rows_t, got, want, labs
+    torch.cuda.empty_cache()
+
+    pts, truth, test, _ = knn_blobs()
+    knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(
+        ht.array(pts, split=0), ht.array(truth, split=0))
+    sizes = rng.integers(1, EST_MAX_ROWS + 1, EST_REQS)
+    starts = rng.integers(0, CDIST_N - EST_MAX_ROWS, EST_REQS)
+    reqs = [test[s:s + n] for s, n in zip(starts, sizes)]
+    with ht.serve.serve_estimator(knn, config=ServeConfig(max_batch=EST_MAX_BATCH)) as ex:
+        ex.warmup(feat_shape=(CDIST_D,), rows=[1 << i for i in range(15)])
+        tk.reset_launches()
+        labs, wall = _served(torch, ex, reqs)
+        add(dict(tk.launches))
+        est["knn"] = {"requests": EST_REQS, "rows": int(sizes.sum()), "seconds": wall,
+                      "rows_per_s": int(sizes.sum()) / wall, "stats": {
+                          k: ex.stats()[k] for k in ("batches", "rows", "padded_rows")}}
+    q = torch.from_numpy(np.concatenate(reqs)).to(dev)
+    got = torch.from_numpy(np.concatenate(labs)).to(dev)
+    want = knn.predict(ht.array(q)).larray
+    differ = (got != want).nonzero().squeeze(1)
+    n_bad = 0
+    if differ.numel():
+        a, b = q[differ].double(), knn.x.larray.double()
+        d2 = ((a ** 2).sum(1)[:, None] + (b ** 2).sum(1)[None, :] - 2.0 * a @ b.T).clamp_min(0)
+        v6 = torch.topk(d2, KNN_K + 1, dim=1, largest=False).values
+        scale = (a ** 2).sum(1) + float((b ** 2).sum(1).max())
+        n_bad = int(((v6[:, KNN_K] - v6[:, KNN_K - 1]) > 2 * d2_tol(CDIST_D, scale)).sum())
+    assert n_bad == 0, (int(differ.numel()), n_bad)
+    checks["knn_labels"] = {"differing_from_predict": int(differ.numel()), "not_near_tie": n_bad}
+    out["estimators"] = est
+    del knn, q, got, want, reqs, labs
+    torch.cuda.empty_cache()
+
+    # -- 9d. decode with heat_tpu's sampling ---------------------------- #
+    leaves, unflatten = tree_flatten(rparams)
+    sparams = unflatten([t.to(torch.bfloat16) for t in leaves])
+    del rparams, leaves
+    rng = np.random.default_rng(11)
+    # prompts of 102-1024 tokens (buckets 128-1024), as phase 6's
+    lens = rng.integers(SEQ_CAP // 20, SEQ_CAP // 2 + 1, SLOTS)
+    prompts = [rng.integers(0, V, int(n)).astype(np.int32) for n in lens]
+
+    def decode_wave():
+        eng = ht.serve.serve_transformer(model, sparams, SEQ_CAP, decode=True, slots=SLOTS,
+                                         temperature=DECODE_T, seed=0)
+        try:
+            eng.register_tenant("interactive", priority=1)
+            eng.register_tenant("bulk")
+            eng.warmup()
+            eng.pause()
+            futs = [eng.submit(p, DECODE_NEW, tenant="interactive" if i % 2 else "bulk")
+                    for i, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            eng.resume()
+            toks_out = [f.result(600) for f in futs]
+            wall = time.perf_counter() - t0
+            return toks_out, eng.stats(), ht.runtime_stats()["serve"], wall
+        finally:
+            eng.close()
+
+    tk.reset_launches()
+    first, dstats, rstats, dwall = decode_wave()
+    dec_launches = dict(tk.launches)
+    add(dec_launches)
+    second, _, _, _ = decode_wave()
+    assert all(np.array_equal(a, b) for a, b in zip(first, second)), "sampling is not repeatable"
+    for p, o in zip(prompts, first):
+        assert o.size == p.size + DECODE_NEW and np.array_equal(o[:p.size], p)
+        assert int(o.min()) >= 0 and int(o.max()) < V
+    n_warm = int(math.log2(SEQ_CAP // model.PROMPT_BUCKET_MIN))
+    assert dec_launches["flash_attention"] == L * (n_warm + SLOTS), dec_launches
+    assert dec_launches["probe"] == 1, dec_launches
+    assert dstats["tenants"]["interactive"]["completed"] == SLOTS // 2
+    # one step's uniform bits on the card: the CPU's, bitwise
+    skey = trandom._fold_in(trandom._base_key(0), 2 * 2)
+    keys = [trandom._fold_in(skey, s) for s in range(SLOTS)]
+    kt = [[trandom._signed32(a) for a in k] for k in keys]
+    bits = []
+    for where in (dev, torch.device("cpu")):
+        x0, x1 = trandom._threefry_keyed(torch.tensor(kt, dtype=torch.int32, device=where),
+                                         torch.arange(V, dtype=torch.int32, device=where))
+        w = x0 ^ x1
+        bits.append((w.cpu(), trandom._uniform_tiny(w).cpu(),
+                     trandom._words(keys[3], torch.arange(V, device=where), False).cpu()))
+    assert all(torch.equal(a, b) for a, b in zip(*bits)), "the card's sampling bits differ"
+    assert torch.equal(bits[1][0][3], bits[1][2])
+    checks["decode_sampling"] = {"tokens_repeat_bitwise": True, "uniform_bits_card_eq_cpu": True,
+                                 "temperature": DECODE_T}
+    out["decode"] = {"requests": SLOTS, "new_tokens": DECODE_NEW, "wall_s": dwall,
+                     "tokens_per_s": SLOTS * DECODE_NEW / dwall, "stats": dstats,
+                     "runtime_stats_serve": rstats, "launches": dec_launches}
+    del sparams, model
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_executor", "card": smi, "checks": checks, **out,
+          "launches": launches, "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -3714,8 +4182,8 @@ def main():
           "cdist_max_abs_err": err_d, "cdist_max_err_over_limit": ratio_d,
           "lloyd_ms_20_steps": lloyd_ms,
           "kmeans_lloyd_iterations_per_second": ITERS / (lloyd_ms / 1e3)})
-    del X, Y, xl, lab, labels, km, seeded, lloyd, step, c0, cp, centers
-    torch.cuda.empty_cache()
+    del X, Y, xl, lab, labels, seeded, lloyd, step, c0, cp, centers
+    torch.cuda.empty_cache()  # km stays: phase 9 serves it
 
     # 5b. the array path: operators, moments, cumsum, resplit, standardize
     array_path(torch, ht, tk, smi, bw)
@@ -3756,16 +4224,23 @@ def main():
     # 8. the flagship on a grid: experts, microbatches, remat; the ring
     # schedules' kernel calls; DataParallel ---------------------------- #
     grid_launches = grid_path(torch, ht, tk, dev, gen, smi, bf16_tc)
+    torch.cuda.empty_cache()
+
+    # 9. checkpoint-and-recover training, then the batching executor on the
+    # restored weights, the estimators and decode with heat_tpu's sampling
+    exec_launches = serving_executor(torch, ht, tk, dev, smi, km)
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:189",
          "launches": (launches["cdist_tile"] + spectral_launches["cdist_tile"]
-                      + io_launches["cdist_tile"] + data_launches["cdist_tile"]),
+                      + io_launches["cdist_tile"] + data_launches["cdist_tile"]
+                      + exec_launches["cdist_tile"]),
          "launches_by_path": {"kmeans": launches["cdist_tile"],
                               "spectral": spectral_launches["cdist_tile"],
                               "io_stream": io_launches["cdist_tile"],
-                              "data_engine": data_launches["cdist_tile"]},
+                              "data_engine": data_launches["cdist_tile"],
+                              "serving_executor": exec_launches["cdist_tile"]},
          "max_abs_err": err_40k, "ms": ms_40k, "plain_ms": plain_40k, "bound_ms": b_40k[0],
          "bound_by": b_40k[1], "library_ms": lib_40k, "shape": "40000x40000x18 f32, sqrt",
          "variants": [{"shape": "2^23x64 vs 8 f32, sqrt", "max_abs_err": err_pp,
@@ -3774,11 +4249,13 @@ def main():
         {"name": "kmeans_step", "route": "cuda", "source": "heat_tpu_torch/csrc/kmeans_step.cu",
          "replaces": "heat_tpu/core/pallas_kernels.py:858",
          "launches": (launches["kmeans_step"] + spectral_launches["kmeans_step"]
-                      + io_launches["kmeans_step"] + data_launches["kmeans_step"]),
+                      + io_launches["kmeans_step"] + data_launches["kmeans_step"]
+                      + exec_launches["kmeans_step"]),
          "launches_by_path": {"kmeans": launches["kmeans_step"],
                               "spectral": spectral_launches["kmeans_step"],
                               "io_stream": io_launches["kmeans_step"],
-                              "data_engine": data_launches["kmeans_step"]},
+                              "data_engine": data_launches["kmeans_step"],
+                              "serving_executor": exec_launches["kmeans_step"]},
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
          "variants": [{"shape": f"{name} f32 (streaming path)",
@@ -3789,10 +4266,11 @@ def main():
         {"name": "flash_attention", "route": "cuda", "source": FWD_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
          "launches": (serve_launches["flash_attention"] + train_launches["flash_attention"]
-                      + grid_launches["flash_attention"]),
+                      + grid_launches["flash_attention"] + exec_launches["flash_attention"]),
          "launches_by_path": {"serving": serve_launches["flash_attention"],
                               "training": train_launches["flash_attention"],
-                              "grid_path": grid_launches["flash_attention"]},
+                              "grid_path": grid_launches["flash_attention"],
+                              "serving_executor": exec_launches["flash_attention"]},
          "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
          "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
          "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
@@ -3825,9 +4303,11 @@ def main():
                                    ("logits_8x16x1024x64", "8x16x1024x64", fl))]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": DKV_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:412",
-         "launches": train_launches["flash_bwd_dkv"] + grid_launches["flash_bwd_dkv"],
+         "launches": (train_launches["flash_bwd_dkv"] + grid_launches["flash_bwd_dkv"]
+                      + exec_launches["flash_bwd_dkv"]),
          "launches_by_path": {"training": train_launches["flash_bwd_dkv"],
-                              "grid_path": grid_launches["flash_bwd_dkv"]},
+                              "grid_path": grid_launches["flash_bwd_dkv"],
+                              "serving_executor": exec_launches["flash_bwd_dkv"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
          "ms": bt["dkv"]["kernel"], "plain_ms": bt["dkv"]["plain"], "bound_ms": bt["dkv"]["bound"],
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
@@ -3858,9 +4338,11 @@ def main():
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": DQ_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
-         "launches": train_launches["flash_bwd_dq"] + grid_launches["flash_bwd_dq"],
+         "launches": (train_launches["flash_bwd_dq"] + grid_launches["flash_bwd_dq"]
+                      + exec_launches["flash_bwd_dq"]),
          "launches_by_path": {"training": train_launches["flash_bwd_dq"],
-                              "grid_path": grid_launches["flash_bwd_dq"]},
+                              "grid_path": grid_launches["flash_bwd_dq"],
+                              "serving_executor": exec_launches["flash_bwd_dq"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
          "ms": bt["dq"]["kernel"], "plain_ms": bt["dq"]["plain"], "bound_ms": bt["dq"]["bound"],
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
@@ -3890,7 +4372,10 @@ def main():
                        "library_ms": bt["aten_flash_backward_f16_dq_dk_dv"],
                        "library_covers": "dq, dk and dv together"}]},
         {"name": "probe", "route": "cuda", "source": "heat_tpu_torch/csrc/probe.cu",
-         "replaces": "heat_tpu/core/pallas_kernels.py:85", "launches": serve_launches["probe"],
+         "replaces": "heat_tpu/core/pallas_kernels.py:85",
+         "launches": serve_launches["probe"] + exec_launches["probe"],
+         "launches_by_path": {"serving": serve_launches["probe"],
+                              "serving_executor": exec_launches["probe"]},
          "max_abs_err": 0.0, "ms": ms_probe, "plain_ms": plain_probe, "bound_ms": b_probe[0],
          "bound_by": b_probe[1], "library_ms": lib_probe, "shape": "8x128 f32",
          "host_ms": host["probe_8x128_f32"]["wrapper"] / 1e3,

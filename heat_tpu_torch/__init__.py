@@ -14,8 +14,10 @@ k-neighbours classifier, the graph Laplacian, the distance matrices, halos
 and tilings, datasets and loaders,
 and the flagship transformer LM's training (on any dp x pp x tp x sp grid,
 with experts, pipeline stages and the sequence rings) and serving paths
-(``nn``, ``optim``, ``serve``), with hand-written CUDA kernels on the hot
-paths. Arrays and models live on the
+(``nn``, ``optim``, ``serve``: the batching executor with per-tenant
+admission and the continuous-batching decode engine), checkpoints with
+crash recovery and fault injection (``utils``), with hand-written CUDA
+kernels on the hot paths. Arrays and models live on the
 card unless the caller asks for the CPU (``device="cpu"`` or
 ``use_device("cpu")``).
 
@@ -39,3 +41,13 @@ from . import spatial
 from . import utils
 
 __version__ = core.__version__
+
+
+def runtime_stats() -> dict:
+    """The process's one observability snapshot (heat_tpu ``__init__.py:61``):
+    serving figures, the resharding plan figures, the op and data engines'
+    counters, the fault plan and every process-wide counter. See
+    :func:`heat_tpu_torch.serve.metrics.runtime_stats`."""
+    from .serve.metrics import runtime_stats as _rs
+
+    return _rs()

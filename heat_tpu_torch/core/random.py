@@ -134,6 +134,75 @@ def _next_key():
     return key
 
 
+# --------------------------------------------------------------------------- #
+# heat_tpu's sampling: jax.random.categorical on fold_in / split keys          #
+# --------------------------------------------------------------------------- #
+def _base_key(seed_: int):
+    """``jax.random.key(seed)``: the words ``(seed >> 32, seed & 0xFFFFFFFF)``."""
+    seed_ = int(seed_)
+    return ((seed_ >> 32) & _M32, seed_ & _M32)
+
+
+def _fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)`` for ``0 <= data < 2**32``."""
+    return _threefry_host(key, 0, int(data) & _M32)
+
+
+def _threefry_keyed(keys: torch.Tensor, x1: torch.Tensor):
+    """``threefry2x32`` of the counters ``(0, x1)`` under one key a row:
+    ``keys`` ``(R, 2)`` int32 word patterns, ``x1`` ``(n,)`` int32; returns
+    the ``(R, n)`` pair. :func:`_threefry` with tensor keys."""
+    k0, k1 = keys[:, :1], keys[:, 1:]
+    ks = (k0, k1, k0 ^ k1 ^ _signed32(_PARITY))
+    x0 = k0.expand(-1, x1.shape[0]).clone()
+    x1 = x1[None, :] + k1
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1)
+            low = (x1 >> (32 - r)).bitwise_and_((1 << r) - 1)
+            x1 = x1.bitwise_left_shift(r).bitwise_or_(low).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3])
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1)
+    return x0, x1
+
+
+def _uniform_tiny(words: torch.Tensor) -> torch.Tensor:
+    """jax's ``uniform(key, shape, float32, minval=tiny, maxval=1)`` of the
+    32-bit words: ``floats * (1 - tiny) + tiny``, at least ``tiny``; ``1 -
+    tiny`` is 1.0 in float32 (``random.py:_uniform``)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.clamp_min(_unit_floats(words, torch.float32) + tiny, tiny)
+
+
+def _gumbel_argmax(words: torch.Tensor, logits: torch.Tensor, temperature: float):
+    """``argmax(logits / T + gumbel)`` along the last axis, the gumbel noise
+    ``-log(-log(u))`` of :func:`_uniform_tiny` (jax's ``categorical`` with
+    its default ``mode="low"`` ``_gumbel``)."""
+    z = logits.float() / torch.tensor(float(temperature), dtype=torch.float32,
+                                      device=logits.device)
+    g = -torch.log(-torch.log(_uniform_tiny(words)))
+    return torch.argmax(g + z, dim=-1)
+
+
+def _categorical(key, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``jax.random.categorical(key, logits / T, axis=-1)`` of float32
+    ``logits`` ``(..., V)`` under one key: the noise at flat index ``i`` of
+    the logits' shape, computed on their device."""
+    flat = torch.arange(logits.numel(), dtype=torch.int64, device=logits.device)
+    return _gumbel_argmax(_words(key, flat, False).view(logits.shape), logits, temperature)
+
+
+def _categorical_rows(keys, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``categorical(keys[r], logits[r] / T)`` for each row ``r`` of ``(R,
+    V)`` float32 ``logits``, one key a row (jax's ``vmap`` of
+    ``categorical``): every row's noise at the flat indices ``0 .. V-1``."""
+    dev = logits.device
+    kt = torch.tensor([[_signed32(a), _signed32(b)] for a, b in keys], dtype=torch.int32,
+                      device=dev)
+    x0, x1 = _threefry_keyed(kt, torch.arange(logits.shape[-1], dtype=torch.int32, device=dev))
+    return _gumbel_argmax(x0.bitwise_xor_(x1), logits, temperature)
+
+
 def _local_flat(gshape, split, comm, device, lo: int, hi: int) -> torch.Tensor:
     """Global flat indices (int64) of elements ``lo .. hi`` of this rank's
     shard in its own row-major order."""

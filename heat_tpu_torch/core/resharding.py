@@ -23,6 +23,13 @@ At world size 1 every move is ``local``: the one shard is the whole array.
 heat_tpu calls the single-device and empty-array cases ``gspmd`` (its
 degenerate GSPMD program) and retries a failed dispatch through that
 program; the port has no such program, and a failed collective raises.
+
+heat_tpu compiles one program per ``(shape, dtype, gshape, from, to,
+mesh)`` and counts its plan cache's hits and misses. The port builds no
+program: :func:`plan_cache_stats` counts its plan resolutions under the
+same keys, a miss the first time :func:`reshard` moves a key, a hit every
+time after (``resharding.plan_hits`` / ``_misses`` in
+:mod:`heat_tpu_torch.utils.metrics`), and ``entries`` the keys seen.
 """
 
 from __future__ import annotations
@@ -31,7 +38,44 @@ from typing import Optional
 
 import torch
 
-__all__ = ["plan_kind", "reshard"]
+__all__ = ["plan_kind", "reshard", "plan_cache_stats", "reset_plan_cache"]
+
+# the plans resolved so far: (local shape, dtype, gshape, from, to, world) -> kind
+_PLANS: dict = {}
+_HITS = 0
+_MISSES = 0
+
+
+def plan_cache_stats() -> dict:
+    """heat_tpu's plan-cache figures (``resharding.py:82``): hits and
+    misses of the plan resolutions since the last reset, and the keys
+    seen."""
+    return {"hits": _HITS, "misses": _MISSES, "entries": len(_PLANS)}
+
+
+def reset_plan_cache() -> None:
+    global _HITS, _MISSES
+    _PLANS.clear()
+    _HITS = 0
+    _MISSES = 0
+
+
+def _resolve(tensor, gshape, from_split, to_split, comm) -> str:
+    """:func:`plan_kind` of one move, counted as heat_tpu counts its plan
+    cache."""
+    global _HITS, _MISSES
+    from ..utils import metrics
+
+    key = (tuple(tensor.shape), str(tensor.dtype), gshape, from_split, to_split, comm.size)
+    kind = _PLANS.get(key)
+    if kind is not None:
+        _HITS += 1
+        metrics.inc("resharding.plan_hits")
+        return kind
+    _MISSES += 1
+    metrics.inc("resharding.plan_misses")
+    kind = _PLANS[key] = plan_kind(gshape, from_split, to_split, comm)
+    return kind
 
 
 def plan_kind(gshape, from_split: Optional[int], to_split: Optional[int], comm) -> str:
@@ -56,9 +100,11 @@ def reshard(tensor: torch.Tensor, gshape, from_split: Optional[int],
     shard never shares memory with a larger buffer it was cut from; a
     ``noop`` or ``local`` move returns ``tensor`` itself (no DNDarray
     operation writes into a shard in place)."""
+    if from_split == to_split:
+        return tensor
     gshape = tuple(int(s) for s in gshape)
-    kind = plan_kind(gshape, from_split, to_split, comm)
-    if kind in ("noop", "local"):
+    kind = _resolve(tensor, gshape, from_split, to_split, comm)
+    if kind == "local":
         return tensor
     if kind == "local_slice":
         _, _, slices = comm.chunk(gshape, to_split)

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from ..core import random as _random
 from ..core.communication import copy_to, psum
 from ..core.tree import tree_flatten
 from .attention import (_ring_body, _ulysses_core, _zigzag_core, local_attention,
@@ -594,11 +595,14 @@ class TransformerLM(torch.nn.Module):
         return ks, vs, self._head(params, h_last)[:, 0]
 
     @staticmethod
-    def _sample(logits, temperature: float, gen: Optional[torch.Generator]):
+    def _sample(logits, temperature: float, key):
+        """Greedy at ``temperature = 0``; otherwise heat_tpu's draw
+        ``jax.random.categorical(key, logits / temperature, axis=-1)``
+        over the ``(B, V)`` float32 logits, its Threefry noise computed on
+        the logits' device (``core/random.py``)."""
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return _random._categorical(key, logits, temperature)
 
     @torch.inference_mode()
     def generate(self, params, prompts, max_new_tokens: int, temperature: float = 0.0,
@@ -611,9 +615,10 @@ class TransformerLM(torch.nn.Module):
         included) on the model's device, on every rank. Each dp rank decodes
         its ``B / dp`` rows (heads and features sharded over tp, one tp
         all-reduce a block) and one all-gather over dp joins them.
-        ``temperature = 0`` is greedy; otherwise softmax sampling from a
-        ``torch.Generator`` seeded with ``seed`` plus the dp rank (not
-        heat_tpu's Threefry draws). The prompt pads to its bucket
+        ``temperature = 0`` is greedy; otherwise heat_tpu's draws, bit for
+        bit: the key ``fold_in(key(seed), dp rank)`` split into the first
+        token's key and one key a later step (``jax.random.split(key,
+        max_new_tokens)[1:]``), each token ``categorical(key, logits / T)``. The prompt pads to its bucket
         (:meth:`prompt_bucket`) and runs one causal prefill; then one cached
         step per new token. K/V are cached after RoPE, each row rotated by
         its own position."""
@@ -644,18 +649,18 @@ class TransformerLM(torch.nn.Module):
             ck[l, :, :Sb] = ks[l]
             cv[l, :, :Sb] = vs[l]
         del ks, vs
-        gen = None
-        if temperature != 0.0:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed) + dp_idx)
-        tok = self._sample(logits0, temperature, gen)
+        # heat_tpu's keys (transformer.py:848, :862-893)
+        key = _random._fold_in(_random._base_key(seed), dp_idx)
+        key0, key = _random._split(key)
+        tok = self._sample(logits0, temperature, key0)
         out = [tok]
-        for t in range(S0, S0 + max_new_tokens - 1):
+        for i, t in enumerate(range(S0, S0 + max_new_tokens - 1)):
             x = self._embed(params, tok)[:, None, :]
             pos = torch.full((B,), t, dtype=torch.long, device=dev)
             for l, p_l in enumerate(params["layers"]):
                 x, _, _ = self._cache_layer_step(p_l, x, ck[l], cv[l], pos)
-            tok = self._sample(self._head(params, x)[:, 0], temperature, gen)
+            tok = self._sample(self._head(params, x)[:, 0], temperature,
+                               _random._threefry_host(key, 0, i + 1))
             out.append(tok)
         new = self.grid.axis("dp").Allgather(torch.stack(out, dim=1), axis=0)
         return torch.cat([full, new], dim=1).to(torch.int32)

@@ -20,21 +20,31 @@ a KV cache that lives on the model's device for the engine's lifetime:
   resolves its future and goes dead in the live mask; a queued request
   prefills into the free slot between steps. Dead slots keep their token
   and position, and their cache write lands on the same masked row.
-* **Failures.** A failed prefill fails its own request; a failed step fails
-  every in-flight future through the worker's backstop, which rebuilds
-  fresh lanes (heat_tpu's eager per-slot degraded step is not ported yet,
-  see ROADMAP).
+* **Tenancy.** ``register_tenant`` arms the executor's
+  :class:`~heat_tpu_torch.serve.admission.AdmissionController`: slot grants
+  go by priority (FIFO within one), a tenant's ``slo_ms`` is its default
+  deadline, and its admitted/completed/shed counters fold into
+  ``ht.runtime_stats()``.
+* **Failures.** A failed prefill fails its own request. A failed decode
+  step (the fault site ``serve.decode.step``, or an error of the batched
+  step) degrades that step to the eager per-slot path, the same kernels one
+  slot at a time, with every future intact (``serve.decode_fallbacks``); an
+  error past that fails every in-flight future through the worker's
+  backstop, which rebuilds fresh lanes.
 
-Greedy decoding (``temperature = 0``) is the parity-checked mode. Sampling
-at ``temperature > 0`` draws from a ``torch.Generator`` seeded with
-``DecodeConfig.seed``; its draws are not heat_tpu's Threefry bits.
-Tenancy and the process-wide serving counters are not ported yet.
+Sampling at ``temperature > 0`` is heat_tpu's draw bit for bit: the engine's
+key is ``key(DecodeConfig.seed)``, the prefill's ``fold_in(fold_in(key, 2n +
+1), slot)`` for its n-th prefill and a step's ``fold_in(fold_in(key, 2m),
+slot)`` for its m-th step (warmup's dispatches counted), each token
+``categorical(key, logits / T)`` (heat_tpu ``decode.py:494-497``, ``:543``,
+``:663``, ``:716-721``).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future, InvalidStateError, wait
 from dataclasses import dataclass
@@ -44,13 +54,24 @@ import numpy as np
 import torch
 
 from ..core import kernels
+from ..core import random as _random
+from ..utils import faults as _faults
+from ..utils import metrics as _pm
+from .admission import insert_by_priority, next_seq
 from .errors import ServeClosed, ServeDeadlineExceeded, ServeOverloaded
 
-__all__ = ["DecodeConfig", "DecodeEngine", "DECODE_STATS_KEYS"]
+__all__ = ["DecodeConfig", "DecodeEngine", "live_decode_engines", "DECODE_STATS_KEYS"]
 
 # heat_tpu's pinned decode stats (serve/decode.py:75)
 DECODE_STATS_KEYS = ("slots", "occupancy", "prefills", "decode_steps",
                      "tokens_out", "decode_fallbacks")
+
+_ENGINES: "weakref.WeakSet[DecodeEngine]" = weakref.WeakSet()
+
+
+def live_decode_engines():
+    """The engines alive in this process (``runtime_stats`` folds them)."""
+    return list(_ENGINES)
 
 
 @dataclass
@@ -72,14 +93,17 @@ class DecodeConfig:
 
 
 class _DecodeRequest:
-    __slots__ = ("prompt", "max_new", "eos_id", "enq_t", "deadline_t", "future",
-                 "generated", "slot")
+    __slots__ = ("prompt", "max_new", "eos_id", "tenant", "priority", "seq", "enq_t",
+                 "deadline_t", "future", "generated", "slot")
 
     def __init__(self, prompt: np.ndarray, max_new: int, eos_id: Optional[int],
-                 deadline_t: Optional[float]):
+                 deadline_t: Optional[float], tenant: Optional[str] = None):
         self.prompt = prompt
         self.max_new = max_new
         self.eos_id = eos_id
+        self.tenant = tenant
+        self.priority = 0
+        self.seq = next_seq()
         self.enq_t = time.monotonic()
         self.deadline_t = deadline_t
         self.future = Future()
@@ -121,10 +145,9 @@ class DecodeEngine:
         kernels.probe(torch.zeros((8, 128), dtype=torch.float32, device=self.device))
         self._shape = (c.n_layers, self.slots, self.S_cap, c.n_heads // model.tp, c.head_dim)
         self._new_lanes()
-        self._gen = None
-        if float(self.config.temperature) != 0.0:
-            self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(int(self.config.seed))
+        self._base_key = _random._base_key(self.config.seed)
+        self._step_seq = 0
+        self._prefill_seq = 0
         # host mirrors: which request owns each slot (None = free) and the
         # live mask; the device copy of the mask is re-made only on join/leave
         self._slot_req: List[Optional[_DecodeRequest]] = [None] * self.slots
@@ -132,17 +155,20 @@ class DecodeEngine:
         self._live_dev: Optional[torch.Tensor] = None
         self._q: List[_DecodeRequest] = []
         self._cv_lock = threading.Condition()
+        self._admission = None
         self._closed = False
         self._draining = False
         self._paused = False
         self._prefills = 0
         self._steps = 0
         self._tokens_out = 0
+        self._fallbacks = 0
         self._occupancy = deque(maxlen=512)
         self._ttft = deque(maxlen=4096)
         self._worker = threading.Thread(target=self._run, name=f"heat-decode-{name}",
                                         daemon=True)
         self._worker.start()
+        _ENGINES.add(self)
 
     def _new_lanes(self) -> None:
         c = self.model.cfg
@@ -161,9 +187,8 @@ class DecodeEngine:
         contract per request). Generation stops at ``max_new_tokens`` or on
         sampling ``eos_id`` (included in the result). Raises
         :class:`ServeOverloaded` when the queue is full and
-        :class:`ServeClosed` after ``close()``."""
-        if tenant is not None:
-            raise NotImplementedError("tenancy is a later slice of the port")
+        :class:`ServeClosed` after ``close()``. ``tenant`` needs
+        :meth:`register_tenant` first."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must have at least one token")
@@ -178,17 +203,32 @@ class DecodeEngine:
                 f"request needs {bucket + max_new} cache rows (prompt bucket {bucket} + "
                 f"{max_new} new) but the engine's sequence bucket is {self.S_cap}; raise "
                 f"DecodeConfig.max_seq_len")
+        adm = self._admission
+        if adm is not None:
+            tname = adm.resolve(tenant)
+        elif tenant is not None:
+            raise ValueError(f"submit(tenant={tenant!r}) needs register_tenant() first")
+        else:
+            tname = None
         if deadline_ms is None:
             deadline_ms = self.config.default_deadline_ms
+            if deadline_ms is None and adm is not None:
+                deadline_ms = adm.slo_ms(tname)
         deadline_t = None if deadline_ms is None else time.monotonic() + deadline_ms / 1e3
-        req = _DecodeRequest(prompt, max_new, eos_id, deadline_t)
+        req = _DecodeRequest(prompt, max_new, eos_id, deadline_t, tname)
         with self._cv_lock:
             if self._closed:
                 raise ServeClosed(f"decode engine {self.name!r} is closed")
             if len(self._q) >= self.config.queue_limit:
+                if adm is not None:
+                    adm.count(tname, "shed")
+                _pm.inc("serve.decode_shed")
                 raise ServeOverloaded(f"decode engine {self.name!r} queue is full "
                                       f"({self.config.queue_limit} pending)")
-            self._q.append(req)
+            if adm is not None:
+                req.priority = int(adm.get(tname).priority)
+                adm.count(tname, "admitted")
+            insert_by_priority(self._q, req)
             self._cv_lock.notify_all()
         return req.future
 
@@ -197,15 +237,45 @@ class DecodeEngine:
         """Synchronous convenience: ``submit(...).result(timeout)``."""
         return self.submit(prompt, max_new_tokens, eos_id=eos_id).result(timeout)
 
-    def register_tenant(self, name: str, **policy):
-        raise NotImplementedError("tenancy is a later slice of the port")
+    def register_tenant(self, name: str, *, priority: int = 0,
+                        slo_ms: Optional[float] = None, **policy):
+        """Register a tenant in the engine's
+        :class:`~heat_tpu_torch.serve.admission.AdmissionController`
+        (heat_tpu ``decode.py:276``): slot grants follow priority (FIFO
+        within one) and ``slo_ms`` is the tenant's default deadline. The
+        rate and breaker knobs are kept in the registry, as in heat_tpu;
+        decode admission enforces priority, SLO and the queue bound."""
+        from .admission import AdmissionController
+
+        with self._cv_lock:
+            if self._admission is None:
+                self._admission = AdmissionController()
+            adm = self._admission
+        return adm.register(name, priority=priority, slo_ms=slo_ms, **policy)
+
+    @property
+    def admission(self):
+        return self._admission
 
     # ------------------------------------------------------------------ #
     # lifecycle / introspection                                          #
     # ------------------------------------------------------------------ #
     @property
+    def live_slots(self) -> int:
+        return int(self._live.sum())
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cv_lock:
+            return len(self._q) + self.live_slots
+
+    @property
     def worker_alive(self) -> bool:
         return self._worker.is_alive()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def pause(self) -> None:
         """Hold the worker before its next admit/step (test/ops hook)."""
@@ -274,6 +344,7 @@ class DecodeEngine:
         from submission to the first token on the host (``ttft_ms``)."""
         occ = list(self._occupancy)
         ttft = sorted(self._ttft)
+        adm = self._admission
         return {
             "slots": self.slots,
             "live": int(self._live.sum()),
@@ -283,7 +354,8 @@ class DecodeEngine:
             "prefills": self._prefills,
             "decode_steps": self._steps,
             "tokens_out": self._tokens_out,
-            "decode_fallbacks": 0,  # no degraded step in the port yet
+            "decode_fallbacks": self._fallbacks,
+            "tenants": adm.tenant_stats() if adm is not None else {},
             "ttft_ms": {"n": len(ttft),
                         "p50": ttft[len(ttft) // 2] * 1e3 if ttft else None,
                         "max": ttft[-1] * 1e3 if ttft else None},
@@ -318,9 +390,14 @@ class DecodeEngine:
     # ------------------------------------------------------------------ #
     # dispatches                                                         #
     # ------------------------------------------------------------------ #
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        return self.model._sample(logits, float(self.config.temperature),
-                                  self._gen).to(torch.int32)
+    def _sample(self, logits: torch.Tensor, key, slots) -> torch.Tensor:
+        """The tokens of ``logits`` ``(R, V)``: greedy, or heat_tpu's draw
+        under ``fold_in(key, slot)`` for each row's slot."""
+        temp = float(self.config.temperature)
+        if temp == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        keys = [_random._fold_in(key, s) for s in slots]
+        return _random._categorical_rows(keys, logits, temp).to(torch.int32)
 
     @torch.no_grad()
     def _dispatch_prefill(self, prompt: np.ndarray, slot: int, record: bool = True) -> int:
@@ -330,8 +407,10 @@ class DecodeEngine:
         padded = np.zeros((1, Sp), np.int64)
         padded[0, :S0] = prompt
         toks = torch.from_numpy(padded).to(self.device)
+        self._prefill_seq += 1
+        key = _random._fold_in(self._base_key, 2 * self._prefill_seq + 1)
         ks, vs, logits = m._prompt_kv_logits(self.params, toks, S0)
-        first = self._sample(logits)[0]
+        first = self._sample(logits, key, [slot])[0]
         for l in range(m.cfg.n_layers):
             self._ck[l, slot, :Sp] = ks[l][0]
             self._cv[l, slot, :Sp] = vs[l][0]
@@ -339,23 +418,55 @@ class DecodeEngine:
         self._toks[slot] = first
         if record:
             self._prefills += 1
+            _pm.inc("serve.decode_prefills")
         return int(self._fetch(first))
 
     @torch.no_grad()
     def _dispatch_step(self, live: np.ndarray, record: bool = True) -> np.ndarray:
-        m = self.model
+        self._step_seq += 1
+        key = _random._fold_in(self._base_key, 2 * self._step_seq)
         if self._live_dev is None:
             self._live_dev = torch.from_numpy(live.copy()).to(self.device)
-        x = m._embed(self.params, self._toks.long())[:, None, :]
-        pos = self._pos.long()
-        for l, p_l in enumerate(self.params["layers"]):
-            x, _, _ = m._cache_layer_step(p_l, x, self._ck[l], self._cv[l], pos)
-        nxt = self._sample(m._head(self.params, x)[:, 0])
+        try:
+            _faults.check("serve.decode.step")
+            nxt = self._step_batched(key)
+        except Exception:  # noqa: BLE001 — degrade this step, keep every future
+            # the eager per-slot path rewrites the rows a failed step may
+            # have written (the same token at the same position)
+            _pm.inc("serve.decode_fallbacks")
+            self._fallbacks += 1
+            nxt = self._step_eager(live, key)
         self._toks = torch.where(self._live_dev, nxt, self._toks)
         self._pos = self._pos + self._live_dev.to(torch.int32)
         if record:
             self._steps += 1
+            _pm.inc("serve.decode_steps")
         return self._fetch(self._toks)
+
+    def _step_batched(self, key) -> torch.Tensor:
+        """Every slot advanced by one token in one batch."""
+        m = self.model
+        x = m._embed(self.params, self._toks.long())[:, None, :]
+        pos = self._pos.long()
+        for l, p_l in enumerate(self.params["layers"]):
+            x, _, _ = m._cache_layer_step(p_l, x, self._ck[l], self._cv[l], pos)
+        return self._sample(m._head(self.params, x)[:, 0], key, range(self.slots))
+
+    def _step_eager(self, live: np.ndarray, key) -> torch.Tensor:
+        """The degraded step (heat_tpu ``decode.py:816``): each live slot
+        alone through the same layer functions and kernels, on its own
+        views of the cache; dead slots keep their token."""
+        m = self.model
+        nxt = self._toks.clone()
+        for s in np.nonzero(live)[0]:
+            s = int(s)
+            x = m._embed(self.params, self._toks[s:s + 1].long())[:, None, :]
+            pos = self._pos[s:s + 1].long()
+            for l, p_l in enumerate(self.params["layers"]):
+                x, _, _ = m._cache_layer_step(p_l, x, self._ck[l, s:s + 1],
+                                              self._cv[l, s:s + 1], pos)
+            nxt[s] = self._sample(m._head(self.params, x)[:, 0], key, [s])[0]
+        return nxt
 
     # ------------------------------------------------------------------ #
     # worker                                                             #
@@ -382,8 +493,10 @@ class DecodeEngine:
                 if self._live.any():
                     self._do_step()
             except Exception as exc:  # noqa: BLE001 — the worker must outlive any step
-                # backstop: a step wrote the cache in place and failed part way,
-                # so every in-flight request fails typed and the lanes restart
+                # backstop: the degraded step failed too, after writing the
+                # cache in place, so every in-flight request fails and the
+                # lanes restart
+                _pm.inc("serve.worker_backstops")
                 self._reset_state(exc)
             finally:
                 with self._cv_lock:
@@ -409,8 +522,10 @@ class DecodeEngine:
             grants.append((req, slot))
         return grants, expired
 
-    @staticmethod
-    def _fail_deadline(req) -> None:
+    def _fail_deadline(self, req) -> None:
+        _pm.inc("serve.decode_deadline_expired")
+        if self._admission is not None:
+            self._admission.count(req.tenant, "deadline_expired")
         req.future.set_exception(ServeDeadlineExceeded(
             f"decode request expired after {(time.monotonic() - req.enq_t) * 1e3:.1f} ms "
             "in queue"))
@@ -426,6 +541,7 @@ class DecodeEngine:
         self._ttft.append(time.monotonic() - req.enq_t)
         req.generated = [first]
         self._tokens_out += 1
+        _pm.inc("serve.decode_tokens_out")
         if req.max_new <= 1 or (req.eos_id is not None and first == req.eos_id):
             self._finish(slot, req)
         else:
@@ -438,6 +554,7 @@ class DecodeEngine:
         toks_np = self._dispatch_step(live)
         self._occupancy.append(n_live / self.slots)
         self._tokens_out += n_live
+        _pm.inc("serve.decode_tokens_out", n_live)
         for slot in np.nonzero(live)[0]:
             req = self._slot_req[slot]
             if req is None:
@@ -452,6 +569,9 @@ class DecodeEngine:
         self._live[slot] = False
         self._live_dev = None  # membership changed: re-upload
         self._slot_req[slot] = None
+        _pm.inc("serve.decode_completed")
+        if self._admission is not None:
+            self._admission.count(req.tenant, "completed")
         req.future.set_result(np.concatenate([req.prompt,
                                               np.asarray(req.generated, np.int32)]))
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import math
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, Optional
@@ -102,10 +103,14 @@ class Metrics:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, Any] = {}
         self._observations: Dict[str, list] = {}
+        # the serving workers and their callers tick counters from several
+        # threads: a read-modify-write must not lose an increment
+        self._lock = threading.Lock()
 
     def inc(self, name: str, value: float = 1.0) -> None:
         """Add to a monotonically increasing counter."""
-        self._counters[name] = self._counters.get(name, 0.0) + value
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + value
 
     def gauge(self, name: str, value: Any) -> None:
         """Set a point-in-time value (kept as it is; may be a tensor)."""
@@ -125,7 +130,8 @@ class Metrics:
 
     def counters(self) -> Dict[str, float]:
         """A copy of the counter section alone (no device read)."""
-        return dict(self._counters)
+        with self._lock:
+            return dict(self._counters)
 
     def to_dict(self) -> Dict[str, Any]:
         """Sectioned snapshot with summary statistics per series."""

@@ -231,12 +231,11 @@ def test_port_imports_no_jax_and_no_heat_tpu():
 
 # heat_tpu's engine switches and TPU backend names, which the port does not
 # carry: the fusion engine and its switches, the Pallas and mesh-tier
-# switches, runtime_stats (with the serving executor), the Pallas kernel
-# module (the port's kernels are heat_tpu_torch.core.kernels and csrc/) and
-# the jax communicator class (the port's is TorchCommunication)
+# switches, the Pallas kernel module (the port's kernels are
+# heat_tpu_torch.core.kernels and csrc/) and the jax communicator class (the
+# port's is TorchCommunication)
 _ENGINE_NAMES = {"fusion", "set_fusion", "fusion_enabled", "pallas_enabled", "set_pallas",
-                 "mesh_tiers", "set_mesh_tiers", "runtime_stats", "pallas_kernels",
-                 "TPUCommunication"}
+                 "mesh_tiers", "set_mesh_tiers", "pallas_kernels", "TPUCommunication"}
 
 
 _FLAT_NAMES: dict = {}
@@ -260,20 +259,30 @@ def _flat_names():
 
 
 @pytest.mark.parametrize("module", ["base", "printing", "sanitation", "memory",
-                                    "stride_tricks", "communication"])
+                                    "stride_tricks", "communication", "serve",
+                                    "utils.checkpointing", "utils.faults",
+                                    "utils.program_cache"])
 def test_public_names_match_heat_tpu(module):
     """Every name of heat_tpu's ``core/<module>.__all__`` is in the port's
-    module and in its flat namespace, and every public name of heat_tpu's
-    flat namespace is in the port's (the engine switches aside)."""
+    module and in its flat namespace, every name of the ``__all__`` of
+    heat_tpu's ``serve`` and ``utils`` modules is in the port's module, and
+    every public name of heat_tpu's flat namespace (``runtime_stats``
+    among them) is in the port's (the engine switches aside)."""
     import importlib
 
-    ref = importlib.import_module(f"heat_tpu.core.{module}")
-    port = importlib.import_module(f"heat_tpu_torch.core.{module}")
+    in_core = "." not in module and module != "serve"
+    path = f"core.{module}" if in_core else module
+    ref = importlib.import_module(f"heat_tpu.{path}")
+    port = importlib.import_module(f"heat_tpu_torch.{path}")
     ref_flat, port_flat = _flat_names()
     want = [n for n in ref.__all__ if n not in _ENGINE_NAMES]
     assert [n for n in want if not hasattr(port, n)] == []
-    assert [n for n in want if n not in port_flat] == []
+    if in_core:
+        assert [n for n in want if n not in port_flat] == []
+    else:
+        assert sorted(port.__all__) == sorted(ref.__all__)
     assert sorted(n for n in ref_flat - _ENGINE_NAMES if n not in port_flat) == []
+    assert "runtime_stats" in port_flat
 
 
 def test_namespace_helpers_behave_as_heat_tpu():
