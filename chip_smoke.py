@@ -218,7 +218,9 @@ CUDA card is visible.
 import ctypes
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -366,7 +368,7 @@ def host_breakdown(torch, tk, lib, dev, gen):
 
     def flash_checks():
         tk._check_attention(q, k, v)
-        tk._on_cpu(q, k, v)
+        tk._plain(q, k, v)
         tk._check_card_attention(q, k, v)
 
     def device_guard():
@@ -1953,8 +1955,6 @@ def io_stream(torch, ht, tk, smi):
     against the in-memory fit; ``save_csv``/``load_csv`` at 40,000 x 18 on
     the native parser; KMedians and KMedoids at 2^20 x 64, their last step
     checked again in float64. Returns the phase's kernel launches."""
-    import os
-    import shutil
 
     from heat_tpu_torch import native
     from heat_tpu_torch.core import io as htio
@@ -2250,8 +2250,6 @@ def data_engine(torch, ht, tk, smi, bw):
     40,000^2 x 18 (one ``cdist_tile`` launch, asserted), and, where h5py
     imports, the HDF5 loader; each held against a plain computation on the
     same card tensors. Returns the phase's kernel launches."""
-    import os
-    import shutil
 
     from heat_tpu_torch.utils import metrics
 
@@ -2536,7 +2534,10 @@ def data_engine(torch, ht, tk, smi, bw):
     counters = {k: v for k, v in metrics.counters().items()
                 if k.startswith(("io.stream_", "data_engine."))}
     assert st["exchange_fallbacks"] == 0 and st["stream_fallbacks"] == 0, st
-    out["data_stats"] = {k: (v - stats0[k] if k != "enabled" else v) for k, v in st.items()}
+    out["data_stats"] = {
+        k: v if k == "enabled" else
+        {c: n - stats0[k][c] for c, n in v.items()} if isinstance(v, dict) else v - stats0[k]
+        for k, v in st.items()}
     out["metrics_counters"] = counters
     emit({"phase": "data_engine", "card": smi, "checks": checks, "ops": ops, **out,
           "launches": launches, "comm_stats": dict(comm.stats),
@@ -3527,7 +3528,6 @@ CKPT_DIR = "chip_smoke_ckpt"  # gitignored; removed when the phase ends
 
 
 def _dir_bytes(path):
-    import os
 
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
@@ -3561,9 +3561,7 @@ def serving_executor(torch, ht, tk, dev, smi, km):
     admission, serve phase 5's KMeans and phase 5g's KNN, and decode with
     heat_tpu's Threefry sampling. Returns the kernel launches of the
     phase's main path (recovery steps, executor batches, decode engines)."""
-    import os
     import resource
-    import shutil
     import threading
 
     from heat_tpu_torch.core import random as trandom
@@ -3948,6 +3946,300 @@ def serving_executor(torch, ht, tk, dev, smi, km):
     return launches
 
 
+# phase 10: the fusion engine's whole-step programs as CUDA graphs -------
+TRACE_DIR = "chip_smoke_trace"  # gitignored; removed when the phase ends
+FUSED_STEPS, FUSED_WARMUP = 10, 2
+
+
+def _first_difference(torch, names, a, b):
+    """The first pair of ``a`` and ``b`` (lists of tensors) that differs in
+    a bit, as (name, max abs difference, max abs value), or None."""
+    for name, x, y in zip(names, a, b):
+        if not same_bits(torch, x, y):
+            return name, float((x.float() - y.float()).abs().max()), float(y.float().abs().max())
+    return None
+
+
+# each wrapper's kernel in a profiler trace: the flash wrappers launch one
+# kernel each, kmeans_step its partial (or streaming) pass and one reduce
+TRACE_SYMBOLS = {"flash_attention": "flash_fwd_sm90_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_sm90_kernel",
+                 "kmeans_step": "kmeans_reduce_kernel"}
+
+
+def traced_kernels(torch, fn):
+    """Runs ``fn`` under ``utils.profiling.trace`` and returns how many
+    kernel events of the written trace name each symbol of
+    :data:`TRACE_SYMBOLS` (the card's own record of what ran, independent of
+    the wrappers' counts), the user spans' names, and the trace's totals:
+    files, kernel events and ``cudaGraphLaunch`` calls."""
+    from heat_tpu_torch.utils import profiling
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    try:
+        with profiling.trace(TRACE_DIR):
+            fn()
+            torch.cuda.synchronize()
+        files = [os.path.join(TRACE_DIR, f) for f in os.listdir(TRACE_DIR)]
+        assert files, "profiling.trace wrote no file"
+        counts = dict.fromkeys(TRACE_SYMBOLS, 0)
+        spans = set()
+        totals = {"files": len(files), "kernel_events": 0, "graph_launches": 0}
+        for f in files:
+            with open(f) as fh:
+                events = json.load(fh).get("traceEvents", [])
+            for ev in events:
+                if ev.get("cat") == "kernel":
+                    totals["kernel_events"] += 1
+                    for name, sym in TRACE_SYMBOLS.items():
+                        counts[name] += sym in ev.get("name", "")
+                elif ev.get("cat") == "user_annotation":
+                    spans.add(ev.get("name"))
+                elif ev.get("name") == "cudaGraphLaunch":
+                    totals["graph_launches"] += 1
+    finally:
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    return counts, spans, totals
+
+
+def fused_steps(torch, ht, tk, dev, smi):
+    """Phase 10: the flagship's training step, the Lloyd fit, the optimizer
+    update and a profiler trace through the fusion engine's programs, each
+    held bitwise against its eager run from the same start; returns the
+    launch counts of the graphed runs."""
+    from heat_tpu_torch.core import fusion
+    from heat_tpu_torch.core.tree import tree_flatten
+    from heat_tpu_torch.nn import TransformerLM, TransformerLMConfig
+    from heat_tpu_torch.utils import profiling
+
+    assert ht.pallas_enabled()
+    assert fusion.step_enabled() and fusion.fit_enabled()
+    # phases 5-9 ran their steps and fits as programs too: none fell back
+    earlier = fusion.stats()
+    assert earlier["step_fallbacks"] == earlier["fit_step_fallbacks"] == 0, earlier
+    fusion.reset()  # the programs of the earlier phases, and their graphs
+    torch.cuda.empty_cache()
+    out = {"phase": "fused_steps", "card": smi,
+           "earlier_phases": {k: earlier[k] for k in (
+               "step_flushes", "step_fallbacks", "fit_step_flushes", "fit_step_fallbacks",
+               "program_cache")}}
+    graphed_launches = dict.fromkeys(tk.launches, 0)
+    L, V = FLAGSHIP["n_layers"], FLAGSHIP["vocab"]
+    B, S = TRAIN_BATCH
+
+    # (10a) the flagship's training step as one graph
+    grid = ht.MeshGrid((1, 1, 1, 1), ("dp", "pp", "tp", "sp"))
+    model = TransformerLM(grid, TransformerLMConfig(**FLAGSHIP, compute_dtype=torch.bfloat16))
+    toks = model.shard_batch(np.random.default_rng(0).integers(0, V, (B, S)).astype(np.int32))
+
+    def train(graphed):
+        params = model.init(0, dtype=torch.float32)
+        tx = ht.optim.Adam(1e-3)
+        opt_state = tx.init(params)
+        step = model.make_train_step(tx)
+        losses = []
+        before = fusion.stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with fusion.step_override(graphed):
+            for _ in range(FUSED_WARMUP):
+                params, opt_state, loss = step(params, opt_state, toks)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            tk.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(FUSED_STEPS):
+                params, opt_state, loss = step(params, opt_state, toks)
+                losses.append(loss)
+            end.record()
+            host_us = (time.perf_counter() - t0) * 1e6 / FUSED_STEPS
+            end.synchronize()
+            launches = dict(tk.launches)
+
+            def one():
+                nonlocal params, opt_state
+                params, opt_state, _ = step(params, opt_state, toks)
+                torch.cuda.synchronize()
+
+            share = device_share(torch, one, 3, kinds=TRAIN_KINDS)
+        after = fusion.stats()
+        progs = list(step.program_cache._programs.values())
+        res = {"step_ms": start.elapsed_time(end) / FUSED_STEPS, "host_us_per_step": host_us,
+               "launches_per_step": {n: c / FUSED_STEPS for n, c in launches.items()},
+               "profiled": share, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "step_flushes": after["step_flushes"] - before["step_flushes"],
+               "step_fallbacks": after["step_fallbacks"] - before["step_fallbacks"],
+               "builds": step.program_cache.stats()["compiles"],
+               "captures": [p.captures for p in progs]}
+        return res, launches, [float(x) for x in losses], params
+
+    eager, e_launch, e_losses, e_params = train(False)
+    torch.cuda.empty_cache()
+    graph, g_launch, g_losses, g_params = train(True)
+    leaves_e = tree_flatten(e_params)[0]
+    leaves_g = tree_flatten(g_params)[0]
+    names = [f"leaf{i}{tuple(t.shape)}" for i, t in enumerate(leaves_e)]
+    diff = _first_difference(torch, names, leaves_g, leaves_e)
+    loss_bits = e_losses == g_losses
+    assert eager["builds"] == 0 and eager["step_flushes"] == 0, eager
+    assert graph["builds"] == 1 and graph["captures"] == [1], graph
+    assert graph["step_fallbacks"] == 0 and eager["step_fallbacks"] == 0
+    # the warm-up, the timed steps and device_share's 1 + 3 + 3
+    assert graph["step_flushes"] == FUSED_WARMUP + FUSED_STEPS + 7, graph
+    for name in ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert g_launch[name] == e_launch[name] == L * FUSED_STEPS, (name, g_launch, e_launch)
+        graphed_launches[name] += g_launch[name]
+    out["train_step"] = {"config": FLAGSHIP, "batch": [B, S], "optimizer": "Adam(1e-3)",
+                         "eager": eager, "graphed": graph, "losses_bitwise_equal": loss_bits,
+                         "params_bitwise_equal": diff is None, "first_differing_leaf": diff,
+                         "losses": g_losses}
+    if not loss_bits or diff is not None:
+        # cuBLAS may take another algorithm under capture: then phase 7's
+        # loss tolerance (a few bf16 roundings of the loss) holds
+        rel = max(abs(a - b) / abs(b) for a, b in zip(g_losses, e_losses))
+        out["train_step"]["max_loss_rel_diff"] = rel
+        assert rel <= 2.0**-8, rel
+    del e_params, g_params, leaves_e, leaves_g
+    torch.cuda.empty_cache()
+
+    # (10c) DataParallelOptimizer.apply_gradients at the flagship's tree
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    base, unflatten = tree_flatten(model.init(0, dtype=torch.float32))
+    grads = [unflatten([torch.randn(t.shape, device=dev, generator=gen) * 1e-3 for t in base])
+             for _ in range(3)]
+
+    def update(graphed):
+        params = unflatten([t.clone() for t in base])
+        opt = ht.optim.DataParallelOptimizer(ht.optim.Adam(1e-3))
+        before = fusion.stats()["step_flushes"]
+        with fusion.step_override(graphed):
+            for g in grads:
+                params = opt.apply_gradients(params, g)
+        torch.cuda.synchronize()
+        return tree_flatten(params)[0], fusion.stats()["step_flushes"] - before
+
+    p_e, f_e = update(False)
+    p_g, f_g = update(True)
+    d_upd = _first_difference(torch, [f"leaf{i}" for i in range(len(base))], p_g, p_e)
+    assert f_e == 0 and f_g == len(grads), (f_e, f_g)
+    assert d_upd is None, d_upd
+    out["apply_gradients"] = {"leaves": len(base), "calls": len(grads), "flushes": f_g,
+                              "bitwise_equal": True}
+    del p_e, p_g, grads, base
+    torch.cuda.empty_cache()
+
+    # (10d) a profiler trace around two graphed steps: the card ran each
+    # flash kernel as often as the graph's tally says
+    tx = ht.optim.Adam(1e-3)
+    params = model.init(0, dtype=torch.float32)
+    opt_state = tx.init(params)
+    step = model.make_train_step(tx)
+    for _ in range(2):
+        params, opt_state, _ = step(params, opt_state, toks)
+    torch.cuda.synchronize()
+    prog = next(iter(step.program_cache._programs.values()))
+    tally = dict(prog._tally["launches"])
+
+    def two_steps():
+        nonlocal params, opt_state
+        for _ in range(2):
+            with profiling.annotate("fused_train_step"):
+                params, opt_state, _ = step(params, opt_state, toks)
+
+    tk.reset_launches()
+    seen, spans, totals = traced_kernels(torch, two_steps)
+    flash = ("flash_attention", "flash_bwd_dkv", "flash_bwd_dq")
+    out["trace"] = {**totals, "spans": sorted(s for s in spans if s),
+                    "tally_per_replay": tally, "kernel_events_by_wrapper": seen,
+                    "launches_counted": dict(tk.launches), "captures": prog.captures}
+    assert prog.captures == 1, out["trace"]
+    for name in flash:
+        assert seen[name] == 2 * tally[name] == 2 * L == tk.launches[name], (name, out["trace"])
+    assert "fused_train_step" in spans, spans
+    del params, opt_state, step, model, prog
+    torch.cuda.empty_cache()
+
+    # (10b) the Lloyd fit through fit_step_call, graphed and eager
+    ht.random.seed(0)
+    X = ht.random.rand(N_POINTS, N_FEATURES, split=0)
+    init = ht.array(X.larray[:: N_POINTS // K][:K].clone(), split=None)
+    fits = {}
+    for graphed in (False, True):
+        before = fusion.stats()
+        tk.reset_launches()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        with fusion.fit_override(graphed):
+            km = ht.cluster.KMeans(n_clusters=K, init=init, max_iter=ITERS, tol=-1).fit(X)
+            torch.cuda.synchronize()
+            launches = dict(tk.launches)
+            grown = torch.cuda.memory_allocated() - mem0
+            step = km._lloyd_step(X.comm, 0)
+            c0 = init.larray.clone()
+            km._run_lloyd(step, X.larray, c0)  # warm-up and capture
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            km._run_lloyd(step, X.larray, c0)
+            end.record()
+            end.synchronize()
+        after = fusion.stats()
+        fits[graphed] = {"centers": km.cluster_centers_.larray.clone(), "inertia": km.inertia_,
+                         "kmeans_step_launches": launches["kmeans_step"],
+                         "fit_step_flushes": after["fit_step_flushes"] - before["fit_step_flushes"],
+                         "fit_step_fallbacks": after["fit_step_fallbacks"]
+                         - before["fit_step_fallbacks"],
+                         "memory_grown_gb": grown / 1e9,
+                         "lloyd_iterations_per_second": ITERS / (start.elapsed_time(end) / 1e3)}
+    prog = next(p for k, p in fusion.program_cache()._programs.items()
+                if k[:2] == ("fit", "kmeans.lloyd"))
+    # two more graphed Lloyd steps under the profiler, recorded beside the
+    # graph's tally: a whole script's trace has held none of these replays'
+    # kernels where this phase alone held both (PERF.md), so only 10d's
+    # trace of the flagship step is held to its tally
+    captures = prog.captures
+    c_tr = init.larray.clone()
+
+    def two_lloyd_steps():
+        nonlocal c_tr
+        for _ in range(2):
+            c_tr, _, _ = step(X.larray, c_tr)
+
+    tk.reset_launches()
+    seen_l, _, totals_l = traced_kernels(torch, two_lloyd_steps)
+    lloyd_trace = {**totals_l, "tally_per_replay": dict(prog._tally["launches"]),
+                   "kernel_events_by_wrapper": seen_l, "launches_counted": dict(tk.launches)}
+    assert prog.captures == captures, (prog.captures, captures)
+    assert prog._tally["launches"]["kmeans_step"] == 1 and tk.launches["kmeans_step"] == 2, \
+        lloyd_trace
+    e, g = fits[False], fits[True]
+    assert e["kmeans_step_launches"] == g["kmeans_step_launches"] == ITERS, (e, g)
+    assert e["fit_step_flushes"] == 0 and g["fit_step_flushes"] == 3 * ITERS, (e, g)
+    assert g["fit_step_fallbacks"] == 0 and e["fit_step_fallbacks"] == 0
+    assert torch.equal(e["centers"], g["centers"]) and e["inertia"] == g["inertia"], (e, g)
+    # x is bound by reference: no copy of it at a replay, no buffer of its size
+    x_gb = X.larray.numel() * 4 / 1e9
+    assert prog._owned[0] is None and g["memory_grown_gb"] < x_gb, (g, x_gb)
+    graphed_launches["kmeans_step"] += g["kmeans_step_launches"]
+    out["lloyd"] = {"points": [N_POINTS, N_FEATURES], "k": K, "iterations": ITERS,
+                    "bitwise_equal": True, "x_gb": x_gb, "captures": prog.captures,
+                    "trace": lloyd_trace,
+                    **{("graphed" if k else "eager"): {n: v for n, v in r.items() if n != "centers"}
+                       for k, r in fits.items()}}
+    del X, init, km, fits, e, g, prog, step, c_tr
+    fusion.reset()
+    torch.cuda.empty_cache()
+    out["fusion_stats"] = fusion.stats()
+    emit(out)
+    return graphed_launches
+
+
 def main():
     import torch
 
@@ -3972,6 +4264,9 @@ def main():
           "matmul_allow_bf16_reduced_precision_reduction":
               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must stay off"
+    # every card tensor goes to the hand-written kernels (set_pallas off is
+    # an A/B request only)
+    assert ht.pallas_enabled()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -4229,6 +4524,10 @@ def main():
     # 9. checkpoint-and-recover training, then the batching executor on the
     # restored weights, the estimators and decode with heat_tpu's sampling
     exec_launches = serving_executor(torch, ht, tk, dev, smi, km)
+    torch.cuda.empty_cache()
+
+    # 10. the fusion engine's whole-step programs as CUDA graphs -------- #
+    fused_launches = fused_steps(torch, ht, tk, dev, smi)
 
     emit({"kernels": [
         {"name": "cdist_tile", "route": "cuda", "source": "heat_tpu_torch/csrc/cdist_tile.cu",
@@ -4250,12 +4549,13 @@ def main():
          "replaces": "heat_tpu/core/pallas_kernels.py:858",
          "launches": (launches["kmeans_step"] + spectral_launches["kmeans_step"]
                       + io_launches["kmeans_step"] + data_launches["kmeans_step"]
-                      + exec_launches["kmeans_step"]),
+                      + exec_launches["kmeans_step"] + fused_launches["kmeans_step"]),
          "launches_by_path": {"kmeans": launches["kmeans_step"],
                               "spectral": spectral_launches["kmeans_step"],
                               "io_stream": io_launches["kmeans_step"],
                               "data_engine": data_launches["kmeans_step"],
-                              "serving_executor": exec_launches["kmeans_step"]},
+                              "serving_executor": exec_launches["kmeans_step"],
+                              "fused_steps": fused_launches["kmeans_step"]},
          "max_abs_err": d_sums, "ms": ms_km, "plain_ms": plain_km, "bound_ms": b_km[0],
          "bound_by": b_km[1], "library_ms": None, "shape": "2^23x64 f32, k=8",
          "variants": [{"shape": f"{name} f32 (streaming path)",
@@ -4266,11 +4566,13 @@ def main():
         {"name": "flash_attention", "route": "cuda", "source": FWD_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:348",
          "launches": (serve_launches["flash_attention"] + train_launches["flash_attention"]
-                      + grid_launches["flash_attention"] + exec_launches["flash_attention"]),
+                      + grid_launches["flash_attention"] + exec_launches["flash_attention"]
+                      + fused_launches["flash_attention"]),
          "launches_by_path": {"serving": serve_launches["flash_attention"],
                               "training": train_launches["flash_attention"],
                               "grid_path": grid_launches["flash_attention"],
-                              "serving_executor": exec_launches["flash_attention"]},
+                              "serving_executor": exec_launches["flash_attention"],
+                              "fused_steps": fused_launches["flash_attention"]},
          "max_abs_err": fl_checks["prefill_1x16x1024x64_bf16"]["max_abs_err"],
          "ms": fp["kernel"], "plain_ms": fp["plain"], "bound_ms": fp["bound"],
          "bound_by": fp["bound_by"], "library_ms": fp["sdpa"],
@@ -4304,10 +4606,11 @@ def main():
         {"name": "flash_bwd_dkv", "route": "cuda", "source": DKV_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:412",
          "launches": (train_launches["flash_bwd_dkv"] + grid_launches["flash_bwd_dkv"]
-                      + exec_launches["flash_bwd_dkv"]),
+                      + exec_launches["flash_bwd_dkv"] + fused_launches["flash_bwd_dkv"]),
          "launches_by_path": {"training": train_launches["flash_bwd_dkv"],
                               "grid_path": grid_launches["flash_bwd_dkv"],
-                              "serving_executor": exec_launches["flash_bwd_dkv"]},
+                              "serving_executor": exec_launches["flash_bwd_dkv"],
+                              "fused_steps": fused_launches["flash_bwd_dkv"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dk_dv_max_abs_err"],
          "ms": bt["dkv"]["kernel"], "plain_ms": bt["dkv"]["plain"], "bound_ms": bt["dkv"]["bound"],
          "bound_by": bt["dkv"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],
@@ -4339,10 +4642,11 @@ def main():
         {"name": "flash_bwd_dq", "route": "cuda", "source": DQ_SOURCE,
          "replaces": "heat_tpu/core/pallas_kernels.py:488",
          "launches": (train_launches["flash_bwd_dq"] + grid_launches["flash_bwd_dq"]
-                      + exec_launches["flash_bwd_dq"]),
+                      + exec_launches["flash_bwd_dq"] + fused_launches["flash_bwd_dq"]),
          "launches_by_path": {"training": train_launches["flash_bwd_dq"],
                               "grid_path": grid_launches["flash_bwd_dq"],
-                              "serving_executor": exec_launches["flash_bwd_dq"]},
+                              "serving_executor": exec_launches["flash_bwd_dq"],
+                              "fused_steps": fused_launches["flash_bwd_dq"]},
          "max_abs_err": bwd["checks"][BWD_PATH_CASE]["dq_max_abs_err"],
          "ms": bt["dq"]["kernel"], "plain_ms": bt["dq"]["plain"], "bound_ms": bt["dq"]["bound"],
          "bound_by": bt["dq"]["bound_by"], "library_ms": bt["aten_flash_backward_dq_dk_dv"],

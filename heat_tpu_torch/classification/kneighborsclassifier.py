@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import types
+from ..core import fusion, types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray
 from ..core.kernels import cdist_tile
@@ -67,13 +67,15 @@ def _vote(labels: torch.Tensor) -> torch.Tensor:
     return cand.amin(dim=1) if labels.dtype != torch.bool else cand.all(dim=1)
 
 
-def _ring_predict(xq: torch.Tensor, train: DNDarray, labels: torch.Tensor, k: int, dt, comm):
+def _ring_predict(xq: torch.Tensor, train: torch.Tensor, labels: torch.Tensor, n_train: int,
+                  k: int, dt, comm):
     """heat_tpu's ring program (``_ring_predict_fn`` ``:49``) on this rank's
-    test rows ``xq``: ``comm.size`` steps, ONE ``ring_step`` of the packed
-    (train block, labels) between them."""
-    counts, _ = comm.counts_displs(train.shape[0])
+    test rows ``xq`` against this rank's ``train`` shard of ``n_train``
+    rows: ``comm.size`` steps, ONE ``ring_step`` of the packed (train block,
+    labels) between them."""
+    counts, _ = comm.counts_displs(n_train)
     width = max(counts)
-    y = train.larray.to(dt)
+    y = train.to(dt)
     lab = labels
     if y.shape[0] < width:  # the ring moves equal blocks
         y = torch.cat([y, y.new_zeros((width - y.shape[0],) + tuple(y.shape[1:]))])
@@ -133,7 +135,20 @@ class KNeighborsClassifier(ClassificationMixin, BaseEstimator):
             yt = self.y if self.y.split == 0 else self.y.resplit(0)
             dt = types.promote_types(x.dtype, self.x.dtype).torch_type()
             dt = dt if dt.is_floating_point else torch.float32
-            winner = _ring_predict(x.larray, self.x, yt.larray.reshape(-1), k, dt, comm)
+            n_train = self.x.shape[0]
+
+            def ring(xq, train, labels):
+                return _ring_predict(xq, train, labels, n_train, k, dt, comm)
+
+            args = (x.larray, self.x.larray, yt.larray.reshape(-1))
+            if fusion.fit_enabled():
+                # predict-assign as one program (heat_tpu kneighborsclassifier.py:182-186)
+                winner = fusion.fit_step_call(
+                    ("knn.ring", k, n_train, tuple(tuple(a.shape) for a in args), str(dt),
+                     str(args[2].dtype), fusion._comm_key(comm), str(args[0].device)),
+                    lambda qk, ck, hk: ring, args, ring)
+            else:
+                winner = ring(*args)
             return DNDarray(winner, (x.shape[0],), types.canonical_heat_type(winner.dtype), 0,
                             x.device, comm)
         d = cdist(x, self.x.resplit(None), quadratic_expansion=True)

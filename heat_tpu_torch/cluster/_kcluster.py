@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import fusion
 from ..core import random as ht_random
 from ..core import types
 from ..core.base import BaseEstimator, ClusteringMixin
@@ -280,6 +281,23 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         if not isinstance(x, DNDarray):
             raise TypeError(f"input needs to be a DNDarray, but was {type(x)}")
         return self._assign_to_cluster(x)
+
+
+def _fit_program(name: str, step, n: int, k: int, comm):
+    """A distributed manhattan step under ``fusion.fit_enabled()``: each call
+    one :func:`~heat_tpu_torch.core.fusion.fit_step_call` program keyed by
+    ``name``, the shard's shape, ``n``, ``k`` and the communicator (heat_tpu
+    ``kmedians.py:150-160``, ``kmedoids.py:150-158``), with ``step`` itself
+    as the eager path; ``step`` as it is with the switch off."""
+    if not fusion.fit_enabled():
+        return step
+
+    def program_step(xb, cent):
+        return fusion.fit_step_call(
+            (name, tuple(xb.shape), n, k, fusion._comm_key(comm), str(xb.device)),
+            lambda qk, ck, hk: step, (xb, cent), step)
+
+    return program_step
 
 
 class _ManhattanKCluster(_KCluster):

@@ -2,12 +2,20 @@
 
 One Lloyd step on split-0 data is the ``kmeans_step`` kernel over the local
 shard (X read once), then ONE packed all-reduce of the sums, counts and
-inertia, then the centroid update. At world size 1 the all-reduce emits
-nothing. Labels are computed once, after the loop.
+inertia (:func:`~heat_tpu_torch.core.fusion.packed_psum`), then the centroid
+update. At world size 1 the all-reduce emits nothing. Under
+``fusion.fit_enabled()`` each step is one
+:func:`~heat_tpu_torch.core.fusion.fit_step_call` program (heat_tpu
+``kmeans.py:436-460``; a CUDA graph on a card, whose ``kmeans_step`` launch
+counts at each replay); the ``float(shift)`` read stays outside it, in
+``_run_lloyd``. Labels are computed once, after the loop.
 
 ``fit_stream`` runs heat_tpu's exact out-of-core epoch: each chunk's
 partials (one ``kmeans_step`` launch, then one packed all-reduce) add into
-device buffers, and the centroids update once per epoch.
+device buffers, one ``fit_step_call`` program a chunk under
+``fusion.fit_enabled()`` (heat_tpu ``:530``; run eagerly on the card too,
+as each chunk is a new host copy), and the centroids update once per
+epoch.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..core import types
+from ..core import fusion, types
 from ..core.dndarray import DNDarray
 from ..core.kernels import kmeans_step
 from ._kcluster import _KCluster
@@ -101,13 +109,25 @@ class KMeans(_KCluster):
     def _lloyd_step(self, comm, split):
         """``step(xp, centroids) -> (new_centroids, shift, inertia)`` on the
         local shard: :func:`_partials`, one packed all-reduce for split-0
-        data, the centroid update."""
-        def step(xp, centroids):
+        data, the centroid update; under ``fusion.fit_enabled()`` one
+        ``fit_step_call`` program (heat_tpu ``_lloyd_dispatcher``)."""
+        k = self.n_clusters
+
+        def body(xp, centroids):
             sums, counts, inertia = _partials(xp, centroids)
             if split == 0:
-                sums, counts, inertia = comm.packed_allreduce([sums, counts, inertia])
+                sums, counts, inertia = fusion.packed_psum([sums, counts, inertia], comm)
             new_centroids, shift = _finish_update(sums, counts, centroids)
             return new_centroids, shift, inertia
+
+        if not fusion.fit_enabled():
+            return body
+
+        def step(xp, centroids):
+            return fusion.fit_step_call(
+                ("kmeans.lloyd", tuple(xp.shape), str(xp.dtype), k, fusion._comm_key(comm),
+                 split, str(xp.device)),
+                lambda qk, ck, hk: body, (xp, centroids), body)
 
         return step
 
@@ -158,13 +178,33 @@ class KMeans(_KCluster):
         inertia = torch.zeros((), dtype=acc, device=dev)
         for chunk in chunks():
             xp = chunk.larray.to(meta["dtype"]).contiguous()
-            part = _partials(xp, centroids)
-            if chunk.split == 0:
-                part = chunk.comm.packed_allreduce(part)
-            sums += part[0]
-            counts += part[1]
-            inertia += part[2]
+            split = 0 if chunk.split == 0 else None
+            body = self._stream_partial(chunk.comm, split)
+            args = (xp, centroids, sums, counts, inertia)
+            if fusion.fit_enabled():
+                # eager on the card too: a chunk arrives from the host each
+                # call, so a graph would need a chunk-sized buffer of its own
+                # (the stream holds one chunk at a time) to save one launch
+                sums, counts, inertia = fusion.fit_step_call(
+                    ("kmeans.stream", tuple(xp.shape), str(xp.dtype), k,
+                     fusion._comm_key(chunk.comm), split, str(xp.device)),
+                    lambda qk, ck, hk, _b=body: fusion._Program(_b, graph=False), args, body)
+            else:
+                sums, counts, inertia = body(*args)
         return sums, counts, inertia
+
+    @staticmethod
+    def _stream_partial(comm, split):
+        """One chunk's partials added into the accumulators (heat_tpu
+        ``_stream_partial_fn``): ``(xp, centroids, sums, counts, inertia) ->
+        the updated three``."""
+        def body(xp, centroids, sums, counts, inertia):
+            part = _partials(xp, centroids)
+            if split == 0:
+                part = fusion.packed_psum(part, comm)
+            return sums + part[0], counts + part[1], inertia + part[2]
+
+        return body
 
     def _stream_epoch(self, chunks, centroids, meta):
         """One exact Lloyd epoch out of core: the centroids update once,

@@ -19,10 +19,11 @@ from typing import Optional, Union
 
 import torch
 
+from ..core import fusion
 from ..core._sort import (_fill_to, _float_key_dtype, _float_sort_key, _network_sort,
                           _positions, _role_tables, batcher_rounds)
 from ..core.dndarray import DNDarray
-from ._kcluster import _ManhattanKCluster, manhattan_to
+from ._kcluster import _ManhattanKCluster, _fit_program, manhattan_to
 
 __all__ = ["KMedians"]
 
@@ -75,11 +76,11 @@ class KMedians(_ManhattanKCluster):
             zero = sv.new_zeros(())
             plo = torch.where(pos == lo[:, None, None], sv, zero).sum(dim=-1)
             phi = torch.where(pos == hi[:, None, None], sv, zero).sum(dim=-1)
-            vlo, vhi = comm.packed_allreduce([plo, phi])
+            vlo, vhi = fusion.packed_psum([plo, phi], comm)
             new = torch.where((counts > 0)[:, None], 0.5 * (vlo + vhi), cent)
             return new, torch.sum((new - cent) ** 2), labels
 
-        return step
+        return _fit_program("kmedians.step", step, n, k, comm)
 
     def _local_step(self, x: torch.Tensor, centroids: torch.Tensor):
         """The step on data every rank holds (heat_tpu ``kmedians.py:166``)."""

@@ -16,9 +16,10 @@ from typing import Optional, Union
 
 import torch
 
+from ..core import fusion
 from ..core._sort import _positions
 from ..core.dndarray import DNDarray
-from ._kcluster import _ManhattanKCluster, manhattan_to
+from ._kcluster import _ManhattanKCluster, _fit_program, manhattan_to
 
 __all__ = ["KMedoids"]
 
@@ -59,18 +60,18 @@ class KMedoids(_ManhattanKCluster):
             labels = torch.argmin(manhattan_to(xb, cent), dim=1)
             member = labels[:, None] == torch.arange(k, device=xb.device)[None, :]
             counts = comm.Allreduce(member.sum(dim=0), "sum")
-            (sums,) = comm.packed_allreduce([member.to(xb.dtype).T @ xb])
+            (sums,) = fusion.packed_psum([member.to(xb.dtype).T @ xb], comm)
             means = sums / torch.clamp(counts, min=1).to(xb.dtype)[:, None]
             loc_v, loc_i = _snap(xb, member, means)
             gpos = _positions(comm, c, xb.device)
             gmin = comm.Allreduce(loc_v.clone(), "min")
             g_win = comm.Allreduce(torch.where(loc_v == gmin, gpos[loc_i], big), "min")
             winner = (gpos[:xb.shape[0], None] == g_win[None, :]).to(xb.dtype)
-            (medoids,) = comm.packed_allreduce([winner.T @ xb])
+            (medoids,) = fusion.packed_psum([winner.T @ xb], comm)
             new = torch.where((counts > 0)[:, None], medoids, cent)
             return new, torch.sum((new - cent) ** 2), labels
 
-        return step
+        return _fit_program("kmedoids.step", step, n, k, comm)
 
     def _local_step(self, x: torch.Tensor, centroids: torch.Tensor):
         """The step on data every rank holds (heat_tpu

@@ -1,6 +1,8 @@
 """Core: the DNDarray, its types, devices, communication, factories and
 the operations over it, re-exported flat as heat_tpu's core namespace is
-(``ht.mean``, ``ht.where``, ``ht.concatenate``, ...)."""
+(``ht.mean``, ``ht.where``, ``ht.concatenate``, ...), with the engine
+switches (``ht.fusion``, ``ht.fusion_enabled``, ``ht.set_fusion``,
+``ht.pallas_enabled``, ``ht.set_pallas``; heat_tpu ``core/__init__.py:56-59``)."""
 
 from .constants import *  # noqa: F401,F403
 from .types import *  # noqa: F401,F403
@@ -30,4 +32,7 @@ from .tiling import *  # noqa: F401,F403
 from . import (arithmetics, base, complex_math, exponential, factories, indexing, io, linalg, logical,
                manipulations, memory, printing, random, relational, resharding, rounding,
                sanitation, statistics, tiling, trigonometrics)
+from .kernels import pallas_enabled, set_pallas
+from . import fusion
+from .fusion import enabled as fusion_enabled, set_enabled as set_fusion
 from .version import __version__

@@ -21,17 +21,42 @@ so rules such as "exactly one all-reduce per Lloyd step" stay testable.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import capture as _capture
 
 __all__ = ["Communication", "Request", "TorchCommunication", "MeshAxisComm", "MeshGrid",
            "get_comm", "use_comm", "sanitize_comm", "distributed_init", "psum", "copy_to",
            "all_gather", "ring_shift", "ppermute", "all_to_all"]
 
 _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
+
+
+class _NoWire:
+    """The wire of a step trace (:mod:`.fusion`): its tensors hold no data,
+    so a collective sends nothing and leaves its buffers as they are; the
+    shapes the caller builds around it are the real ones."""
+
+    @staticmethod
+    def all_reduce(*args, **kwargs) -> None:
+        return None
+
+    all_gather = all_to_all_single = broadcast = all_reduce
+
+    @staticmethod
+    def P2POp(*args, **kwargs) -> None:
+        return None
+
+    @staticmethod
+    def batch_isend_irecv(ops) -> list:
+        return []
+
+
+_NO_WIRE = _NoWire()
 
 
 class Request:
@@ -151,11 +176,23 @@ class TorchCommunication(Communication):
     # ------------------------------------------------------------------ #
     # collectives                                                        #
     # ------------------------------------------------------------------ #
-    def _count(self, kind: str, nbytes: int) -> None:
+    def _count(self, kind: str, nbytes: int, like: Optional[torch.Tensor] = None):
+        """Count one collective of ``kind`` and return the wire to send it
+        on: ``torch.distributed``, or, for a data-free tensor ``like`` of a
+        step trace (:mod:`.capture`), a wire that sends nothing and counts
+        nothing. While a program is captured the count goes to the capture's
+        tally, which each replay counts."""
+        if like is not None and _capture.abstract(like):
+            return _NO_WIRE
         self._joined = True
+        tally = _capture.tally()
+        if tally is not None:
+            tally["comm"].append((self, kind, int(nbytes)))
+            return dist
         rec = self.stats.setdefault(kind, {"calls": 0, "bytes": 0})
         rec["calls"] += 1
         rec["bytes"] += int(nbytes)
+        return dist
 
     def reset_stats(self) -> None:
         self.stats = {}
@@ -166,32 +203,28 @@ class TorchCommunication(Communication):
         and, ``max`` a logical or) and comes back as bool."""
         if self.size == 1:
             return tensor
-        self._count("all_reduce", tensor.numel() * tensor.element_size())
+        net = self._count("all_reduce", tensor.numel() * tensor.element_size(), tensor)
         wire = tensor.to(torch.uint8) if tensor.dtype == torch.bool else tensor
         # the wire is the buffer in memory order: a strided tensor (a LAPACK
         # factor is column-major) would mix its elements with other ranks'
         wire = wire.contiguous()
-        dist.all_reduce(wire, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=self.group)
+        net.all_reduce(wire, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]), group=self.group)
         if wire is not tensor:
             tensor.copy_(wire)
         return tensor
 
-    def packed_allreduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Sum-reduce several tensors in ONE all-reduce: flatten, concatenate
-        (in the first tensor's dtype), reduce, split back. At world size 1
-        it emits no collective, as heat_tpu's ``fusion.packed_psum`` does for
-        trivial axes."""
-        if self.size == 1:
-            return list(tensors)
-        dtype = tensors[0].dtype
-        flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
-        self._count("packed_all_reduce", flat.numel() * flat.element_size())
-        dist.all_reduce(flat, group=self.group)
-        out, off = [], 0
-        for t in tensors:
-            out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
-            off += t.numel()
-        return out
+    def _packed_allreduce_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """The collective of one dtype group of :func:`.fusion.packed_psum`:
+        the flat buffer summed over the ranks (a bool buffer travels as
+        uint8 and comes back as a logical or), counted as
+        ``packed_all_reduce``."""
+        net = self._count("packed_all_reduce", flat.numel() * flat.element_size(), flat)
+        if flat.dtype == torch.bool:
+            wire = flat.to(torch.uint8)
+            net.all_reduce(wire, group=self.group)
+            return wire.to(torch.bool)
+        net.all_reduce(flat, group=self.group)
+        return flat
 
     def Allgather(self, tensor: torch.Tensor, axis: int = 0,
                   counts: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -211,8 +244,8 @@ class TorchCommunication(Communication):
         send = send.contiguous()
         wire = _as_bytes(send)  # any dtype travels (gloo has no bfloat16)
         parts = [torch.empty_like(wire) for _ in range(self.size)]
-        self._count("all_gather", wire.numel())
-        dist.all_gather(parts, wire, group=self.group)
+        net = self._count("all_gather", wire.numel(), wire)
+        net.all_gather(parts, wire, group=self.group)
         parts = [p.view(send.dtype).view(send.shape) for p in parts]
         return torch.cat([p.narrow(axis, 0, c) for p, c in zip(parts, counts)], dim=axis)
 
@@ -252,10 +285,10 @@ class TorchCommunication(Communication):
         send = front.contiguous().reshape(-1).view(torch.uint8)
         recv_bytes = [int(np.prod(shape)) * itemsize for shape in recv_shapes]
         recv = torch.empty(sum(recv_bytes), dtype=torch.uint8, device=tensor.device)
-        self._count("all_to_all", send.numel())
-        dist.all_to_all_single(recv, send, output_split_sizes=recv_bytes,
-                               input_split_sizes=[c * row for c in send_counts],
-                               group=self.group)
+        net = self._count("all_to_all", send.numel(), send)
+        net.all_to_all_single(recv, send, output_split_sizes=recv_bytes,
+                              input_split_sizes=[c * row for c in send_counts],
+                              group=self.group)
         pieces = [p.view(tensor.dtype).view(shape)
                   for p, shape in zip(recv.split(recv_bytes), recv_shapes)]
         return torch.cat(pieces, dim=ax).movedim(0, split_axis)
@@ -275,10 +308,10 @@ class TorchCommunication(Communication):
         send = tensor.contiguous().reshape(-1).view(torch.uint8)
         recv = torch.empty(int(sum(recv_counts)) * row, dtype=torch.uint8,
                            device=tensor.device)
-        self._count("all_to_all", send.numel())
-        dist.all_to_all_single(recv, send, output_split_sizes=[c * row for c in recv_counts],
-                               input_split_sizes=[c * row for c in send_counts],
-                               group=self.group)
+        net = self._count("all_to_all", send.numel(), send)
+        net.all_to_all_single(recv, send, output_split_sizes=[c * row for c in recv_counts],
+                              input_split_sizes=[c * row for c in send_counts],
+                              group=self.group)
         return recv.view(tensor.dtype).view((int(sum(recv_counts)),) + rest)
 
     def Exscan(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -294,8 +327,8 @@ class TorchCommunication(Communication):
             return torch.zeros_like(tensor) if op == "sum" else torch.ones_like(tensor)
         send = tensor.contiguous().reshape(-1).view(torch.uint8)
         parts = [torch.empty_like(send) for _ in range(self.size)]
-        self._count("exscan", send.numel())
-        dist.all_gather(parts, send, group=self.group)
+        net = self._count("exscan", send.numel(), send)
+        net.all_gather(parts, send, group=self.group)
         lower = [p.view(tensor.dtype).view(tensor.shape) for p in parts[:self.rank]]
         if not lower:
             return torch.zeros_like(tensor) if op == "sum" else torch.ones_like(tensor)
@@ -312,8 +345,8 @@ class TorchCommunication(Communication):
         if self.size == 1:
             return tensor
         wire = _as_bytes(tensor)
-        self._count("broadcast", wire.numel())
-        dist.broadcast(wire, self._peer(root), group=self.group)
+        net = self._count("broadcast", wire.numel(), wire)
+        net.broadcast(wire, self._peer(root), group=self.group)
         return wire.view(tensor.dtype).view(tensor.shape)
 
     def Barrier(self, failed: bool = False, device=None) -> bool:
@@ -325,20 +358,20 @@ class TorchCommunication(Communication):
         if self.size == 1:
             return failed
         flag = torch.tensor([int(failed)], dtype=torch.int32, device=device)
-        self._count("barrier", flag.numel() * flag.element_size())
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        net = self._count("barrier", flag.numel() * flag.element_size(), flag)
+        net.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
         return bool(flag.item())
 
     def _peer(self, rank: int) -> int:
         return dist.get_global_rank(self.group, rank) if self.group is not None else rank
 
-    def _join(self) -> None:
+    def _join(self, like: torch.Tensor) -> None:
         """NCCL sets up a group's communicator in its first collective, which
         every rank must join, and a round of :meth:`Permute` may leave a rank
         idle (no pair, or only empty tensors): unless this communicator has
         run a collective already, the round is preceded by a barrier
         (counted as ``p2p_join``). gloo needs none."""
-        if self._joined or dist.get_backend(self.group) != "nccl":
+        if self._joined or _capture.abstract(like) or dist.get_backend(self.group) != "nccl":
             return
         self._count("p2p_join", 0)
         dist.barrier(group=self.group)
@@ -362,10 +395,10 @@ class TorchCommunication(Communication):
         recv = torch.empty_like(send)
         nxt = self._peer((self.rank + shift) % self.size)
         prv = self._peer((self.rank - shift) % self.size)
-        self._count("ring_step", send.numel())
-        ops = [dist.P2POp(dist.isend, send, nxt, self.group),
-               dist.P2POp(dist.irecv, recv, prv, self.group)]
-        for req in dist.batch_isend_irecv(ops):
+        net = self._count("ring_step", send.numel(), send)
+        ops = [net.P2POp(dist.isend, send, nxt, self.group),
+               net.P2POp(dist.irecv, recv, prv, self.group)]
+        for req in net.batch_isend_irecv(ops):
             req.wait()
         return recv.view(tensor.dtype).view(tensor.shape)
 
@@ -391,18 +424,19 @@ class TorchCommunication(Communication):
         if dst is not None and dst != me and tensor.numel():
             send = _as_bytes(tensor)
             sent = send.numel()
-            ops.append(dist.P2POp(dist.isend, send, self._peer(dst), self.group))
+            ops.append((dist.isend, send, self._peer(dst)))
         if src == me:
             out = tensor
         elif src is not None:
             out = torch.empty(tuple(recv_shape), dtype=tensor.dtype, device=tensor.device)
             if out.numel():
                 recv = _as_bytes(out)
-                ops.append(dist.P2POp(dist.irecv, recv, self._peer(src), self.group))
-        self._join()
-        self._count("permute", sent)
+                ops.append((dist.irecv, recv, self._peer(src)))
+        self._join(tensor)
+        net = self._count("permute", sent, tensor)
         if ops:
-            for req in dist.batch_isend_irecv(ops):
+            for req in net.batch_isend_irecv([net.P2POp(f, t, peer, self.group)
+                                              for f, t, peer in ops]):
                 req.wait()
         if recv is not None:
             out = recv.view(tensor.dtype).view(tuple(recv_shape))

@@ -106,7 +106,19 @@ class DNDarray:
     @property
     def larray(self) -> torch.Tensor:
         """This rank's shard."""
+        if self.__array is None:
+            raise RuntimeError("this DNDarray was donated to a step program "
+                               "(trace_step donate_argnums) and can no longer be read")
         return self.__array
+
+    def is_deleted(self) -> bool:
+        """Whether a step program took this array by donation
+        (``fusion.trace_step(..., donate_argnums=...)``), after which any read
+        raises (heat_tpu's donated buffers)."""
+        return self.__array is None
+
+    def _donate(self) -> None:
+        self.__array = None
 
     @larray.setter
     def larray(self, tensor: torch.Tensor):

@@ -30,14 +30,17 @@ Each kernel sits beside a plain PyTorch version of the same function:
   (``_mosaic_available._probe``, ``pallas_kernels.py:85``), and
   :func:`probe_plain`.
 
-A wrapper takes the plain version only for tensors that lie on the CPU. A
-CUDA tensor launches the kernel, or the call raises: there is no fallback
-and no switch that turns a kernel off. A flash entry point picks its
-kernel's instantiation by dtype alone, never on a failure. Every
+A wrapper takes the plain version for tensors that lie on the CPU and for
+the data-free tensors of a step trace (:mod:`.capture`: shapes only).
+Otherwise a CUDA tensor launches the kernel, or the call raises: a kernel
+that fails to build or launch never gives way to its plain version, and a
+flash entry point picks its kernel's instantiation by dtype alone. Every
 wrapper launches through :func:`_launch`, on its tensors' card and that
 card's current stream. ``launches`` counts each wrapper's kernel launches;
-calling a plain version directly, as the card-side comparisons do, launches
-no kernel and counts nothing.
+a launch recorded into a CUDA graph (:mod:`.fusion`) goes to the capture's
+tally (:mod:`.capture`) and counts at each replay of the graph instead.
+Calling a plain version directly, as the card-side comparisons do,
+launches no kernel and counts nothing.
 """
 
 from __future__ import annotations
@@ -49,12 +52,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, types
+from . import _build, capture, types
 
-__all__ = ["cdist_tile", "cdist_tile_plain", "kmeans_step", "kmeans_step_plain",
-           "flash_attention", "flash_attention_plain", "flash_bwd_dkv", "flash_bwd_dkv_plain",
-           "flash_bwd_dq", "flash_bwd_dq_plain", "flash_attention_bwd_plain", "probe",
-           "probe_plain", "launches", "reset_launches"]
+__all__ = ["pallas_enabled", "set_pallas", "cdist_tile", "cdist_tile_plain", "kmeans_step",
+           "kmeans_step_plain", "flash_attention", "flash_attention_plain", "flash_bwd_dkv",
+           "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain", "flash_attention_bwd_plain",
+           "probe", "probe_plain", "launches", "reset_launches"]
 
 launches = {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0, "flash_bwd_dkv": 0,
             "flash_bwd_dq": 0, "probe": 0}
@@ -73,17 +76,36 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def set_pallas(enabled: Optional[bool]) -> None:
+    """heat_tpu's switch (``pallas_kernels.py:66``), kept for its name: True
+    or ``None`` leave card tensors on the hand-written kernels, which is the
+    only route the port has. ``False`` raises ``NotImplementedError``: no
+    setting sends a card tensor to a plain version (an A/B run calls the
+    ``*_plain`` functions itself), and heat_tpu's Mosaic probe fallback is
+    not copied, so a kernel that fails to build or launch raises."""
+    if enabled is not None and not enabled:
+        raise NotImplementedError(
+            "set_pallas(False): the port has no switch to the plain versions on the card; "
+            "call the *_plain functions for an A/B comparison")
+
+
+def pallas_enabled() -> bool:
+    """True: card tensors go to the hand-written kernels (heat_tpu
+    ``pallas_kernels.py:111``)."""
+    return True
+
+
 def _raise_on(err: int, lib, what: str) -> None:
     if err != 0:
         msg = lib.heat_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def _on_cpu(*ts) -> bool:
-    for t in ts:
-        if t is not None and not t.is_cpu:
-            return False
-    return True
+def _plain(*ts) -> bool:
+    """Whether a wrapper takes its plain version: every tensor lies on the
+    CPU, or one holds no data (a step trace)."""
+    ts = [t for t in ts if t is not None]
+    return all(t.is_cpu for t in ts) or any(capture.abstract(t) for t in ts)
 
 
 @functools.lru_cache(maxsize=256)
@@ -143,7 +165,8 @@ def _launch(name: str, index: int, *args) -> None:
     err = getattr(lib, "heat_" + name)(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if err:
         _raise_on(err, lib, name)
-    launches[name] += 1
+    tally = capture.tally()
+    (launches if tally is None else tally["launches"])[name] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -190,7 +213,7 @@ def cdist_tile(x: torch.Tensor, y: torch.Tensor, sqrt: bool = True,
     The output dtype is the promoted input dtype, float32 for integer input,
     or ``out_dtype``."""
     _check_pair(x, y)
-    if _on_cpu(x, y):
+    if _plain(x, y):
         return cdist_tile_plain(x, y, sqrt, out_dtype)
     index = _on_card(x, y)
     out, acc = _cdist_dtypes(x, y, out_dtype)
@@ -264,7 +287,7 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor,
     in its workspace row (``csrc/kmeans_step.cu``); only a row wider than
     half a block's shared memory (float32 ``d`` > ~29,000) is refused."""
     _check_step(x, centroids, valid_mask)
-    if _on_cpu(x, centroids, valid_mask):
+    if _plain(x, centroids, valid_mask):
         return kmeans_step_plain(x, centroids, valid_mask, return_labels)
     index = _on_card(x, centroids, valid_mask)
     if x.dtype not in (torch.float32, torch.float64) or centroids.dtype != x.dtype:
@@ -391,7 +414,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        if _on_cpu(q, k, v):
+        if _plain(q, k, v):
             out, lse = flash_attention_plain(q, k, v, scale, causal, return_lse=True)
         else:
             out, lse = _flash_launch(q, k, v, scale, causal, q.get_device())
@@ -405,7 +428,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dout = torch.zeros_like(out) if dout is None else dout.contiguous()
-        if _on_cpu(q, k, v):
+        if _plain(q, k, v):
             grads = flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse, ctx.scale,
                                               ctx.causal)
             return grads + (None, None)
@@ -452,11 +475,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_attention(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else float(scale)
     causal = bool(causal)
-    on_cpu = _on_cpu(q, k, v)
-    index = None if on_cpu else _check_card_attention(q, k, v)
+    plain = _plain(q, k, v)
+    index = None if plain else _check_card_attention(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         out, lse = _FlashAttention.apply(q, k, v, scale, causal)
-    elif on_cpu:
+    elif plain:
         out, lse = flash_attention_plain(q, k, v, scale, causal, return_lse=True)
     else:
         out, lse = _flash_launch(q, k, v, scale, causal, index)
@@ -621,7 +644,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, dmb, scale: Optional[float] = None,
     _check_backward(q, k, v, dout, lse, dmb)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    if _on_cpu(q, k, v, dout, lse, dmb):
+    if _plain(q, k, v, dout, lse, dmb):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, dmb, scale, causal)
     index = _check_card_backward(q, k, v, dout, lse, dmb)
     dk, dv, _ = _dkv_launch(q, k, v, dout, lse, dmb, scale, causal, index,
@@ -635,7 +658,7 @@ def flash_bwd_dq(q, k, v, dout, lse, dmb, scale: Optional[float] = None, causal:
     _check_backward(q, k, v, dout, lse, dmb)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    if _on_cpu(q, k, v, dout, lse, dmb):
+    if _plain(q, k, v, dout, lse, dmb):
         return flash_bwd_dq_plain(q, k, v, dout, lse, dmb, scale, causal)
     index = _check_card_backward(q, k, v, dout, lse, dmb)
     return _dq_launch(q, k, v, dout, lse, dmb, scale, causal, index, _split_workspace(q, k),
@@ -660,7 +683,7 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     error."""
     if x.dtype != torch.float32:
         raise ValueError(f"probe takes float32, got {x.dtype}")
-    if x.is_cpu:
+    if _plain(x):
         return probe_plain(x)
     index = _on_card(x)
     n = x.numel()

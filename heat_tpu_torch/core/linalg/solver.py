@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .. import arithmetics, exponential, factories, types
+from .. import arithmetics, exponential, factories, fusion, types
 from ..dndarray import DNDarray
 from .basics import _square_check, dot, matmul, transpose
 
@@ -58,23 +58,30 @@ def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None) -
     return x
 
 
-def _lanczos_step(a: torch.Tensor, vbuf, w, abuf, bbuf, beta, i: int, comm, counts, vi=None):
-    """One iteration of heat_tpu's step program (``solver.py:74``): ``vi``
-    defaults to ``w / beta``; returns the next ``w`` and ``beta``."""
+def _lanczos_step(a: torch.Tensor, vbuf, w, abuf, bbuf, beta, i, comm, counts, vi=None):
+    """One iteration of heat_tpu's step program (``solver.py:74``), writing
+    column ``i`` of ``vbuf`` and entry ``i`` of ``abuf`` and ``bbuf`` in
+    place: ``beta`` and ``i`` are 0-d tensors, so one program serves every
+    iteration. ``vi`` defaults to ``w / beta``; returns the next ``w`` and
+    ``beta``."""
     if vi is None:
         vi = w / beta
-    vbuf[:, i] = vi
+    at = i.reshape(1)
+    vbuf.index_copy_(1, at, vi[:, None])
     w1 = comm.Allgather(a @ vi, 0, counts)  # the iteration's one collective
     proj = vbuf.T @ w1
     w2 = w1 - vbuf @ proj
     w2 = w2 - vbuf @ (vbuf.T @ w2)  # the second classical Gram-Schmidt pass
-    abuf[i] = proj[i]
-    bbuf[i] = beta
+    abuf.index_copy_(0, at, proj.index_select(0, at))
+    bbuf.index_copy_(0, at, beta.reshape(1))
     return w2, torch.sqrt(torch.sum(w2 * w2))
 
 
 def _lanczos_split0(A: DNDarray, m: int, v0: DNDarray):
-    """Lanczos of a row-split operator (heat_tpu ``_lanczos_fused``)."""
+    """Lanczos of a row-split operator (heat_tpu ``_lanczos_fused``): each
+    iteration one :func:`~heat_tpu_torch.core.fusion.fit_step_call` program
+    (heat_tpu ``solver.py:181``), a restart iteration eagerly; the
+    ``float(beta)`` read between iterations is the one host sync."""
     from .. import random as ht_random
 
     comm = A.comm
@@ -86,15 +93,22 @@ def _lanczos_split0(A: DNDarray, m: int, v0: DNDarray):
     vbuf = torch.zeros((n, m), dtype=dt, device=dev)
     abuf = torch.zeros(m, dtype=dt, device=dev)
     bbuf = torch.zeros(m, dtype=dt, device=dev)
+    def step(a, vbuf, w, abuf, bbuf, bb, ii):
+        return _lanczos_step(a, vbuf, w, abuf, bbuf, bb, ii, comm, counts)
+
     beta = 1.0  # i = 0: v_0 = w / 1, the caller's normalized v0
     for i in range(m):
         bb = torch.tensor(beta, dtype=dt, device=dev)
-        vi = None
+        ii = torch.tensor(i, dtype=torch.int64, device=dev)
         if i > 0 and beta < 1e-10:  # restart with a random vector orthogonal to the basis
             vr = ht_random.rand(n, device=A.device, comm=comm)._logical().to(dt)
             vr = vr - vbuf @ (vbuf.T @ vr)
             vi = vr / torch.sqrt(torch.sum(vr * vr))
-        w, bnext = _lanczos_step(a, vbuf, w, abuf, bbuf, bb, i, comm, counts, vi)
+            w, bnext = _lanczos_step(a, vbuf, w, abuf, bbuf, bb, ii, comm, counts, vi)
+        else:
+            w, bnext = fusion.fit_step_call(
+                ("lanczos.step", tuple(a.shape), str(dt), m, fusion._comm_key(comm), str(dev)),
+                lambda qk, ck, hk: step, (a, vbuf, w, abuf, bbuf, bb, ii), step)
         beta = float(bnext)
     T = torch.diag(abuf)
     if m > 1:
@@ -106,7 +120,11 @@ def _lanczos_split0(A: DNDarray, m: int, v0: DNDarray):
 def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
             V_out: Optional[DNDarray] = None, T_out: Optional[DNDarray] = None):
     """Lanczos tridiagonalization ``A ≈ V T Vᵀ`` (heat_tpu ``solver.py:204``).
-    Without ``v0`` the start is heat_tpu's draw, ``rand(n)`` normalized."""
+    Without ``v0`` the start is heat_tpu's draw, ``rand(n)`` normalized. A
+    row-split operator under ``fusion.fit_enabled()`` takes heat_tpu's fused
+    inner loop (one program an iteration, twice-applied classical
+    re-orthogonalization); any other operator, or the switch off, its
+    per-operation loop with sequential re-orthogonalization."""
     if not isinstance(A, DNDarray):
         raise TypeError(f"A needs to be of type ht.DNDarray, but was {type(A)}")
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
@@ -118,7 +136,7 @@ def lanczos(A: DNDarray, m: int, v0: Optional[DNDarray] = None,
     if v0 is None:
         vr = ht_random.rand(n, split=A.split and 0, device=A.device, comm=A.comm)
         v0 = arithmetics.div(vr, exponential.sqrt(dot(vr, vr)))
-    if A.split == 0 and n > 0 and m >= 1:
+    if A.split == 0 and n > 0 and m >= 1 and fusion.fit_enabled():
         V, T = _lanczos_split0(A, m, v0)
     else:
         V, T = _lanczos_legacy(A, m, v0, n)

@@ -26,7 +26,7 @@ import builtins
 import numpy as np
 import torch
 
-from . import _operations, arithmetics, exponential, logical, types
+from . import _operations, arithmetics, exponential, fusion, logical, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -187,7 +187,7 @@ def average(x: DNDarray, axis=None, weights=None, returned: bool = False):
                                                                   False)
     den, dshape, dsplit, _ = _operations._reduce_partial(w, torch.sum, 0, axis, False)
     if touches and x.comm.size > 1:
-        num, den = x.comm.packed_allreduce([num, den])
+        num, den = fusion.packed_psum([num, den], x.comm)
     num = DNDarray(num, gshape, types.canonical_heat_type(num.dtype), out_split, x.device,
                    x.comm)
     den = DNDarray(den, dshape, types.canonical_heat_type(den.dtype), dsplit, x.device, x.comm)

@@ -6,7 +6,7 @@ the engine switch and counters (:mod:`.engine`).
 ``ht.percentile``/``ht.median``/``ht.quantile`` of a split array over all
 axes, at world size > 1, route through :func:`order_stats` (``bits``
 all-reduces of counts, no gather) and take the merge-split sort path
-instead under ``HEAT_TPU_DATA_ENGINE=0`` or ``override(False)``.
+instead under ``HEAT_TPU_TORCH_DATA_ENGINE=0`` or ``override(False)``.
 """
 
 from . import engine, ops, streaming

@@ -1,17 +1,27 @@
-"""The data engine's switch and counters (heat_tpu ``data/engine.py:53-84``,
-``:119-131``).
+"""Dispatch core of the data engine (heat_tpu ``data/engine.py``).
 
-``HEAT_TPU_DATA_ENGINE=0`` in the environment, or :func:`override`, turns
-the engine's routes off; every caller then takes its plain path (the
-percentiles: the merge-split sort; groupby, top-k and join: their
-``_eager_*`` forms on the logical arrays).
+Each engine route of :mod:`heat_tpu_torch.data` (the groupby exchange, the
+top-k exchange, the order-statistic bisection) dispatches through
+:func:`engine_call`, the data-engine sibling of
+:func:`heat_tpu_torch.core.fusion.fit_step_call`:
 
-heat_tpu compiles each engine op into a cached program and replays it
-eagerly when a compile or dispatch fails. The port runs the engine's
-routes directly, so nothing is cached and nothing is replayed: an error on
-an engine route propagates, and ``exchange_fallbacks`` and
-``stream_fallbacks`` stay 0. ``data_engine.dispatches`` counts the calls
-that took an engine route, where heat_tpu dispatches a program.
+* programs live in a :class:`ProgramCache` of their own (``data_engine.*``
+  counters), keyed by the caller's structural signature plus the fusion
+  engine's ``quant_key()``/``chunk_key()``/``hier_key()`` tuples; a program
+  is a :class:`~heat_tpu_torch.core.fusion._Program`, eager on the CPU and a
+  CUDA graph on a card;
+* the ``data.exchange.dispatch`` / ``data.stream.carry`` fault sites fire
+  before the program runs, and any build, capture or dispatch failure
+  replays the caller's eager form with identical results, counted in
+  ``data_engine.exchange_fallbacks`` (``data_engine.stream_fallbacks`` for
+  the streaming carry); a failure after a donated argument was invalidated
+  re-raises.
+
+``HEAT_TPU_TORCH_DATA_ENGINE=0`` in the environment, or :func:`override`,
+turns the engine's routes off; every caller then takes its plain path (the
+percentiles: the merge-split sort; groupby and top-k: their ``_eager_*``
+forms on the logical arrays). heat_tpu's own ``HEAT_TPU_DATA_ENGINE`` does
+not reach the port.
 """
 
 from __future__ import annotations
@@ -20,10 +30,12 @@ import os
 from contextlib import contextmanager
 
 from ..utils import metrics
+from ..utils.program_cache import ProgramCache
 
-__all__ = ["enabled", "override", "stats", "reset", "DATA_ENGINE_COUNTERS"]
+__all__ = ["enabled", "override", "engine_call", "program_cache", "stats", "reset",
+           "DATA_ENGINE_COUNTERS"]
 
-_ENABLED = os.environ.get("HEAT_TPU_DATA_ENGINE", "1") not in ("", "0", "false", "False")
+_ENABLED = os.environ.get("HEAT_TPU_TORCH_DATA_ENGINE", "1") not in ("", "0", "false", "False")
 
 # every counter the engine may tick: stats() reads each, so a counter that
 # never ticked reads 0
@@ -37,6 +49,8 @@ DATA_ENGINE_COUNTERS = (
     "data_engine.quantile_calls",
     "data_engine.join_calls",
 )
+
+_CACHE = ProgramCache("data_engine", aot=False, counter_prefix="data_engine")
 
 
 def enabled() -> bool:
@@ -56,20 +70,42 @@ def override(flag: bool):
         _ENABLED = prev
 
 
+def program_cache() -> ProgramCache:
+    return _CACHE
+
+
 def dispatched() -> None:
-    """Count one call that took an engine route."""
+    """Count one call that took an engine route outside :func:`engine_call`:
+    the join (its exchange sizes are read on the host, as heat_tpu's join is
+    no engine program either) and each streamed fold."""
     metrics.inc("data_engine.dispatches")
 
 
+def engine_call(key, build, args, eager, *, site="data.exchange.dispatch",
+                fallback_counter="data_engine.exchange_fallbacks"):
+    """Dispatch ONE data-engine program through the cache (heat_tpu
+    ``engine.py:89``). ``key`` is the caller's structural signature; the
+    program key appends the fusion engine's codec tuples. ``build(qk, ck,
+    hk)`` returns the program's function over ``args``; ``eager(*args)``
+    computes the same without the program, the path of the ``site`` fault
+    and of a failed build, capture or dispatch
+    (:func:`heat_tpu_torch.core.fusion.dispatch`)."""
+    from ..core import fusion
+
+    return fusion.dispatch(_CACHE, ("data",) + tuple(key), build, args, eager, site=site,
+                           flush_counter="data_engine.dispatches",
+                           fallback_counter=fallback_counter)
+
+
 def stats() -> dict:
-    """The engine's snapshot: ``enabled`` and every counter of
-    :data:`DATA_ENGINE_COUNTERS` without its prefix (heat_tpu's, less its
-    ``program_cache`` entry: the port caches no program)."""
+    """The engine's snapshot (heat_tpu ``engine.py:119``): ``enabled``, every
+    counter of :data:`DATA_ENGINE_COUNTERS` without its prefix, and the
+    program cache's counters."""
     c = metrics.counters()
     short = {k.split(".", 1)[1]: int(c.get(k, 0)) for k in DATA_ENGINE_COUNTERS}
-    return {"enabled": _ENABLED, **short}
+    return {"enabled": _ENABLED, **short, "program_cache": _CACHE.stats()}
 
 
 def reset() -> None:
-    """heat_tpu's ``reset`` drops its cached programs; the port caches none,
-    so there is nothing to drop."""
+    """Drop every cached program."""
+    _CACHE.reset()

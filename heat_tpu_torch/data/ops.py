@@ -44,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import types
+from ..core import fusion, types
 from ..core._sort import _float_sort_key
 from ..core.dndarray import DNDarray
 from ..utils import metrics
@@ -100,28 +100,33 @@ def order_stats(local: torch.Tensor, ranks, comm) -> torch.Tensor:
     ``local``, at the sorted 0-based ``ranks``, in the array's type and
     the same on every rank (heat_tpu ``order_stats`` ``:438`` with
     ``_build_order_stats`` ``:388``): ``bits`` rounds, each one all-reduce
-    of the (m,) counts."""
+    of the (m,) counts, the whole one :func:`.engine.engine_call` program."""
     metrics.inc("data_engine.quantile_calls")
-    engine.dispatched()
     dtype = local.dtype
     bits = _key_bits(dtype)
     kdt = _KEY_TYPES[bits]
-    su = torch.sort(signed_key(local.reshape(-1))).values
-    rk = torch.as_tensor(list(ranks), dtype=torch.int64, device=local.device)
     info = torch.iinfo(kdt)
-    lo = torch.full(rk.shape, info.min, dtype=kdt, device=local.device)
-    hi = torch.full(rk.shape, info.max, dtype=kdt, device=local.device)
-    for _ in range(bits):
-        done = lo >= hi
-        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
-        cnt = torch.searchsorted(su, mid, right=True).to(torch.int64)
-        cnt = comm.Allreduce(cnt)
-        ge = cnt >= rk + 1
-        nlo = torch.where(ge, lo, mid + 1)
-        nhi = torch.where(ge, mid, hi)
-        lo = torch.where(done, lo, nlo)
-        hi = torch.where(done, hi, nhi)
-    return decode_key(lo, dtype)
+
+    def body(local, rk):
+        su = torch.sort(signed_key(local.reshape(-1))).values
+        lo = torch.full(rk.shape, info.min, dtype=kdt, device=local.device)
+        hi = torch.full(rk.shape, info.max, dtype=kdt, device=local.device)
+        for _ in range(bits):
+            done = lo >= hi
+            mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+            cnt = torch.searchsorted(su, mid, right=True).to(torch.int64)
+            cnt = comm.Allreduce(cnt)
+            ge = cnt >= rk + 1
+            nlo = torch.where(ge, lo, mid + 1)
+            nhi = torch.where(ge, mid, hi)
+            lo = torch.where(done, lo, nlo)
+            hi = torch.where(done, hi, nhi)
+        return decode_key(lo, dtype)
+
+    rk = torch.as_tensor(list(ranks), dtype=torch.int64, device=local.device)
+    key = ("data.ostats", tuple(local.shape), str(dtype), len(rk), fusion._comm_key(comm),
+           str(local.device))
+    return engine.engine_call(key, lambda qk, ck, hk: body, (local, rk), body)
 
 
 def order_stat_take(local: torch.Tensor, n: int, q_arr, interpolation: str, floating: bool,
@@ -248,17 +253,27 @@ def groupby_agg(keys: DNDarray, num_groups: int, op: str, values: DNDarray = Non
             values = values.resplit(keys.split)
     metrics.inc("data_engine.groupby_calls")
     comm = keys.comm
+
+    def eager(*_):
+        return _eager_groupby(keys._logical(), None if values is None else values._logical(),
+                              G, op)
+
     if engine.enabled() and keys.split == 0:
-        parts = _group_partials(keys.larray, None if values is None else values.larray, G, op)
-        if op in ("min", "max"):
-            parts = (comm.Allreduce(parts[0], op),)
-        else:
-            parts = comm.packed_allreduce(parts)
-        engine.dispatched()
-        res = _group_result(parts, op)
+        def body(kp, *vp):
+            parts = _group_partials(kp, vp[0] if vp else None, G, op)
+            if op in ("min", "max"):
+                parts = (comm.Allreduce(parts[0], op),)
+            else:
+                parts = fusion.packed_psum(parts, comm)
+            return _group_result(parts, op)
+
+        args = (keys.larray,) + (() if values is None else (values.larray,))
+        key = ("data.groupby", tuple(tuple(a.shape) for a in args),
+               tuple(str(a.dtype) for a in args), n, G, op, fusion._comm_key(comm),
+               str(args[0].device))
+        res = engine.engine_call(key, lambda qk, ck, hk: body, args, eager)
     else:
-        res = _eager_groupby(keys._logical(), None if values is None else values._logical(),
-                             G, op)
+        res = eager()
     return _replicated(res, keys)
 
 
@@ -341,26 +356,35 @@ def topk(x: DNDarray, k: int, largest: bool = True):
         raise TypeError(f"topk: unordered dtype {x.dtype}")
     metrics.inc("data_engine.topk_calls")
     comm = x.comm
+
+    def eager(*_):
+        return _eager_topk(x._logical(), k, largest)
+
     if engine.enabled() and x.split == 0 and k <= comm.chunk_size(n):
-        sel, kdt = _selection_key(x.larray, largest)
-        o = torch.argsort(sel, descending=True, stable=True)[:k]
         off = comm.counts_displs(n)[1][comm.rank]
-        sv, sp = sel[o], o + off
-        if comm.size > 1:
-            # a rank holding fewer than k rows fills with entries that sort
-            # after every row (heat_tpu's pos = n, key 0)
-            pad = k - sv.shape[0]
-            sv = torch.cat([sv, sv.new_full((pad,), torch.iinfo(torch.int64).min)])
-            sp = torch.cat([sp, sp.new_full((pad,), n)])
-            bs = sv.new_zeros((comm.size, k))
-            bp = sp.new_zeros((comm.size, k))
-            bs[comm.rank], bp[comm.rank] = sv, sp
-            bs, bp = comm.packed_allreduce([bs, bp])
-            sv, sp = _best_k(bs.reshape(-1), bp.reshape(-1), k)
-        engine.dispatched()
-        vals, pos = _decode_selection(sv, largest, kdt, x.larray.dtype), sp
+
+        def body(xp):
+            sel, kdt = _selection_key(xp, largest)
+            o = torch.argsort(sel, descending=True, stable=True)[:k]
+            sv, sp = sel[o], o + off
+            if comm.size > 1:
+                # a rank holding fewer than k rows fills with entries that
+                # sort after every row (heat_tpu's pos = n, key 0)
+                pad = k - sv.shape[0]
+                sv = torch.cat([sv, sv.new_full((pad,), torch.iinfo(torch.int64).min)])
+                sp = torch.cat([sp, sp.new_full((pad,), n)])
+                bs = sv.new_zeros((comm.size, k))
+                bp = sp.new_zeros((comm.size, k))
+                bs[comm.rank], bp[comm.rank] = sv, sp
+                bs, bp = fusion.packed_psum([bs, bp], comm)
+                sv, sp = _best_k(bs.reshape(-1), bp.reshape(-1), k)
+            return _decode_selection(sv, largest, kdt, xp.dtype), sp
+
+        key = ("data.topk", tuple(x.larray.shape), str(x.larray.dtype), n, k, bool(largest),
+               fusion._comm_key(comm), str(x.larray.device))
+        vals, pos = engine.engine_call(key, lambda qk, ck, hk: body, (x.larray,), eager)
     else:
-        vals, pos = _eager_topk(x._logical(), k, largest)
+        vals, pos = eager()
     return _replicated(vals, x), _replicated(pos, x)
 
 

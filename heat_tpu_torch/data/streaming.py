@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import fusion
 from ..core.dndarray import DNDarray
 from ..utils import metrics
 from . import engine
@@ -113,7 +114,7 @@ def stream_groupby(source, num_groups: int, op: str = "sum", key_col: int = 0,
     if op in ("min", "max"):
         carry = [comm.Allreduce(carry[0], op)]
     else:
-        carry = comm.packed_allreduce(carry)
+        carry = fusion.packed_psum(carry, comm)
     return _replicated(_group_result(carry, op), like)
 
 
@@ -160,7 +161,7 @@ def stream_topk(source, k: int, largest: bool = True, col=None, rows_per_chunk: 
         bp = pos.new_zeros((comm.size, k))
         bs[comm.rank] = torch.cat([sel, sel.new_full((pad,), _INT64.min)])
         bp[comm.rank] = torch.cat([pos, pos.new_full((pad,), _INT64.max)])
-        bs, bp = comm.packed_allreduce([bs, bp])
+        bs, bp = fusion.packed_psum([bs, bp], comm)
         sel, pos = _best_k(bs.reshape(-1), bp.reshape(-1), k)
     return (_replicated(_decode_selection(sel, largest, kdt, dtype), like),
             _replicated(pos, like))
@@ -239,7 +240,7 @@ def stream_quantile(source, q, col=None, rows_per_chunk: int = 1 << 16,
             if floating:
                 nans += torch.isnan(v).sum()
             _folded()
-        counts, nans = comm.packed_allreduce([counts, nans])
+        counts, nans = fusion.packed_psum([counts, nans], comm)
         counts = counts.cpu().numpy().reshape(m, branch)
         if nan_total is None:
             nan_total = int(nans.item())

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from ..core import types
+from ..core import fusion, types
 from ..core.base import BaseEstimator, ClassificationMixin
 from ..core.dndarray import DNDarray
 from ..core.manipulations import unique
@@ -105,7 +105,7 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
         moments = [onehot.sum(0), onehot.T @ xl, onehot.T @ (xl * xl), xl.sum(0),
                    (xl * xl).sum(0)]
         if x.split == 0:
-            moments = comm.packed_allreduce(moments)
+            moments = fusion.packed_psum(moments, comm)
         counts, sums, sq, s1, s2 = moments
         means = sums / counts.clamp_min(1e-30)[:, None]
         variances = sq / counts.clamp_min(1e-30)[:, None] - means ** 2
@@ -148,13 +148,20 @@ class GaussianNB(ClassificationMixin, BaseEstimator):
 
     def _joint_log_likelihood(self, x: DNDarray):
         """(this rank's (n, k) joint log likelihood, ``x`` split along 0 or
-        not at all) (heat_tpu ``gaussianNB.py:163``)."""
+        not at all) (heat_tpu ``gaussianNB.py:163``): under
+        ``fusion.fit_enabled()`` one ``fit_step_call`` program (heat_tpu
+        ``:178``)."""
         if x.split not in (None, 0):
             x = x.resplit(0)
         xl = x.larray.to(torch.float64)
-        means = self.theta_.larray.to(xl.device)
-        return _jll(xl, means, self.var_.larray.to(xl.device),
-                    torch.log(self.class_prior_.larray.to(xl.device))), x
+        args = (xl, self.theta_.larray.to(xl.device), self.var_.larray.to(xl.device),
+                torch.log(self.class_prior_.larray.to(xl.device)))
+        if not fusion.fit_enabled():
+            return _jll(*args), x
+        jll = fusion.fit_step_call(
+            ("gnb.jll", tuple(xl.shape), args[1].shape[0], str(xl.dtype), x.split,
+             str(xl.device)), lambda qk, ck, hk: _jll, args, _jll)
+        return jll, x
 
     def logsumexp(self, a, axis=None, b=None, keepdims=False, return_sign=False):
         """Stable log-sum-exp (heat_tpu ``gaussianNB.py:187``): replicated

@@ -5,12 +5,19 @@ over its mesh; the port wraps a ``torch.nn.Module`` in Heat's own process
 model: every rank holds a replica of the parameters, takes its rows of the
 batch, and the gradients are averaged across ranks every step. With a
 loss that is a mean over the batch (``loss_is_batch_mean``, the default for
-the built-in cross-entropy) the step is heat_tpu's packed one: the local
-gradients and the loss in ONE flattened all-reduce, divided by the world
-size (the global mean is the mean of equal shards' means). Otherwise, or
-when the rows do not divide evenly, it is the exact form: the outputs and
-labels are all-gathered, the loss is taken over the whole batch on every
-rank, and each parameter's gradient is summed in an all-reduce of its own.
+the built-in cross-entropy), rows that divide evenly, a world above one
+rank and ``fusion.step_enabled()``, the step is heat_tpu's packed one
+(``data_parallel.py:253``): the local gradients and the loss in ONE
+flattened all-reduce per dtype (:func:`heat_tpu_torch.core.fusion.packed_psum`),
+divided by the world size (the global mean is the mean of equal shards'
+means), and the whole step (forward, backward, all-reduce, update) is one
+program per batch signature (a CUDA graph on a card), counted in
+``op_engine.fusion_step_flushes``. With the switch off such a step sums
+each parameter's local-mean gradient in an all-reduce of its own.
+Otherwise, or when the rows do not divide evenly, it is the exact form: the
+outputs and labels are all-gathered, the loss is taken over the whole batch
+on every rank, and each parameter's gradient is summed in an all-reduce of
+its own.
 heat_tpu's hierarchical tier split of the packed all-reduce is not ported:
 the wire is flat.
 """
@@ -21,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core import types
+from ..core import fusion, types
 from ..core.communication import all_gather, sanitize_comm
 from ..core.dndarray import DNDarray
 
@@ -73,6 +80,7 @@ class DataParallel:
 
             loss_fn = functional.cross_entropy
         self.loss_fn = loss_fn
+        self._packed_steps = None
         if optimizer is not None:
             optimizer._attach(self)
 
@@ -122,9 +130,15 @@ class DataParallel:
                 loss = self.loss_fn(self.module(bx), by)
                 grads = torch.autograd.grad(loss, params)
                 if comm.size > 1:
-                    *grads, loss = comm.packed_allreduce(list(grads) + [loss.detach()[None]])
+                    if fusion.step_enabled():
+                        *grads, loss = fusion.packed_psum(
+                            list(grads) + [loss.detach()[None]], comm)
+                        loss = loss[0]
+                    else:
+                        grads = [comm.Allreduce(g.contiguous().clone()) for g in grads]
+                        loss = comm.Allreduce(loss.detach().clone())
                     grads = [g / comm.size for g in grads]
-                    loss = loss[0] / comm.size
+                    loss = loss / comm.size
                 return loss.detach(), list(grads)
             n = torch.zeros(comm.size, dtype=torch.int64, device=bx.device)
             n[comm.rank] = bx.shape[0]
@@ -148,10 +162,38 @@ class DataParallel:
             raise RuntimeError("an optimizer is required for step()")
         if self.params is None:
             self.init(x)
-        loss, grads = self._grads(_local(x), _local(y), self._even(x))
+        bx, by = _local(x), _local(y)
+        if (fusion.step_enabled() and self.loss_is_batch_mean and self.comm.size > 1
+                and self._even(x)):
+            return float(self._packed_step(bx, by))
+        loss, grads = self._grads(bx, by, self._even(x))
+        self._update(grads)
+        return float(loss)
+
+    def _update(self, grads) -> None:
         self.optimizer.tx.update(dict(zip(self.params, grads)), self.optimizer.opt_state,
                                  self.params)
-        return float(loss)
+
+    def _packed_step(self, bx, by) -> torch.Tensor:
+        """heat_tpu's packed train step (``_build_packed_train_step``,
+        ``data_parallel.py:167``) as one program per batch signature
+        (:func:`heat_tpu_torch.core.fusion.dispatch`, no eager fallback);
+        returns the loss of the whole batch."""
+        from ..utils.program_cache import ProgramCache
+
+        if self._packed_steps is None:
+            self._packed_steps = ProgramCache("dp_step", aot=False,
+                                              counter_prefix="nn.dp_step")
+
+        def body(bx, by):
+            loss, grads = self._grads(bx, by, True)
+            self._update(grads)
+            return loss
+
+        key = (id(self.optimizer.opt_state), tuple(bx.shape), bx.dtype, tuple(by.shape),
+               by.dtype, str(bx.device))
+        return fusion.dispatch(self._packed_steps, key, lambda *codecs: body, (bx, by),
+                               flush_counter="op_engine.fusion_step_flushes")
 
     def local_loss(self, x, y) -> float:
         with torch.no_grad():
@@ -181,8 +223,7 @@ class DataParallelMultiGPU(DataParallel):
             loss, grads = self._grads(_local(x), _local(y), self._even(x))
         finally:
             self.comm = world
-        self.optimizer.tx.update(dict(zip(self.params, grads)), self.optimizer.opt_state,
-                                 self.params)
+        self._update(grads)
         self.daso.step(self.params)
         return float(loss)
 

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from ..core import fusion
 from ..core import random as _random
 from ..core.communication import copy_to, psum
 from ..core.tree import tree_flatten
@@ -420,7 +421,7 @@ class TransformerLM(torch.nn.Module):
         nll = -logp.gather(-1, targets[..., None])[..., 0]
         mask = torch.ones(S_local, dtype=nll.dtype, device=nll.device)
         if self.grid.coord("sp") == sp - 1:
-            mask[-1] = 0
+            mask[-1:].zero_()  # on the device: no host copy inside a captured step
         count = B_local * self.dp_world * (S_local * sp - 1)
         return (nll * mask).sum() / count
 
@@ -472,10 +473,10 @@ class TransformerLM(torch.nn.Module):
         rest = [g for g, e in zip(grads, flags) if not e]
         experts = [g for g, e in zip(grads, flags) if e]
         if data.size > 1:
-            *rest, loss = data.packed_allreduce(rest + [loss.reshape(1)])
+            *rest, loss = fusion.packed_psum(rest + [loss.reshape(1)], data)
             loss = loss.reshape(())
         if experts and sp_comm.size > 1:
-            experts = sp_comm.packed_allreduce(experts)
+            experts = fusion.packed_psum(experts, sp_comm)
         it_r, it_e = iter(rest), iter(experts)
         return [next(it_e) if e else next(it_r) for e in flags], loss
 
@@ -509,14 +510,42 @@ class TransformerLM(torch.nn.Module):
         The parameters and the optimizer state are updated in place (the
         counterpart of heat_tpu's donation) and come back as the same
         objects; the loss is a 0-d tensor on the model's device, so a step
-        makes no host sync."""
-        lg = self.loss_and_grad_fn()
+        makes no host sync.
 
-        def step(params, opt_state, toks):
+        On packed grids (:attr:`packed_step_supported`) and with
+        ``fusion.step_enabled()``, read at each call, the whole step
+        (forward, backward, the packed gradient all-reduce and the update)
+        is ONE program per signature of the parameters and the token batch
+        (:class:`heat_tpu_torch.core.fusion._Program`: on a card a CUDA graph
+        whose bound inputs are the caller's own parameters, so a replay
+        copies none), each call counted in ``op_engine.fusion_step_flushes``
+        (:func:`heat_tpu_torch.core.fusion.dispatch`, no eager fallback);
+        ``step.program_cache`` holds the programs. Otherwise the step runs
+        eagerly, as with the switch off."""
+        from ..utils.program_cache import ProgramCache
+
+        lg = self.loss_and_grad_fn()
+        programs = ProgramCache("train_step", aot=False, counter_prefix="nn.train_step")
+
+        def eager(params, opt_state, toks):
             loss, grads = lg(params, toks)
             tx.update(grads, opt_state, params)
             return params, opt_state, loss
 
+        def step(params, opt_state, toks):
+            if not (self.packed_step_supported and fusion.step_enabled()):
+                return eager(params, opt_state, toks)
+            toks = self._tokens(toks)
+            leaves, unflatten = tree_flatten(params)
+            key = (id(opt_state), tuple((tuple(t.shape), t.dtype, str(t.device)) for t in leaves),
+                   tuple(toks.shape), str(toks.device))
+            loss = fusion.dispatch(
+                programs, key,
+                lambda *codecs: lambda *args: eager(unflatten(args[:-1]), opt_state, args[-1])[2],
+                (*leaves, toks), flush_counter="op_engine.fusion_step_flushes")
+            return params, opt_state, loss
+
+        step.program_cache = programs
         return step
 
     # ------------------------------------------------------------- #

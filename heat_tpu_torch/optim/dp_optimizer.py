@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..core import fusion
 from ..core.communication import MeshGrid, sanitize_comm
 from ..core.tree import tree_flatten
 from .optimizers import Transform
@@ -64,6 +65,7 @@ class DataParallelOptimizer:
         self.blocking = blocking
         self.opt_state = None
         self._net = None
+        self._traced_apply = None
 
     def _attach(self, net) -> None:
         self._net = net
@@ -73,11 +75,24 @@ class DataParallelOptimizer:
 
     def apply_gradients(self, params, grads):
         """Update ``params`` in place by ``grads`` (a tree of its shape) and
-        return it; the optimizer state is made on first use."""
+        return a tree of the updated arrays; the optimizer state is made on
+        first use. The whole tree updates in ONE traced step (heat_tpu
+        ``dp_optimizer.py:113``: :func:`heat_tpu_torch.core.fusion.trace_step`
+        with the optimizer state donated, one ``op_engine.fusion_step_flushes``
+        a call, a CUDA graph on a card); the update is the port's own code,
+        capturable by construction, so it is not traced on data-free
+        tensors."""
         if self.opt_state is None:
             self.reset_state(params)
-        self.tx.update(_tensors(grads), self.opt_state, _tensors(params))
-        return params
+        if self._traced_apply is None:
+            tx = self.tx
+
+            def _apply(params, opt_state, grads):
+                tx.update(_tensors(grads), opt_state, _tensors(params))
+                return params
+
+            self._traced_apply = fusion._TracedStep(_apply, donate_argnums=(1,), trace=False)
+        return self._traced_apply(params, self.opt_state, grads)
 
     def step(self, params=None, grads=None):
         """With ``(params, grads)``: :meth:`apply_gradients`; without, nothing
@@ -155,20 +170,24 @@ class DASO:
         leaves, unflatten = tree_flatten(_tensors(params))
         dcn = self.grid.axis("dcn")
         floats = [p.detach() for p in leaves if p.is_floating_point()]
-        summed = iter(dcn.packed_allreduce(floats) if floats else [])
+        summed = iter(fusion.packed_psum(floats, dcn) if floats else [])
         return unflatten([next(summed) / self.slow_size if p.is_floating_point()
                           else p.detach().clone() for p in leaves])
 
     # -------------------------------------------------------------- #
     def _capture(self, leaves):
         """The slow-tier average in the bf16 wire dtype: every float leaf
-        downcast, summed in one packed all-reduce over ``dcn``, divided by
-        the node count (heat_tpu ``_build_packed_avg``)."""
+        downcast, summed over ``dcn`` and divided by the node count. With
+        ``fusion.step_enabled()`` the sums are one packed all-reduce (heat_tpu
+        ``_build_packed_avg``, gated at ``dp_optimizer.py:372``), else one
+        all-reduce a leaf (heat_tpu's per-leaf mean)."""
         cast = self.downcast_type
         floats = [p.detach().to(cast) for p in leaves if p.is_floating_point()]
         if self.slow_size > 1 and floats:
-            floats = [(s / self.slow_size).to(cast)
-                      for s in self.grid.axis("dcn").packed_allreduce(floats)]
+            dcn = self.grid.axis("dcn")
+            summed = (fusion.packed_psum(floats, dcn) if fusion.step_enabled()
+                      else [dcn.Allreduce(f.clone()) for f in floats])
+            floats = [(s / self.slow_size).to(cast) for s in summed]
         it = iter(floats)
         return [next(it) if p.is_floating_point() else None for p in leaves]
 

@@ -28,7 +28,9 @@ The formulas and defaults are optax's, as heat_tpu's constructors pass them
   outside): written here.
 
 heat_tpu has no kernel of its own for an update, and neither has the port;
-on the card Adam and AdamW run PyTorch's fused implementations.
+on the card Adam and AdamW run PyTorch's fused implementations, made
+``capturable`` (the step count on the card) for the eager and the graphed
+step alike (:mod:`heat_tpu_torch.core.fusion`), so the two agree bitwise.
 """
 
 from __future__ import annotations
@@ -75,8 +77,12 @@ class Transform:
                 p.grad = None
 
 
-def _fused(leaves) -> bool:
-    return all(t.device.type == "cuda" for t in leaves)
+def _fused(leaves) -> dict:
+    """Adam's and AdamW's implementation settings: fused and capturable on
+    the card, PyTorch's default elsewhere."""
+    if leaves and all(t.device.type == "cuda" for t in leaves):
+        return {"fused": True, "capturable": True}
+    return {}
 
 
 class _Optax(torch.optim.Optimizer):
@@ -158,14 +164,14 @@ def SGD(lr: float = 0.01, momentum: float = 0.0, nesterov: bool = False) -> Tran
 def Adam(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999) -> Transform:
     """Adam with optax's defaults: eps 1e-8, eps_root 0, bias correction."""
     return Transform("Adam", lambda leaves: torch.optim.Adam(
-        leaves, lr=lr, betas=(b1, b2), eps=1e-8, fused=True if _fused(leaves) else None))
+        leaves, lr=lr, betas=(b1, b2), eps=1e-8, **_fused(leaves)))
 
 
 def AdamW(lr: float = 1e-3, weight_decay: float = 1e-4) -> Transform:
     """AdamW with optax's defaults (heat_tpu passes weight_decay 1e-4)."""
     return Transform("AdamW", lambda leaves: torch.optim.AdamW(
         leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
-        fused=True if _fused(leaves) else None))
+        **_fused(leaves)))
 
 
 def Adagrad(lr: float = 1e-2) -> Transform:

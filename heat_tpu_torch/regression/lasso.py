@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import factories, types
+from ..core import factories, fusion, types
 from ..core.base import BaseEstimator, RegressionMixin
 from ..core.dndarray import DNDarray
 
@@ -110,8 +110,16 @@ class Lasso(RegressionMixin, BaseEstimator):
             xp = x.larray.to(torch.float32)
             yp = y.larray.reshape(-1).to(torch.float32)
 
-            def sweep(theta):
+            def body(xp, yp, theta):
                 return self._sweep_split(xp, yp, theta, lam_n, comm)
+
+            def sweep(theta):
+                if not fusion.fit_enabled():
+                    return body(xp, yp, theta)
+                # one program a sweep (heat_tpu lasso.py:187-194)
+                return fusion.fit_step_call(
+                    ("lasso.sweep", tuple(xp.shape), n, lam_n, fusion._comm_key(comm),
+                     str(xp.device)), lambda qk, ck, hk: body, (xp, yp, theta), body)
         else:
             X = _with_intercept(x._logical().to(torch.float32))
             yl = y._logical().reshape(-1).to(torch.float32)

@@ -12,10 +12,9 @@ heat_tpu's key set:
   depth, their program caches, their tenants' admission counters and the
   live decode engines' figures (``"decode"``, :data:`DECODE_STATS_KEYS`);
 * ``"resharding"``: :func:`heat_tpu_torch.core.resharding.plan_cache_stats`;
-* ``"op_engine"``: heat_tpu's keys for an op engine that the port does
-  not have yet: ``align_resplits`` 0 and ``"fusion"``, the key set of
-  heat_tpu's ``fusion.stats()`` with every switch off, every count 0 and
-  every setting None;
+* ``"op_engine"``: ``align_resplits`` (the op tape's counter, 0 until the
+  tape is ported) and ``"fusion"``, exactly
+  :func:`heat_tpu_torch.core.fusion.stats`;
 * ``"data_engine"``: :func:`heat_tpu_torch.data.engine.stats`;
 * ``"faults"``: :func:`heat_tpu_torch.utils.faults.stats`;
 * ``"counters"``: every counter of :mod:`heat_tpu_torch.utils.metrics`.
@@ -149,36 +148,10 @@ class ServeMetrics:
 DEFAULT = ServeMetrics()
 
 
-#: heat_tpu's ``fusion.stats()`` counters (``core/fusion.py:3818``)
-_FUSION_COUNTS = (
-    "step_flushes", "step_fallbacks", "fit_step_flushes", "fit_step_fallbacks", "flushes",
-    "flush_fallbacks", "inline_flushes", "reduce_flushes", "contract_flushes",
-    "resplit_flushes", "resplit_nodes", "resplit_fallbacks", "fused_ops",
-    "quant_collectives", "quant_bytes_saved", "quant_fallbacks", "chunk_collectives",
-    "chunk_fallbacks", "hier_collectives", "hier_fallbacks", "ops_per_flush")
-#: its switches and settings
-_FUSION_SETTINGS = (
-    "enabled", "reduce_enabled", "contract_enabled", "resplit_enabled", "step_enabled",
-    "fit_enabled", "hier_enabled", "max_ops", "min_ops", "quant_codec",
-    "quant_min_numel", "chunk_count", "chunk_min_numel", "mesh_tiers", "hier_ici_codec")
-
-
-def _fusion_off() -> dict:
-    """heat_tpu's ``fusion.stats()`` key set for an engine that is not
-    there: the port has no fusion engine, so every switch is False, every
-    count 0 and every setting None."""
-    from ..utils.program_cache import ProgramCache
-
-    out = {k: (False if k.endswith("enabled") else None) for k in _FUSION_SETTINGS}
-    out.update(dict.fromkeys(_FUSION_COUNTS, 0))
-    out["program_cache"] = dict.fromkeys(ProgramCache.STATS_KEYS, 0)
-    return out
-
-
 def runtime_stats() -> dict:
     """One observability snapshot for the whole process (heat_tpu
     ``serve/metrics.py:146``); see the module's docstring for its keys."""
-    from ..core import resharding
+    from ..core import fusion, resharding
     from ..data import engine as _data_engine
     from ..utils import faults as _faults
     from ..utils import metrics as _pm
@@ -231,8 +204,10 @@ def runtime_stats() -> dict:
         "serve": DEFAULT.snapshot(queue_depth=depth, executors=n_exec, program_cache=cache_stats,
                                   tenants=tenants, decode=decode),
         "resharding": resharding.plan_cache_stats(),
-        # heat_tpu's op engine and its counters are not ported (no writer)
-        "op_engine": {"align_resplits": 0, "fusion": _fusion_off()},
+        # heat_tpu's op tape (part (b) of its fusion engine) is not ported:
+        # its alignment counter has no writer
+        "op_engine": {"align_resplits": int(counters.get("op_engine.align_resplits", 0)),
+                      "fusion": fusion.stats()},
         "data_engine": _data_engine.stats(),
         "faults": _faults.stats(),
         "counters": counters,

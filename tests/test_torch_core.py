@@ -229,13 +229,11 @@ def test_port_imports_no_jax_and_no_heat_tpu():
             assert not any(_forbidden(n) for n in names), (path, names)
 
 
-# heat_tpu's engine switches and TPU backend names, which the port does not
-# carry: the fusion engine and its switches, the Pallas and mesh-tier
-# switches, the Pallas kernel module (the port's kernels are
+# heat_tpu's names the port does not carry: the mesh-tier switches (part (c)
+# of the fusion engine), the Pallas kernel module (the port's kernels are
 # heat_tpu_torch.core.kernels and csrc/) and the jax communicator class (the
 # port's is TorchCommunication)
-_ENGINE_NAMES = {"fusion", "set_fusion", "fusion_enabled", "pallas_enabled", "set_pallas",
-                 "mesh_tiers", "set_mesh_tiers", "pallas_kernels", "TPUCommunication"}
+_ENGINE_NAMES = {"mesh_tiers", "set_mesh_tiers", "pallas_kernels", "TPUCommunication"}
 
 
 _FLAT_NAMES: dict = {}

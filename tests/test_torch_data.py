@@ -119,8 +119,8 @@ def test_world2_matches_heat_tpu(references, world2, case):
 
 
 def test_engine_stats_and_metrics(tmp_path):
-    """``data.stats()`` reads every engine counter, its two fallback
-    counters stay 0, and ``utils.metrics`` exports them with the streams'
+    """``data.stats()`` reads every engine counter and its program cache,
+    its two fallback counters stay 0, and ``utils.metrics`` exports them with the streams'
     ``io.stream_*`` counters as one JSON line."""
     import json
 
@@ -132,13 +132,17 @@ def test_engine_stats_and_metrics(tmp_path):
     after = ht.data.stats()
     assert set(after) == {"enabled", "dispatches", "exchange_fallbacks", "stream_chunks",
                           "stream_fallbacks", "groupby_calls", "topk_calls", "quantile_calls",
-                          "join_calls"}
+                          "join_calls", "program_cache"}
     assert after["exchange_fallbacks"] == after["stream_fallbacks"] == 0
     # 8 passes of 3 chunks, each a dispatch
     assert after["stream_chunks"] - before["stream_chunks"] == 24
     assert after["quantile_calls"] - before["quantile_calls"] == 1
+    # reset drops the cached programs (heat_tpu's) and keeps the counters
     ht.data.reset()
-    assert ht.data.stats() == after
+    cleared = ht.data.stats()
+    assert cleared.pop("program_cache") == dict.fromkeys(
+        ("hits", "misses", "compiles", "evictions", "entries"), 0)
+    assert cleared == {k: v for k, v in after.items() if k != "program_cache"}
     m = metrics.Metrics()
     m.inc("a", 2)
     m.gauge("g", torch.tensor([1.5, float("nan")]))

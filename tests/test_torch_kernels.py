@@ -188,11 +188,14 @@ def test_wrappers_take_plain_only_on_cpu():
     tk.kmeans_step(x, x[:2])
     assert tk.launches == {"cdist_tile": 0, "kmeans_step": 0, "flash_attention": 0,
                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0, "probe": 0}
+    # data-free tensors (a step trace's) take the plain version too: shapes
+    # only, no launch
     meta = torch.empty(5, 3, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        tk.cdist_tile(meta, meta)
-    with pytest.raises(ValueError, match="CUDA"):
-        tk.kmeans_step(meta, meta[:2])
+    d = tk.cdist_tile(meta, meta)
+    sums, counts, inertia = tk.kmeans_step(meta, meta[:2])
+    assert d.is_meta and d.shape == (5, 5)
+    assert sums.is_meta and (sums.shape, counts.shape, inertia.shape) == ((2, 3), (2,), ())
+    assert sum(tk.launches.values()) == 0
     with pytest.raises(ValueError):
         tk.kmeans_step(x, x[:2], torch.ones(5))  # a float mask is refused
 
